@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases, each printing one JSON line:
+Run from the root of a checkout. Phases, each printing JSON lines:
 
 0. device   : the card's name and power limit (nvidia-smi).
-1. build    : nvcc builds the Hopper kernel library from justrelax_tpu_torch/csrc.
+1. build    : nvcc builds both Hopper kernel libraries from
+              justrelax_tpu_torch/csrc, one nvcc per source, side by side
+              (lines "build" for stokes_vep.cu and "build_ve" for stokes_ve.cu).
 2. parity   : the VEP chunk kernel against its plain PyTorch version on the
               card, f64, n=64, nout 1 and 50, in four configurations.
 3. golden   : shearband.run(n=32, nt=10, f64) through the kernel against the
@@ -17,6 +19,18 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               and from a state with old stresses near yield.
 5. timing   : per-iteration time of kernel and plain version at 1024^2 f32
               from both states, by CUDA events.
+6. parity_ve: the VE chunk kernel against its plain version, f64, n=64,
+              nout 1 and 500, in three configurations (SolCx viscous limit,
+              VE compressible, elastic build-up).
+7. golden_ve: SolCx (Δη 1e6 and 1), SolKz and the elastic build-up at 32²,
+              f64, through the default entry points, on the JAX package's
+              oracles.
+8. main_path_ve: SolCx at 1024^2 f32 through the default entry point (the
+              production grid of the VE solve), 20 000 iterations, with the
+              launch count read around it; then 200 iterations kernel vs
+              plain from its initial state.
+9. timing_ve: per-iteration time of the VE kernel and its plain version at
+              1024^2 f32, by CUDA events.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
@@ -32,19 +46,23 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from justrelax_tpu_torch.core.grid import Geometry  # noqa: E402
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs  # noqa: E402
-from justrelax_tpu_torch.models import shearband  # noqa: E402
+from justrelax_tpu_torch.models import elastic_buildup, shearband, solcx, solkz  # noqa: E402
 from justrelax_tpu_torch.models.shearband import _circle_phase_ratios  # noqa: E402
+from justrelax_tpu_torch.ops import _cuda_build  # noqa: E402
+from justrelax_tpu_torch.ops import hopper_stokes as hs  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv  # noqa: E402
 from justrelax_tpu_torch.ops.bc import Faces, VelocityBoundaryConditions, flow_bcs  # noqa: E402
-from justrelax_tpu_torch.ops.stencil import av_vertex_to_center, expand_edges  # noqa: E402
+from justrelax_tpu_torch.ops.stencil import av_vertex_to_center, expand_edges, maxloc  # noqa: E402
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack  # noqa: E402
 from justrelax_tpu_torch.rheology.viscosity import phase_viscosity  # noqa: E402
 
@@ -56,6 +74,13 @@ TOL_NOUT50 = 2e-6  # yield-branch flips of cells on the yield surface
 # against its f64 result where rounding grows larger than that (near yield)
 TOL_F32_1024 = 1e-4
 HBM_PEAK = {"PCIe": 2.0e12, "SXM": 3.35e12}  # B/s, NVIDIA data sheets
+VE_FIELDS = ("Vx", "Vy", "P", "txx", "tyy", "txy")
+VE_CASES = ("solcx", "ve_compressible", "elastic_buildup")
+TOL_VE_NOUT1 = 1e-12  # rounding only (differences as rel_diffs_ve defines them)
+TOL_VE_NOUT500 = 1e-10
+# words per cell and PT iteration in the repo's accounting
+# (justrelax_tpu/utils/bench_kernels.py: vep2d 39, ve2d 23)
+WORDS_VEP, WORDS_VE = 39, 23
 
 
 def emit(phase, **kw):
@@ -77,25 +102,39 @@ def rel_diffs(a, b):
 
 
 def to_f64(x):
-    """A chunk argument in float64 (tensors and the material stack)."""
+    """A chunk argument in float64 (tensors, tuples of them and the material
+    stack)."""
     if isinstance(x, torch.Tensor):
         return x.double()
     if isinstance(x, MaterialStack):
         return x.to(dtype=torch.float64)
+    if isinstance(x, tuple):
+        return tuple(map(to_f64, x))
     return x
 
 
-def f32_gaps(args, kw, nout):
+def rel_diffs_ve(a, b):
+    """max |a − b| per VE field relative to the field's max |b| (b the plain
+    version), with no floor: SolCx velocities are far below 1. A field that
+    is zero in both has no difference."""
+    out = {}
+    for name, x, y in zip(VE_FIELDS, a, b):
+        d, m = float((x - y).abs().max()), float(y.abs().max())
+        out[name] = 0.0 if d == 0.0 else (d / m if m > 0.0 else math.inf)
+    return out
+
+
+def f32_gaps(kernel, reference, rel, args, kw, nout):
     """Kernel against plain in f32, and both against the plain version in
     f64 on the same inputs: how far the kernel is from the plain version,
-    and how far f32 rounding alone takes the plain version."""
-    out = hv.stokes_vep_chunk(*args, nout=nout, **kw)
-    ref = hv.stokes_vep_chunk_reference(*args, nout=nout, **kw)
-    ref64 = hv.stokes_vep_chunk_reference(
-        *map(to_f64, args), nout=nout, **{k: to_f64(v) for k, v in kw.items()})
-    gap = rel_diffs(out, ref)
-    return gap, max(gap.values()), max(rel_diffs(out, ref64).values()), \
-        max(rel_diffs(ref, ref64).values()), float(ref[10].max())
+    and how far f32 rounding alone takes the plain version. Returns (gap per
+    field, max gap, kernel vs f64, plain vs f64, the plain f32 result)."""
+    out = kernel(*args, nout=nout, **kw)
+    ref = reference(*args, nout=nout, **kw)
+    ref64 = reference(*map(to_f64, args), nout=nout, **{k: to_f64(v) for k, v in kw.items()})
+    gap = rel(out, ref)
+    return gap, max(gap.values()), max(rel(out, ref64).values()), \
+        max(rel(ref, ref64).values()), ref
 
 
 def abs_diff(a, b):
@@ -169,6 +208,57 @@ def chunk_case(name, n, dtype, dev):
     return args, dict(flow_bc=bc, T_v=T_v)
 
 
+# ---- the three configurations of the VE parity phase ----------------------
+def ve_case(name, n, dtype, dev):
+    """Inputs of one ``stokes_chunk`` call: (args, kwargs), from a numpy
+    seed. Every carried field is non-trivial after one iteration."""
+    rng = np.random.default_rng(3)
+    kw = dict(dtype=dtype, device=dev)
+    c, v = (n, n), (n + 1, n + 1)
+
+    def rand(shape, scale, offset=0.0):
+        return torch.as_tensor(offset + scale * rng.standard_normal(shape), **kw)
+
+    if name == "solcx":  # viscous limit, smoothed Δη = 1e6, from a random state
+        geometry, st, pt, _, rho_g, G, K, _ = solcx._setup(n, n, 1e6, 1.0, 1.0, dtype, dev)
+        eta = st.viscosity.eta
+        carry = (rand((n + 1, n + 2), 1e-3), rand((n + 2, n + 1), 1e-3),
+                 rand(c, 0.1), rand(c, 0.1), rand(c, 0.1), rand(v, 0.1))
+        phys = dict(G=G, K=K, dt=0.1)
+    elif name == "ve_compressible":  # the set-up of tests/test_pallas.py:104-140
+        geometry = Geometry(c, (1.0, 1.0))
+        pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=1.0 / math.sqrt(2.1))
+        eta = torch.as_tensor(np.exp(rng.uniform(0.0, 2.0, c)), **kw)
+        rho_g = (rand(c, 0.3), rand(c, 0.2, 1.0))
+        carry = (torch.zeros((n + 1, n + 2), **kw), torch.zeros((n + 2, n + 1), **kw),
+                 *(torch.zeros(c, **kw) for _ in range(3)), torch.zeros(v, **kw))
+        phys = dict(G=torch.full(c, 4.0, **kw), K=torch.full(c, 9.0, **kw),
+                    P0=rand(c, 0.1), Q=rand(c, 0.05),
+                    tau_o=(rand(c, 0.1), rand(c, 0.1), rand(v, 0.1)), dt=0.5)
+    elif name == "elastic_buildup":  # pure-shear boundary velocities, G finite, K = ∞
+        geometry, st, pt, _, rho_g, G, K = elastic_buildup._setup(
+            n, n, 100.0e3, 100.0e3, 1.0e21, 1.0e-14, 10.0e9, dtype, dev)
+        eta = st.viscosity.eta
+        Vx, Vy = st.V.Vx.clone(), st.V.Vy.clone()
+        Vx[1:-1, 1:-1] += rand((n - 1, n), 1e-12)  # interior only: the normal
+        Vy[1:-1, 1:-1] += rand((n, n - 1), 1e-12)  # boundary faces keep pure shear
+        tau_o = (rand(c, 1e6), rand(c, 1e6), rand(v, 1e6))
+        carry = (Vx, Vy, torch.zeros(c, **kw), *tau_o)
+        phys = dict(G=G, K=K, tau_o=tau_o, dt=0.05 * elastic_buildup.KYR)
+    else:
+        raise ValueError(name)
+    args = carry + (eta, maxloc(eta, 1), *rho_g, 1.0 / geometry.di[0],
+                    1.0 / geometry.di[1], pt.r, pt.theta_dtau, pt.etadtau)
+    return args, phys
+
+
+def bound_ms(words, n_cells, itemsize, kind):
+    """Least time per PT iteration: the accounting's words per cell over
+    the HBM peak (the operations, a few dozen per cell, take far less at
+    the card's 67 TFLOP/s f32)."""
+    return words * n_cells * itemsize / HBM_PEAK[kind] * 1e3
+
+
 def cuda_time_ms(fn, repeats=5):
     """Median wall time of ``fn`` on the card, by CUDA events, after one
     warm-up call."""
@@ -213,15 +303,21 @@ def main():
     emit("device", name=name, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    # ---- 1. build
-    t0 = time.perf_counter()
-    lib_path = hv.build_library()
+    # ---- 1. build: one nvcc per source, started together
+    def build(source):
+        t0 = time.perf_counter()
+        path = _cuda_build.build_library(source)
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(build, (hv.SOURCE, hs.SOURCE)))
     hv._library()
-    build_s = time.perf_counter() - t0
-    log = lib_path.with_suffix(".log")
-    ptxas = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=build_s, library=os.path.relpath(lib_path, ROOT), ptxas=ptxas)
+    hs._library()
+    for phase, (lib_path, build_s) in zip(("build", "build_ve"), builds):
+        log = lib_path.with_suffix(".log")
+        ptxas = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
+                 if "registers" in ln or "spill" in ln]
+        emit(phase, seconds=build_s, library=os.path.relpath(lib_path, ROOT), ptxas=ptxas)
 
     # ---- 2. kernel against plain, f64, n=64
     worst_rel, worst_abs = 0.0, 0.0
@@ -260,7 +356,7 @@ def main():
 
     # ---- 4. main path: production grid, one time step through the kernel
     n = 1024
-    hv.stokes_vep_chunk.launches = 0
+    hv.stokes_vep_chunk.launches = hs.stokes_chunk.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, info, _, _, tII = shearband.run(
@@ -292,7 +388,9 @@ def main():
     saved = hv.stokes_vep_chunk.launches
     worst32 = 0.0
     for label, (args, kw) in states.items():
-        per_field, gap, k_vs_64, p_vs_64, lam_max = f32_gaps(args, kw, 200)
+        per_field, gap, k_vs_64, p_vs_64, ref = f32_gaps(
+            hv.stokes_vep_chunk, hv.stokes_vep_chunk_reference, rel_diffs, args, kw, 200)
+        lam_max = float(ref[10].max())
         tol = max(TOL_F32_1024, 2.0 * p_vs_64)
         worst32 = max(worst32, gap)
         emit("f32_1024_parity", state=label, nout=200, max_rel_diff=gap, tol=tol,
@@ -304,7 +402,7 @@ def main():
     # ---- 5. timing at 1024^2 f32, in turns kernel, plain, plain, kernel
     nk, npl = 500, 20
     kind = "PCIe" if "PCIe" in name else "SXM"
-    bytes_iter = 39 * n * n * 4
+    bytes_iter = WORDS_VEP * n * n * 4
     times = {}
     for label, (args, kw) in states.items():
         tk1 = cuda_time_ms(lambda: hv.stokes_vep_chunk(*args, nout=nk, **kw)) / nk
@@ -320,8 +418,7 @@ def main():
              plain_over_kernel=t_p / t_k, nvidia_smi=smi)
     hv.stokes_vep_chunk.launches = saved  # comparison launches do not count
     t_k, t_p = times["initial"]
-
-    print(json.dumps({"kernels": [{
+    vep_line = {
         "name": "stokes_vep_chunk",
         "route": "cuda",
         "source": "justrelax_tpu_torch/csrc/stokes_vep.cu",
@@ -333,9 +430,135 @@ def main():
         "max_rel_diff_f32_1024": worst32,
         "ms": t_k,
         "plain_ms": t_p,
-    }]}), flush=True)
+        "bound_ms": bound_ms(WORDS_VEP, n * n, 4, kind),
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+    ve_line = run_ve(dev, smi, kind)
+    print(json.dumps({"kernels": [vep_line, ve_line]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run_ve(dev, smi, kind):
+    """Phases 6-9, the VE solve; returns the VE kernel's entry of the
+    kernels line."""
+    # ---- 6. VE kernel against plain, f64, n=64
+    worst_rel, worst_abs = 0.0, 0.0
+    for case in VE_CASES:
+        args, kw = ve_case(case, 64, torch.float64, dev)
+        for nout, tol in ((1, TOL_VE_NOUT1), (500, TOL_VE_NOUT500)):
+            ref = hs.stokes_chunk_reference(*args, nout=nout, **kw)
+            out = hs.stokes_chunk(*args, nout=nout, **kw)
+            torch.cuda.synchronize()
+            d = rel_diffs_ve(out, ref)
+            worst = max(d.values())
+            worst_rel, worst_abs = max(worst_rel, worst), max(worst_abs, abs_diff(out, ref))
+            moved = min(float((o - a).abs().max()) for o, a in zip(out[:2], args[:2]))
+            emit("parity_ve", case=case, nout=nout, max_rel_diff=worst, tol=tol,
+                 V_moved=moved, per_field=d)
+            check(worst <= tol, f"{case} nout={nout}: {worst} > {tol}")
+            check(moved > 0.0, f"{case} nout={nout}: the kernel left V unchanged")
+
+    # ---- 7. goldens through the default entry points, f64, 32^2
+    def golden(label, fn, checks):
+        hs.stokes_chunk.launches = 0
+        t0 = time.perf_counter()
+        g = fn()
+        g.update(launches=hs.stokes_chunk.launches, seconds=time.perf_counter() - t0)
+        emit("golden_ve", case=label, **g)
+        for key, ok in checks(g):
+            check(ok, f"golden_ve {label}: {key}")
+        check(g["launches"] > 0, f"golden_ve {label}: the kernel was not launched")
+
+    def run_solcx(d_eta):
+        _, st, info, _ = solcx.run(nx=32, ny=32, d_eta=d_eta, dtype=torch.float64)
+        vmax = max(float(st.V.Vx.abs().max()), float(st.V.Vy.abs().max()))
+        return dict(iters=int(info.iters), err=float(info.err), vmax=vmax)
+
+    def run_solkz():
+        _, _, info = solkz.run(nx=32, ny=32, dtype=torch.float64)
+        return dict(iters=int(info.iters), err=float(info.err))
+
+    def run_buildup():
+        _, av, sol, _, info = elastic_buildup.run(nx=32, ny=32, endtime_kyr=10.0,
+                                                  dtype=torch.float64)
+        err = statistics.mean(abs(abs(a) - s) / s for a, s in zip(av, sol))
+        return dict(steps=len(av), iters_last=int(info.iters), mean_rel_err=err)
+
+    analytic_vmax = 1.0 / (4.0 * math.pi ** 2)
+    golden("solcx_deta1e6", lambda: run_solcx(1e6), lambda g: [("err", g["err"] < 1e-8)])
+    golden("solcx_deta1", lambda: run_solcx(1.0), lambda g: [
+        ("err", g["err"] < 1e-8),
+        ("vmax", abs(g["vmax"] - analytic_vmax) <= 2e-3 * analytic_vmax)])
+    golden("solkz", run_solkz, lambda g: [("err", g["err"] < 1e-8)])
+    golden("elastic_buildup", run_buildup, lambda g: [("mean_rel_err", g["mean_rel_err"] <= 5e-3)])
+
+    # ---- 8. main path: SolCx at the production grid, the default entry point
+    n = 1024
+    hs.stokes_chunk.launches = hv.stokes_vep_chunk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st, info, _ = solcx.run(nx=n, ny=n, dtype=torch.float32, iter_max=20_000, nout=1_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_launches = hs.stokes_chunk.launches
+    check(st.P.device.type == "cuda", "main path VE: the default device is not the card")
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        st.V.Vx, st.V.Vy, st.P, st.tau.xx, st.tau.yy, st.tau.xy, st.tau.II))
+    emit("main_path_ve", n=n, dtype="float32", iters=int(info.iters), err=float(info.err),
+         wall_s=wall, launches=main_launches, finite=finite)
+    check(finite, "main path VE: non-finite fields")
+    check(main_launches > 0, "main path VE: the kernel was not launched")
+
+    # 200 iterations kernel vs plain from the main path's initial state
+    geometry, st0, pt, _, rho_g, G, K, _ = solcx._setup(n, n, 1e6, 1.0, 1.0, torch.float32, dev)
+    eta = st0.viscosity.eta
+    args = (st0.V.Vx, st0.V.Vy, st0.P, st0.tau.xx, st0.tau.yy, st0.tau.xy,
+            eta, maxloc(eta, 1), *rho_g, 1.0 / geometry.di[0], 1.0 / geometry.di[1],
+            pt.r, pt.theta_dtau, pt.etadtau)
+    kw = dict(G=G, K=K, P0=st0.P0, Q=st0.Q,
+              tau_o=(st0.tau_o.xx, st0.tau_o.yy, st0.tau_o.xy), dt=0.1)
+    per_field, worst32, k_vs_64, p_vs_64, _ = f32_gaps(
+        hs.stokes_chunk, hs.stokes_chunk_reference, rel_diffs_ve, args, kw, 200)
+    tol = max(TOL_F32_1024, 2.0 * p_vs_64)
+    emit("f32_1024_parity_ve", nout=200, max_rel_diff=worst32, tol=tol,
+         kernel_vs_plain_f64=k_vs_64, plain_f32_vs_plain_f64=p_vs_64, per_field=per_field)
+    check(worst32 <= tol, f"f32 1024^2 VE: {worst32} > {tol}")
+
+    # ---- 9. timing at 1024^2 f32, in turns kernel, plain, plain, kernel
+    nk, npl = 1000, 20
+    saved = hs.stokes_chunk.launches
+    tk1 = cuda_time_ms(lambda: hs.stokes_chunk(*args, nout=nk, **kw)) / nk
+    tp1 = cuda_time_ms(lambda: hs.stokes_chunk_reference(*args, nout=npl, **kw)) / npl
+    tp2 = cuda_time_ms(lambda: hs.stokes_chunk_reference(*args, nout=npl, **kw)) / npl
+    tk2 = cuda_time_ms(lambda: hs.stokes_chunk(*args, nout=nk, **kw)) / nk
+    hs.stokes_chunk.launches = saved  # comparison launches do not count
+    t_k, t_p = min(tk1, tk2), min(tp1, tp2)
+    t_eff = WORDS_VE * n * n * 4 / (t_k * 1e-3)
+    bound = bound_ms(WORDS_VE, n * n, 4, kind)
+    emit("timing_ve", n=n, dtype="float32", kernel_ms_per_iter=[tk1, tk2],
+         plain_ms_per_iter=[tp1, tp2], T_eff_GBs=t_eff / 1e9,
+         hbm_peak_GBs=HBM_PEAK[kind] / 1e9, hbm_share=t_eff / HBM_PEAK[kind],
+         bound_ms=bound, bound_share=bound / t_k, plain_over_kernel=t_p / t_k,
+         nvidia_smi=smi)
+    return {
+        "name": "stokes_chunk",
+        "route": "cuda",
+        "source": "justrelax_tpu_torch/csrc/stokes_ve.cu",
+        "replaces": ("justrelax_tpu/ops/pallas_stokes.py:264 (B1 stokes_chunk_vmem); "
+                     "justrelax_tpu/ops/pallas_stokes.py:470 (B4 stokes_chunk_blocked)"),
+        "launches": main_launches,
+        "max_abs_err": worst_abs,
+        "max_rel_diff_f64": worst_rel,
+        "max_rel_diff_f32_1024": worst32,
+        "ms": t_k,
+        "plain_ms": t_p,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
 
 
 if __name__ == "__main__":

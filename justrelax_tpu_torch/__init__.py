@@ -7,8 +7,11 @@ hand-written Hopper kernels (``csrc/``, bound through ``ctypes`` in
 the same public names; ``use_pallas`` becomes ``use_kernel``. The JAX
 package stays the reference the port is tested against.
 
-Importing the package needs no GPU: each CUDA kernel is built and loaded
-at its first launch on a CUDA tensor.
+Entry points run on the card by default (``device=None`` is the CUDA device;
+pass ``device="cpu"`` for the CPU) and, on the card, through the kernels
+(``use_kernel=None``; ``False`` asks for the plain PyTorch path). Importing
+the package needs no GPU: each CUDA kernel is built and loaded at its first
+launch on a CUDA tensor.
 """
 
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs

@@ -4,7 +4,7 @@ The JAX package's containers turn into nested dicts of arrays with
 ``flax.serialization.to_state_dict`` (done by the caller, so this module
 needs no JAX). ``stokes_state_from_dict`` and ``material_from_dict`` build
 the port's :class:`StokesState` and :class:`MaterialStack` from such dicts
-on a given device and dtype; ``to_state_dict`` turns a port container back
+on a given device (the card unless given) and dtype; ``to_state_dict`` turns a port container back
 into the same nested dict of numpy arrays (``None`` where the JAX container
 has an unused 3D field).
 """
@@ -17,6 +17,7 @@ import typing
 import numpy as np
 import torch
 
+from justrelax_tpu_torch.core.device import resolve_device
 from justrelax_tpu_torch.core.state import StokesState
 from justrelax_tpu_torch.rheology.materials import MaterialStack
 
@@ -40,12 +41,12 @@ def _build(cls, d, dtype, device):
 def stokes_state_from_dict(d, device=None, dtype=None) -> StokesState:
     """Port ``StokesState`` from the JAX state's dict (``dtype=None`` keeps
     the arrays' own dtype)."""
-    return _build(StokesState, d, dtype, device)
+    return _build(StokesState, d, dtype, resolve_device(device))
 
 
 def material_from_dict(d, device=None, dtype=None) -> MaterialStack:
     """Port ``MaterialStack`` from the JAX ``MaterialStack``'s dict."""
-    return _build(MaterialStack, d, dtype, device)
+    return _build(MaterialStack, d, dtype, resolve_device(device))
 
 
 def to_state_dict(obj):

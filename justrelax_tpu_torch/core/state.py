@@ -12,7 +12,8 @@ with the same staggered shapes:
 The 3D-only fields keep their names and stay ``None``, so a state converts
 field for field to and from the JAX package (``justrelax_tpu_torch.convert``).
 Solvers return new states; ``state.replace(field=value)`` builds one.
-``dtype`` defaults to float64, the type the goldens are held in.
+``dtype`` defaults to float64, the type the goldens are held in; ``device``
+to the card (``core/device.py::resolve_device``: pass ``"cpu"`` for the CPU).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+from justrelax_tpu_torch.core.device import resolve_device
 
 Tensor = torch.Tensor
 
@@ -40,7 +43,7 @@ def _dtype(dtype):
 
 
 def _zeros(shape, dtype, device):
-    return torch.zeros(shape, dtype=_dtype(dtype), device=device)
+    return torch.zeros(shape, dtype=_dtype(dtype), device=resolve_device(device))
 
 
 def _check_2d(ni):
@@ -114,7 +117,7 @@ class Viscosity(_Replace):
     def make(cls, ni, dtype=None, device=None) -> "Viscosity":
         ni = _check_2d(ni)
         ni_v = tuple(n + 1 for n in ni)
-        kw = dict(dtype=_dtype(dtype), device=device)
+        kw = dict(dtype=_dtype(dtype), device=resolve_device(device))
         return cls(
             eta=torch.ones(ni, **kw),
             eta_v=torch.ones(ni_v, **kw),
@@ -212,6 +215,7 @@ class StokesState(_Replace):
     def make(cls, ni: Tuple[int, ...], dtype=None, device=None) -> "StokesState":
         ni = _check_2d(ni)
         ni_v = tuple(n + 1 for n in ni)
+        device = resolve_device(device)
 
         def z(shape=ni):
             return _zeros(shape, dtype, device)

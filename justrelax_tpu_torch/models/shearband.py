@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs
+from justrelax_tpu_torch.core.device import resolve_device
 from justrelax_tpu_torch.core.grid import Geometry
 from justrelax_tpu_torch.core.state import StokesState
 from justrelax_tpu_torch.ops.bc import Faces, VelocityBoundaryConditions, flow_bcs
@@ -40,7 +41,9 @@ def _circle_phase_ratios(xs, ys, origin, radius):
 
 def _setup(n, common, G_inclusion, dtype, device, eps_bg=1.0, **pt_kw):
     """Grid, two-phase material, phase ratios, pure-shear initial state and
-    PT coefficients shared by the shear band variants."""
+    PT coefficients shared by the shear band variants, on ``device`` (the
+    card unless given)."""
+    device = resolve_device(device)
     ni = (n, n)
     geometry = Geometry(ni, (1.0, 1.0))
     xci, xvi = geometry.xci, geometry.xvi
@@ -70,12 +73,14 @@ def _setup(n, common, G_inclusion, dtype, device, eps_bg=1.0, **pt_kw):
 
 
 def run(n=32, nt=10, eps_bg=1.0, dtype=None, displacement_driven=False,
-        dilation_angle=0.0, use_kernel=False, dqdtau_alt=0.0,
+        dilation_angle=0.0, use_kernel=None, dqdtau_alt=0.0,
         visc_plastic_tau=False, device=None, iter_max=50_000, nout=100):
     """The base shear band over ``nt`` steps; returns (stokes, info,
     max τxx per step, the analytic VE curve per step, τII).
-    ``use_kernel`` runs the solve's chunks through the Hopper kernel;
-    ``iter_max``/``nout`` set the solve's iteration cap and chunk length."""
+    ``device`` defaults to the card; ``use_kernel`` to the Hopper kernel
+    on the card and the plain path on the CPU (``False`` asks for the plain
+    path); ``iter_max``/``nout`` set the solve's iteration cap and chunk
+    length."""
     if displacement_driven:
         raise NotImplementedError(
             "displacement_driven needs ops/displacement.py, which the PyTorch "
@@ -107,10 +112,11 @@ def run(n=32, nt=10, eps_bg=1.0, dtype=None, displacement_driven=False,
     return stokes, info, tau_max_hist, sol_hist, tau_II
 
 
-def run_softening(n=32, nt=5, eps_bg=1.0, device=None):
+def run_softening(n=32, nt=5, eps_bg=1.0, device=None, use_kernel=None):
     """Non-linear cohesion softening shear band (ξ₀ = τ_y, Δ = τ_y/2 on both
     phases, dt = Maxwell/4/5 over 5 steps); returns (stokes, info, max τxx
-    per step, the analytic VE curve per step)."""
+    per step, the analytic VE curve per step). ``device`` and
+    ``use_kernel`` as in :func:`run`."""
     tau_y, phi, eta0, G0 = 1.6, 30.0, 1.0, 1.0
     dt = eta0 / G0 / 4.0 / 5.0
     common = dict(
@@ -129,7 +135,7 @@ def run_softening(n=32, nt=5, eps_bg=1.0, device=None):
     for _ in range(nt):
         stokes, info = solve_vep(
             stokes, pt_stokes, geometry, flow_bc, material, pr_c, pr_v, dt,
-            iter_max=50_000, nout=100,
+            iter_max=50_000, nout=100, use_kernel=use_kernel,
         )
         tau_max_hist.append(float(stokes.tau.xx.max()))
         t += dt
@@ -137,9 +143,10 @@ def run_softening(n=32, nt=5, eps_bg=1.0, device=None):
     return stokes, info, tau_max_hist, sol_hist
 
 
-def run_dpcap(n=32, nt=10, device=None):
+def run_dpcap(n=32, nt=10, device=None, use_kernel=None):
     """Dilatant Drucker-Prager shear band with a tension cap (ψ = 3°,
-    pT = −0.5); returns (stokes, info, τII)."""
+    pT = −0.5); returns (stokes, info, τII). ``device`` and ``use_kernel``
+    as in :func:`run`."""
     tau_y, phi, eta0, G0 = 1.6, 30.0, 1.0, 1.0
     dt = eta0 / G0 / 8.0
     common = dict(
@@ -155,7 +162,7 @@ def run_dpcap(n=32, nt=10, device=None):
     for _ in range(nt):
         stokes, info = solve_vep(
             stokes, pt_stokes, geometry, flow_bc, material, pr_c, pr_v, dt,
-            iter_max=50_000, nout=1000,
+            iter_max=50_000, nout=1000, use_kernel=use_kernel,
         )
     tau_II = tensor_invariant_staggered_2d(stokes.tau.xx, stokes.tau.yy, stokes.tau.xy)
     return stokes, info, tau_II

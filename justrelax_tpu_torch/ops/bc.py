@@ -11,7 +11,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple, Union
 
-__all__ = ["Faces", "VelocityBoundaryConditions", "flow_bcs"]
+import torch
+
+__all__ = ["Faces", "VelocityBoundaryConditions", "flow_bcs", "pureshear_bc"]
 
 Value = Union[bool, float, None]
 
@@ -119,4 +121,15 @@ def flow_bcs(V: Tuple, bcs: VelocityBoundaryConditions) -> Tuple:
         _no_slip_velocity_2d(Vx, Vy, bcs.no_slip)
     if bcs.free_slip.any():
         _free_slip_velocity_2d(Vx, Vy, bcs.free_slip)
+    return Vx, Vy
+
+
+def pureshear_bc(Vx, Vy, xvi, eps_bg):
+    """Pure-shear background velocity field: ``Vx[:, 1:-1] = εbg·xv``,
+    ``Vy[1:-1, :] = −εbg·yv``; ghost rows untouched. Returns new tensors."""
+    xv = torch.as_tensor(xvi[0], dtype=Vx.dtype, device=Vx.device)
+    yv = torch.as_tensor(xvi[1], dtype=Vy.dtype, device=Vy.device)
+    Vx, Vy = Vx.clone(), Vy.clone()
+    Vx[:, 1:-1] = (eps_bg * xv)[:, None]
+    Vy[1:-1, :] = (-eps_bg * yv)[None, :]
     return Vx, Vy

@@ -10,8 +10,8 @@ law ``1/η = A + B·τII^m``), damped velocity update and per-side free-slip /
 no-slip BCs.
 
 - ``stokes_vep_chunk`` is the wrapper. On CUDA tensors it launches the
-  kernel of ``csrc/stokes_vep.cu`` (built with ``nvcc`` at first use into
-  ``justrelax_tpu_torch/_build/`` and loaded with ``ctypes``) or raises; on
+  kernel of ``csrc/stokes_vep.cu`` (built with ``nvcc`` at first use by
+  ``ops/_cuda_build.py`` and loaded with ``ctypes``) or raises; on
   CPU tensors it runs the plain version. ``stokes_vep_chunk.launches``
   counts kernel launches (one per chunk).
 - ``stokes_vep_chunk_reference`` is the plain version: the solver's
@@ -30,15 +30,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from justrelax_tpu_torch.ops._cuda_build import CSRC, load_library
 from justrelax_tpu_torch.ops.bc import Faces, VelocityBoundaryConditions
 from justrelax_tpu_torch.ops.stencil import av_a, expand_edges
 from justrelax_tpu_torch.ops.stokes_vep import (
@@ -66,7 +62,6 @@ __all__ = [
     "vep_chunk_supported",
     "stokes_vep_chunk",
     "stokes_vep_chunk_reference",
-    "build_library",
 ]
 
 # Invariant-stack slot order; csrc/stokes_vep.cu's CSlot/VSlot enums match.
@@ -79,9 +74,7 @@ VINV_SLOTS = ("txx_ov", "tyy_ov", "txy_v_o", "Gdt", "Kdt0", "visc_a", "visc_b",
               "is_pl", "scale", "Ccos", "sinphi", "sinpsi", "etareg", "pT")
 _BC_BITS = {"left": 1, "right": 2, "bot": 4, "top": 8}
 
-_PKG = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG / "csrc" / "stokes_vep.cu"
-_BUILD_DIR = _PKG / "_build"
+SOURCE = CSRC / "stokes_vep.cu"
 
 
 def vep_chunk_bc_modes(flow_bc):
@@ -322,41 +315,13 @@ def _check_carry(carry, nx, ny):
             raise ValueError(f"stokes_vep_chunk: field {k} is not contiguous")
 
 
-def build_library() -> Path:
-    """Compile ``csrc/stokes_vep.cu`` for sm_90a with ``nvcc`` into a shared
-    library named by the source's hash (reused when it exists). The compiler
-    output, with ptxas' register and spill report, goes to a ``.log`` file
-    beside it."""
-    src = _SOURCE.read_bytes()
-    out = _BUILD_DIR / f"libstokes_vep_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("stokes_vep_chunk: nvcc not found; the CUDA kernel "
-                           "is built on a machine with the CUDA toolkit")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-           "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(build_library()))
+    lib = load_library(SOURCE)
     vp, i = ctypes.c_void_p, ctypes.c_int
     for name in ("jr_stokes_vep_chunk_f32", "jr_stokes_vep_chunk_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp), vp, vp, i, i, i,
                        ctypes.POINTER(ctypes.c_double), i, i, i, vp]
         fn.restype = i
-    lib.jr_cuda_error_string.argtypes = [i]
-    lib.jr_cuda_error_string.restype = ctypes.c_char_p
     return lib

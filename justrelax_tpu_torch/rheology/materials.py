@@ -19,6 +19,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from justrelax_tpu_torch.core.device import resolve_device
+
 __all__ = [
     "Material",
     "MaterialStack",
@@ -101,6 +103,7 @@ class MaterialStack:
     def make(cls, materials: Sequence[Material], dtype=None,
              device=None) -> "MaterialStack":
         dtype = torch.float64 if dtype is None else dtype
+        device = resolve_device(device)
         fields = {
             name: torch.tensor(
                 [float(getattr(m, name)) for m in materials],
@@ -125,13 +128,15 @@ class MaterialStack:
         return self.params.rho0.dtype
 
 
-def _as_stack(material) -> MaterialStack:
+def _as_stack(material, device=None) -> MaterialStack:
+    """``material`` as a stack; a bare ``Material`` or a list of them is
+    stacked on ``device`` (the card unless given)."""
     if isinstance(material, MaterialStack):
         return material
     if isinstance(material, Material):
-        return MaterialStack.make([material])
+        return MaterialStack.make([material], device=device)
     if isinstance(material, (list, tuple)):
-        return MaterialStack.make(list(material))
+        return MaterialStack.make(list(material), device=device)
     raise TypeError(f"cannot interpret {material!r} as MaterialStack")
 
 

@@ -6,8 +6,8 @@ buoyancy → strain rate → fused center+vertex VEP stress update with plastic
 return mapping and dilatancy correction → τII-based viscosity relaxation →
 damped velocity update + BCs (``ops/stokes_vep.py::vep_iteration``).
 
-The solve runs in chunks of ``nout`` iterations. With ``use_kernel`` the
-chunk's first ``nout − 1`` iterations run in the Hopper chunk kernel
+The solve runs in chunks of ``nout`` iterations. With ``use_kernel`` (the
+default for a state on the card) the chunk's first ``nout − 1`` iterations run in the Hopper chunk kernel
 (``ops/hopper_stokes_vep.py``) and its last one on the array path, so every
 diagnostic (τII, η_vep, ε_pl, RP) comes from the same code either way. The
 residual norms are evaluated after every chunk and read on the host once
@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from justrelax_tpu_torch.core.device import resolve_use_kernel
 from justrelax_tpu_torch.ops import stokes as kernels
 from justrelax_tpu_torch.ops.hopper_stokes_vep import (
     _resolve_static,
@@ -58,27 +59,29 @@ def solve_vep(
     phase_ratios_vertex,
     dt,
     T=None,
-    use_kernel=False,
+    use_kernel=None,
     **kwargs,
 ):
     """Public entry. ``use_kernel`` (``True`` or ``"blocked"``, which reach
     the same Hopper kernel) runs the chunks through
-    ``ops/hopper_stokes_vep.py::stokes_vep_chunk``; it raises ``ValueError``
-    for a configuration the kernel does not cover (see
-    ``vep_chunk_supported``). Keyword arguments as :func:`_solve_vep`."""
-    if use_kernel not in (False, True, "blocked"):
-        raise ValueError(f"use_kernel must be False, True or 'blocked', not {use_kernel!r}")
+    ``ops/hopper_stokes_vep.py::stokes_vep_chunk``; the default ``None``
+    does so for a state on the card and runs the plain path for one on the
+    CPU; ``False`` asks for the plain path. A configuration the kernel does
+    not cover (see ``vep_chunk_supported``) raises ``ValueError`` when the
+    kernel is asked for. Keyword arguments as :func:`_solve_vep`."""
+    use_kernel = resolve_use_kernel(use_kernel, stokes.P)
     has_cap, visc_m = False, None
     if use_kernel:
         if not vep_chunk_supported(
             material, geometry, flow_bc, kwargs.get("free_surface", False)
         ):
             raise ValueError(
-                "use_kernel requires a linear or shared-exponent power-law "
-                "creep table, a solve-invariant density (beta == 0; rho(T) "
-                "is fine — T is frozen during a solve), the consistent dQ/dtau "
-                "convention, a uniform grid, free-slip/no-slip BCs on every "
-                "face and no free-surface term"
+                "the VEP chunk kernel needs a linear or shared-exponent "
+                "power-law creep table, a solve-invariant density (beta == 0; "
+                "rho(T) is fine — T is frozen during a solve), the consistent "
+                "dQ/dtau convention, a uniform grid, free-slip/no-slip BCs on "
+                "every face and no free-surface term; pass use_kernel=False "
+                "for the plain path"
             )
         has_cap, visc_m = _resolve_static(material, None, "auto")
     return _solve_vep(

@@ -58,7 +58,7 @@ def _shapes(obj):
 
 def test_state_shapes_and_replace():
     ni = (7, 5)
-    port = StokesState.make(ni)
+    port = StokesState.make(ni, device="cpu")
     jax_state = JStokesState.make(ni)
 
     def jshapes(obj):
@@ -71,7 +71,7 @@ def test_state_shapes_and_replace():
     assert float(port.viscosity.eta.min()) == 1.0
     new = port.replace(P=port.P + 1.0)
     assert float(new.P.max()) == 1.0 and float(port.P.max()) == 0.0
-    f32 = StokesState.make(ni, dtype=torch.float32)
+    f32 = StokesState.make(ni, dtype=torch.float32, device="cpu")
     assert f32.tau.xy.dtype == torch.float32
 
 

@@ -52,7 +52,7 @@ MATERIALS = {
 
 def _stacks(case):
     kws = MATERIALS[case]
-    return (pm.MaterialStack.make([pm.Material(**kw) for kw in kws]),
+    return (pm.MaterialStack.make([pm.Material(**kw) for kw in kws], device="cpu"),
             jm.MaterialStack.make([jm.Material(**kw) for kw in kws]))
 
 
@@ -99,7 +99,7 @@ def test_material_stack():
     p, _ = _stacks("shearband")
     assert p.nphase == 2 and p.dtype == torch.float64
     assert p.to(dtype=torch.float32).params.G.dtype == torch.float32
-    one = pm._as_stack(pm.Material(G=3.0))
+    one = pm._as_stack(pm.Material(G=3.0), device="cpu")
     assert one.nphase == 1 and float(one.params.G[0]) == 3.0
 
 
@@ -161,9 +161,9 @@ def test_shared_powerlaw_exponent():
         p, j = _stacks(case)
         assert pv.shared_powerlaw_exponent(p) == jv.shared_powerlaw_exponent(j)
     mixed = [dict(disl_A=0.5, disl_n=3.0), dict(disl_A=0.5, disl_n=2.0)]
-    assert pv.shared_powerlaw_exponent(pm.MaterialStack.make([pm.Material(**k) for k in mixed])) is None
+    assert pv.shared_powerlaw_exponent(pm.MaterialStack.make([pm.Material(**k) for k in mixed], device="cpu")) is None
     diff_only = [dict(diff_A=0.3), dict()]
-    assert pv.shared_powerlaw_exponent(pm.MaterialStack.make([pm.Material(**k) for k in diff_only])) == 0.0
+    assert pv.shared_powerlaw_exponent(pm.MaterialStack.make([pm.Material(**k) for k in diff_only], device="cpu")) == 0.0
 
 
 @pytest.mark.parametrize("with_T", [True, False])

@@ -88,8 +88,8 @@ def test_solve_vep_matches_jax(use_kernel):
         jst, jpt, jg, jbc.VelocityBoundaryConditions(**c["bc"]), jmat,
         jnp.asarray(c["pr"][0]), jnp.asarray(c["pr"][1]), 0.25, **kw)
 
-    pst = convert.stokes_state_from_dict(c["state"])
-    pmat = pm.MaterialStack.make([pm.Material(**m) for m in c["mats"]])
+    pst = convert.stokes_state_from_dict(c["state"], device="cpu")
+    pmat = pm.MaterialStack.make([pm.Material(**m) for m in c["mats"]], device="cpu")
     g = Geometry((n, n), (1.0, 1.0))
     pt = PTStokesCoeffs.make(g.li, g.di, CFL=0.75 / math.sqrt(2.1))
     p_out, p_info = solve_vep(
@@ -111,7 +111,7 @@ def test_solve_vep_matches_jax(use_kernel):
 
 
 def test_shearband_first_steps_match_jax():
-    p_st, p_info, p_tmax, p_sol, p_tII = shearband.run(n=32, nt=2)
+    p_st, p_info, p_tmax, p_sol, p_tII = shearband.run(n=32, nt=2, device="cpu")
     j_st, j_info, j_tmax, j_sol, j_tII = jshearband.run(n=32, nt=2)
     assert p_info.iters == int(j_info.iters)
     assert float(p_info.err) < 1e-6
@@ -122,11 +122,11 @@ def test_shearband_first_steps_match_jax():
 
 
 def test_shearband_variants_match_jax():
-    p = shearband.run_softening(n=16, nt=1)
+    p = shearband.run_softening(n=16, nt=1, device="cpu")
     j = jshearband.run_softening(n=16, nt=1)
     assert p[1].iters == int(j[1].iters)
     np.testing.assert_allclose(p[2], j[2], rtol=1e-10)
-    p_st, p_info, p_tII = shearband.run_dpcap(n=16, nt=1)
+    p_st, p_info, p_tII = shearband.run_dpcap(n=16, nt=1, device="cpu")
     j_st, j_info, j_tII = jshearband.run_dpcap(n=16, nt=1)
     assert p_info.iters == int(j_info.iters)
     np.testing.assert_allclose(p_tII.numpy(), np.asarray(j_tII), rtol=1e-10)
@@ -136,7 +136,7 @@ def test_shearband_variants_match_jax():
 @pytest.mark.slow
 def test_shearband_golden_f64():
     """Frozen f64 values of the JAX package (tests/test_shearband2d.py)."""
-    stokes, info, tau_max, sol, tau_II = shearband.run(n=32, nt=10)
+    stokes, info, tau_max, sol, tau_II = shearband.run(n=32, nt=10, device="cpu")
     assert float(info.err) < 1.0e-6
     assert sol[-1] == pytest.approx(1.8358, abs=1.0e-4)
     assert float(tau_II.min()) == pytest.approx(1.512963, abs=1e-4)
@@ -146,17 +146,18 @@ def test_shearband_golden_f64():
 
 def test_guards():
     with pytest.raises(NotImplementedError):
-        shearband.run(n=8, nt=1, displacement_driven=True)
+        shearband.run(n=8, nt=1, displacement_driven=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        shearband.run(n=8, nt=1, visc_plastic_tau=True)
+        shearband.run(n=8, nt=1, visc_plastic_tau=True, device="cpu")
     g = Geometry((8, 8), (1.0, 1.0))
     pt = PTStokesCoeffs.make(g.li, g.di)
-    st = shearband.StokesState.make((8, 8))
+    st = shearband.StokesState.make((8, 8), device="cpu")
     fs = pbc.VelocityBoundaryConditions(free_slip=dict(left=True, right=True, top=True, bot=True))
     bad_bc = pbc.VelocityBoundaryConditions(free_slip=dict(left=True, right=True, top=True))
-    lin = pm.MaterialStack.make([pm.Material(G=1.0, Kb=5.0)])
-    beta = pm.MaterialStack.make([pm.Material(G=1.0, beta=0.1)])
-    peierls = pm.MaterialStack.make([pm.Material(G=1.0, peierls_A=1.0, peierls_tauP=10.0)])
+    lin = pm.MaterialStack.make([pm.Material(G=1.0, Kb=5.0)], device="cpu")
+    beta = pm.MaterialStack.make([pm.Material(G=1.0, beta=0.1)], device="cpu")
+    peierls = pm.MaterialStack.make([pm.Material(G=1.0, peierls_A=1.0, peierls_tauP=10.0)],
+                                     device="cpu")
     for mat, bc_ in ((lin, bad_bc), (beta, fs), (peierls, fs)):
         with pytest.raises(ValueError):
             solve_vep(st, pt, g, bc_, mat, None, None, 0.25, use_kernel=True,
@@ -167,6 +168,7 @@ def test_guards():
 
 def test_import_leaves_jax_out():
     code = ("import sys, justrelax_tpu_torch, justrelax_tpu_torch.models.shearband, "
-            "justrelax_tpu_torch.convert; "
+            "justrelax_tpu_torch.models.solcx, justrelax_tpu_torch.models.solkz, "
+            "justrelax_tpu_torch.models.elastic_buildup, justrelax_tpu_torch.convert; "
             "assert 'jax' not in sys.modules and 'justrelax_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

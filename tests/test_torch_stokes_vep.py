@@ -140,17 +140,18 @@ def test_chunk_bc_modes_and_support():
     assert hv.vep_chunk_bc_modes(pbc.VelocityBoundaryConditions(
         free_slip=dict(left=True, right=True, top=True))) is None
     g = Geometry((8, 8), (1.0, 1.0))
-    lin = pm.MaterialStack.make([pm.Material(G=1.0)])
+    lin = pm.MaterialStack.make([pm.Material(G=1.0)], device="cpu")
     assert hv.vep_chunk_supported(lin, g, bc, False)
     assert not hv.vep_chunk_supported(lin, g, bc, True)
-    assert not hv.vep_chunk_supported(pm.MaterialStack.make([pm.Material(beta=0.1)]), g, bc, False)
+    assert not hv.vep_chunk_supported(pm.MaterialStack.make([pm.Material(beta=0.1)], device="cpu"), g, bc, False)
     assert not hv.vep_chunk_supported(
-        pm.MaterialStack.make([pm.Material(dqdtau_alt=1.0)]), g, bc, False)
+        pm.MaterialStack.make([pm.Material(dqdtau_alt=1.0)], device="cpu"), g, bc, False)
     assert not hv.vep_chunk_supported(
-        pm.MaterialStack.make([pm.Material(peierls_A=1.0)]), g, bc, False)
+        pm.MaterialStack.make([pm.Material(peierls_A=1.0)], device="cpu"), g, bc, False)
     with pytest.raises(ValueError):
         hv._resolve_static(pm.MaterialStack.make(
-            [pm.Material(disl_A=0.5, disl_n=3.0), pm.Material(disl_A=0.5, disl_n=2.0)]),
+            [pm.Material(disl_A=0.5, disl_n=3.0), pm.Material(disl_A=0.5, disl_n=2.0)],
+            device="cpu"),
             None, "auto")
 
 
@@ -230,7 +231,7 @@ def test_convert_round_trip():
 
     d = fill(d)
     jstate = serialization.from_state_dict(jstate, d)
-    port = convert.stokes_state_from_dict(serialization.to_state_dict(jstate))
+    port = convert.stokes_state_from_dict(serialization.to_state_dict(jstate), device="cpu")
     assert port.P.dtype == torch.float64 and port.V.Vz is None
     back = convert.to_state_dict(port)
 
@@ -248,10 +249,10 @@ def test_convert_round_trip():
     # and back into the JAX container
     again = serialization.from_state_dict(JStokesState.make(ni), back)
     np.testing.assert_array_equal(np.asarray(again.tau.xy), d["tau"]["xy"])
-    f32 = convert.stokes_state_from_dict(d, dtype=torch.float32)
+    f32 = convert.stokes_state_from_dict(d, dtype=torch.float32, device="cpu")
     assert f32.tau.xx.dtype == torch.float32
 
     jmat = jm.MaterialStack.make([jm.Material(G=1.0, C=2.0), jm.Material(G=0.5, tension_pT=-0.5)])
-    pmat = convert.material_from_dict(serialization.to_state_dict(jmat))
+    pmat = convert.material_from_dict(serialization.to_state_dict(jmat), device="cpu")
     assert pmat.nphase == 2
     same(convert.to_state_dict(pmat), serialization.to_state_dict(jmat))
