@@ -6,9 +6,10 @@
 Run from the root of a checkout. Phases, each printing JSON lines:
 
 0. device   : the card's name and power limit (nvidia-smi).
-1. build    : nvcc builds both Hopper kernel libraries from
+1. build    : nvcc builds the three Hopper kernel libraries from
               justrelax_tpu_torch/csrc, one nvcc per source, side by side
-              (lines "build" for stokes_vep.cu and "build_ve" for stokes_ve.cu).
+              (lines "build" for stokes_vep.cu, "build_ve" for stokes_ve.cu
+              and "build_thermal" for thermal.cu).
 2. parity   : the VEP chunk kernel against its plain PyTorch version on the
               card, f64, n=64, nout 1 and 50, in four configurations.
 3. golden   : shearband.run(n=32, nt=10, f64) through the kernel against the
@@ -31,6 +32,21 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               plain from its initial state.
 9. timing_ve: per-iteration time of the VE kernel and its plain version at
               1024^2 f32, by CUDA events.
+10. parity_thermal: the thermal chunk kernel against its plain version, f64,
+              n=64, nout 1 and 500, in three configurations (the set-up of
+              tests/test_pallas_thermal.py with H and adiabatic; constant
+              values on all four faces with shear heating; an insulated box).
+11. golden_thermal: heatdiffusion_PT at 32^2 f64 through the default entry
+              point against frozen f64 values of the JAX solve;
+              diffusion2d.run at 32^2 f64 (plain path by contract) on its
+              goldens; blankenbach.run at 32^2 f64, 10 steps, its Stokes
+              solve through the VEP kernel, on its goldens.
+12. main_path_thermal: heatdiffusion_PT at 1024^2 f32 through the default
+              entry point (the production grid of bench_kernels.py's
+              thermal2d), 20 000 iterations, with the launch count read around
+              it; then 200 iterations kernel vs plain from its initial state.
+13. timing_thermal: per-iteration time of the thermal kernel and its plain
+              version at 1024^2 f32, by CUDA events.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
@@ -55,13 +71,29 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from justrelax_tpu_torch.core.grid import Geometry  # noqa: E402
-from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs  # noqa: E402
-from justrelax_tpu_torch.models import elastic_buildup, shearband, solcx, solkz  # noqa: E402
+from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs, PTThermalCoeffs  # noqa: E402
+from justrelax_tpu_torch.core.state import ThermalState  # noqa: E402
+from justrelax_tpu_torch.models import (  # noqa: E402
+    blankenbach,
+    diffusion2d,
+    elastic_buildup,
+    shearband,
+    solcx,
+    solkz,
+)
 from justrelax_tpu_torch.models.shearband import _circle_phase_ratios  # noqa: E402
 from justrelax_tpu_torch.ops import _cuda_build  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes as hs  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv  # noqa: E402
-from justrelax_tpu_torch.ops.bc import Faces, VelocityBoundaryConditions, flow_bcs  # noqa: E402
+from justrelax_tpu_torch.ops import hopper_thermal as ht  # noqa: E402
+from justrelax_tpu_torch.ops.bc import (  # noqa: E402
+    Faces,
+    TemperatureBoundaryConditions,
+    VelocityBoundaryConditions,
+    flow_bcs,
+    thermal_bcs,
+)
+from justrelax_tpu_torch.solvers.thermal import heatdiffusion_PT  # noqa: E402
 from justrelax_tpu_torch.ops.stencil import av_vertex_to_center, expand_edges, maxloc  # noqa: E402
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack  # noqa: E402
 from justrelax_tpu_torch.rheology.viscosity import phase_viscosity  # noqa: E402
@@ -81,6 +113,26 @@ TOL_VE_NOUT500 = 1e-10
 # words per cell and PT iteration in the repo's accounting
 # (justrelax_tpu/utils/bench_kernels.py: vep2d 39, ve2d 23)
 WORDS_VEP, WORDS_VE = 39, 23
+TH_FIELDS = ("T", "qx", "qy")
+TH_CASES = ("pallas_setup", "dirichlet_box", "insulated")
+TOL_TH_NOUT1 = 1e-12  # rounding only (differences as rel_diffs_th defines them)
+TOL_TH_NOUT500 = 1e-10
+# Thermal: the compulsory traffic of one chunk iteration, 12 words per cell
+# (T, qx, qy read and written; six chunk-invariant cell inputs read once);
+# bench_kernels.py's thermal2d counts 16, q2x/q2y included, which the chunk
+# does not carry
+WORDS_TH, WORDS_TH_BENCH = 12, 16
+# heatdiffusion_PT on the 32^2 set-up of tests/test_pallas_thermal.py, frozen
+# from the JAX package in float64 on the CPU (x64): its heatdiffusion_PT on
+# test_pallas_thermal._setup(32) with PTThermalCoeffs.make(K, rc, 0.3, di, li),
+# K=K, rho_Cp=rc, iter_max=4000, nout=200, printing info.iters, info.err,
+# T[17, 17], T[1, 1] and T[32, 32]. This command reruns that solve and holds
+# these values to it:
+#   python -m pytest tests/test_torch_thermal.py -k golden_thermal_constants
+GOLDEN_THERMAL = {"iters": 400, "err": 1.1513363166971779e-09,
+                  "T_centre": 0.4813572752812458, "T_corner_lo": 0.9840796475262239,
+                  "T_corner_hi": 0.016517392162716873}
+URMS0_F64 = 0.29207194481326537  # blankenbach 32^2 f64 after one step (bench.py)
 
 
 def emit(phase, **kw):
@@ -113,15 +165,25 @@ def to_f64(x):
     return x
 
 
+def _rel_no_floor(names, a, b):
+    out = {}
+    for name, x, y in zip(names, a, b):
+        d, m = float((x - y).abs().max()), float(y.abs().max())
+        out[name] = 0.0 if d == 0.0 else (d / m if m > 0.0 else math.inf)
+    return out
+
+
 def rel_diffs_ve(a, b):
     """max |a − b| per VE field relative to the field's max |b| (b the plain
     version), with no floor: SolCx velocities are far below 1. A field that
     is zero in both has no difference."""
-    out = {}
-    for name, x, y in zip(VE_FIELDS, a, b):
-        d, m = float((x - y).abs().max()), float(y.abs().max())
-        out[name] = 0.0 if d == 0.0 else (d / m if m > 0.0 else math.inf)
-    return out
+    return _rel_no_floor(VE_FIELDS, a, b)
+
+
+def rel_diffs_th(a, b):
+    """max |a − b| of T, qx and qy relative to the field's max |b| (b the
+    plain version), with no floor: the 1024^2 fluxes are far below 1."""
+    return _rel_no_floor(TH_FIELDS, a, b)
 
 
 def f32_gaps(kernel, reference, rel, args, kw, nout):
@@ -252,6 +314,80 @@ def ve_case(name, n, dtype, dev):
     return args, phys
 
 
+# ---- the three configurations of the thermal parity phase -----------------
+def pallas_thermal_setup(n, dtype, dev):
+    """The set-up of tests/test_pallas_thermal.py::_setup: lognormal K,
+    variable ρCp, no_flux left/right, constant_value top 0 / bottom 1, a
+    linear T profile. Returns (geometry, K, ρCp, BCs, ghosted T)."""
+    kw = dict(dtype=dtype, device=dev)
+    rng = np.random.default_rng(0)
+    K = torch.as_tensor(np.exp(0.2 * rng.normal(size=(n, n))), **kw)
+    rc = torch.as_tensor(1.0 + 0.1 * rng.random((n, n)), **kw)
+    bc = TemperatureBoundaryConditions(no_flux=Faces(left=True, right=True),
+                                       constant_value=Faces(top=0.0, bot=1.0))
+    Tg = np.zeros((n + 2, n + 2))
+    Tg[:, 1:-1] = np.linspace(1, 0, n)[None, :] * np.ones((n + 2, 1))
+    return Geometry((n, n), (1.0, 1.0)), K, rc, bc, thermal_bcs(torch.as_tensor(Tg, **kw), bc)
+
+
+def thermal_case(name, n, dtype, dev):
+    """Inputs of one ``thermal_chunk`` call: (args, kwargs), from a numpy
+    seed. T, qx and qy all move in the first iteration."""
+    kw = dict(dtype=dtype, device=dev)
+    c = (n, n)
+    if name == "pallas_setup":  # tests/test_pallas_thermal.py, with H and adiabatic
+        geometry, K, rc, bc, T = pallas_thermal_setup(n, dtype, dev)
+        qx, qy = torch.zeros((n + 1, n), **kw), torch.zeros((n, n + 1), **kw)
+        H_tot = torch.as_tensor(0.1 * np.random.default_rng(2).random(c), **kw)
+        ad = torch.as_tensor(0.01 * np.random.default_rng(1).random(c), **kw)
+        dt = 0.3
+    else:
+        rng = np.random.default_rng(5 if name == "dirichlet_box" else 7)
+        geometry = Geometry(c, (1.0, 1.0))
+        K = torch.as_tensor(np.exp(0.3 * rng.normal(size=c)), **kw)
+        rc = torch.as_tensor(1.0 + 0.2 * rng.random(c), **kw)
+        Tg = np.zeros((n + 2, n + 2))
+        Tg[1:-1, 1:-1] = 0.5 + 0.2 * rng.normal(size=c)
+        qx = torch.as_tensor(0.1 * rng.normal(size=(n + 1, n)), **kw)
+        qy = torch.as_tensor(0.1 * rng.normal(size=(n, n + 1)), **kw)
+        if name == "dirichlet_box":  # the BCs of models/thermal_stresses.py, per face
+            bc = TemperatureBoundaryConditions(
+                constant_value=Faces(left=0.2, right=0.4, bot=1.0, top=0.0))
+            H, shear_heating = 0.05 * rng.random(c), 0.5 * rng.random(c)
+            H_tot = torch.as_tensor(H, **kw) + torch.as_tensor(shear_heating, **kw)
+            ad, dt = None, 0.1
+        elif name == "insulated":  # no_flux on all four faces, a heat source
+            bc = TemperatureBoundaryConditions(
+                no_flux=Faces(left=True, right=True, bot=True, top=True))
+            H_tot = torch.as_tensor(rng.random(c), **kw)
+            ad = torch.as_tensor(-0.02 * rng.random(c), **kw)
+            dt = 0.5
+        else:
+            raise ValueError(name)
+        T = thermal_bcs(torch.as_tensor(Tg, **kw), bc)
+    pt = PTThermalCoeffs.make(K, rc, dt, geometry.di, geometry.li)
+    args = (T, qx, qy, T, K, rc, H_tot, pt.dtau_rho, pt.theta_r_dtau, 1.0 / dt,
+            1.0 / geometry.di[0], 1.0 / geometry.di[1], bc)
+    return args, dict(adiabatic=ad)
+
+
+def thermal_1024_setup(n, dtype):
+    """bench_kernels.py::pallas_thermal2d at n²: L = 100 km, K = 3,
+    ρCp = 3.3e6, dt = 1.5e11, T = 1500 + 10·N(0, 1), no_flux left/right,
+    constant_value top 1500 / bottom 1600, H = 0; the state on the default
+    device. Returns (thermal, pt, bc, geometry, K, ρCp, dt)."""
+    geometry = Geometry((n, n), (100.0e3, 100.0e3))
+    thermal = ThermalState.make((n, n), dtype=dtype)
+    kw = dict(dtype=dtype, device=thermal.T.device)
+    K, rc, dt = torch.full((n, n), 3.0, **kw), torch.full((n, n), 3.3e6, **kw), 1.5e11
+    bc = TemperatureBoundaryConditions(no_flux=Faces(left=True, right=True),
+                                       constant_value=Faces(top=1500.0, bot=1600.0))
+    T = thermal_bcs(torch.as_tensor(
+        1500.0 + 10.0 * np.random.default_rng(0).normal(size=(n + 2, n + 2)), **kw), bc)
+    pt = PTThermalCoeffs.make(K, rc, dt, geometry.di, geometry.li)
+    return thermal.replace(T=T, Told=T), pt, bc, geometry, K, rc, dt
+
+
 def bound_ms(words, n_cells, itemsize, kind):
     """Least time per PT iteration: the accounting's words per cell over
     the HBM peak (the operations, a few dozen per cell, take far less at
@@ -309,11 +445,12 @@ def main():
         path = _cuda_build.build_library(source)
         return path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(build, (hv.SOURCE, hs.SOURCE)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = list(pool.map(build, (hv.SOURCE, hs.SOURCE, ht.SOURCE)))
     hv._library()
     hs._library()
-    for phase, (lib_path, build_s) in zip(("build", "build_ve"), builds):
+    ht._library()
+    for phase, (lib_path, build_s) in zip(("build", "build_ve", "build_thermal"), builds):
         log = lib_path.with_suffix(".log")
         ptxas = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
                  if "registers" in ln or "spill" in ln]
@@ -436,7 +573,8 @@ def main():
     }
 
     ve_line = run_ve(dev, smi, kind)
-    print(json.dumps({"kernels": [vep_line, ve_line]}), flush=True)
+    th_line = run_thermal(dev, smi, kind)
+    print(json.dumps({"kernels": [vep_line, ve_line, th_line]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
@@ -549,6 +687,145 @@ def run_ve(dev, smi, kind):
         "source": "justrelax_tpu_torch/csrc/stokes_ve.cu",
         "replaces": ("justrelax_tpu/ops/pallas_stokes.py:264 (B1 stokes_chunk_vmem); "
                      "justrelax_tpu/ops/pallas_stokes.py:470 (B4 stokes_chunk_blocked)"),
+        "launches": main_launches,
+        "max_abs_err": worst_abs,
+        "max_rel_diff_f64": worst_rel,
+        "max_rel_diff_f32_1024": worst32,
+        "ms": t_k,
+        "plain_ms": t_p,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def run_thermal(dev, smi, kind):
+    """Phases 10-13, the thermal solve; returns the thermal kernel's entry of
+    the kernels line."""
+    # ---- 10. thermal kernel against plain, f64, n=64
+    worst_rel, worst_abs = 0.0, 0.0
+    for case in TH_CASES:
+        args, kw = thermal_case(case, 64, torch.float64, dev)
+        for nout, tol in ((1, TOL_TH_NOUT1), (500, TOL_TH_NOUT500)):
+            ref = ht.thermal_chunk_reference(*args, nout=nout, **kw)
+            out = ht.thermal_chunk(*args, nout=nout, **kw)
+            torch.cuda.synchronize()
+            d = rel_diffs_th(out, ref)
+            worst = max(d.values())
+            worst_rel, worst_abs = max(worst_rel, worst), max(worst_abs, abs_diff(out, ref))
+            moved = float((out[0] - args[0]).abs().max())
+            emit("parity_thermal", case=case, nout=nout, max_rel_diff=worst, tol=tol,
+                 T_moved=moved, per_field=d)
+            check(worst <= tol, f"{case} nout={nout}: {worst} > {tol}")
+            check(moved > 0.0, f"{case} nout={nout}: the kernel left T unchanged")
+
+    # ---- 11. goldens through the default entry points, f64, 32^2
+    n = 32
+    geometry, K, rc, bc, Tg = pallas_thermal_setup(n, torch.float64, dev)
+    th0 = ThermalState.make((n, n)).replace(T=Tg, Told=Tg)
+    pt = PTThermalCoeffs.make(K, rc, 0.3, geometry.di, geometry.li)
+    ht.thermal_chunk.launches = 0
+    t0 = time.perf_counter()
+    th, info = heatdiffusion_PT(th0, pt, bc, 0.3, geometry, K=K, rho_Cp=rc,
+                                iter_max=4000, nout=200)
+    T = th.T
+    g = dict(iters=int(info.iters), err=float(info.err), T_centre=float(T[17, 17]),
+             T_corner_lo=float(T[1, 1]), T_corner_hi=float(T[32, 32]))
+    rel_T = max(abs(g[k] - GOLDEN_THERMAL[k]) / abs(GOLDEN_THERMAL[k])
+                for k in ("T_centre", "T_corner_lo", "T_corner_hi"))
+    rel_err = abs(g["err"] - GOLDEN_THERMAL["err"]) / GOLDEN_THERMAL["err"]
+    emit("golden_thermal", case="heatdiffusion_PT_32", **g, rel_T=rel_T, rel_err=rel_err,
+         launches=ht.thermal_chunk.launches, seconds=time.perf_counter() - t0)
+    check(g["iters"] == GOLDEN_THERMAL["iters"], "golden_thermal: iterations")
+    check(rel_T <= 1e-10, f"golden_thermal: T {rel_T}")
+    # err is a residual of O(1) terms near 1e-9: rounding moves it by ~1e-7
+    # relative, the FMA contraction of the kernel included
+    check(rel_err <= 1e-4, f"golden_thermal: err {rel_err}")
+    check(ht.thermal_chunk.launches > 0, "golden_thermal: the kernel was not launched")
+
+    ht.thermal_chunk.launches = 0
+    t0 = time.perf_counter()
+    th, info = diffusion2d.run(nx=32, ny=32, dtype=torch.float64)
+    T = th.T
+    g = dict(T_17_17=float(T[17, 17]), T_16_16=float(T[16, 16]), err=float(info.err),
+             iters_last=int(info.iters), launches=ht.thermal_chunk.launches,
+             seconds=time.perf_counter() - t0)
+    emit("golden_thermal", case="diffusion2d_32", **g)
+    check(th.T.device.type == "cuda", "diffusion2d: the default device is not the card")
+    check(abs(g["T_17_17"] - 1817.9448461176817) <= 0.1, "diffusion2d: T[17, 17]")
+    check(abs(g["T_16_16"] - 1827.4674313638786) <= 0.1, "diffusion2d: T[16, 16]")
+    check(g["err"] < 1e-8, "diffusion2d: err")
+    check(g["launches"] == 0, "diffusion2d: the material path launched the thermal kernel")
+
+    hv.stokes_vep_chunk.launches = ht.thermal_chunk.launches = 0
+    t0 = time.perf_counter()
+    urms, nu, info, _, _ = blankenbach.run(nx=32, ny=32, nit=10, dtype=torch.float64)
+    g = dict(Urms_first=urms[0], Urms_last=urms[-1], Nu_last=nu[-1], err=float(info.err),
+             iters_last=int(info.iters), launches=hv.stokes_vep_chunk.launches,
+             thermal_launches=ht.thermal_chunk.launches, seconds=time.perf_counter() - t0)
+    emit("golden_thermal", case="blankenbach_32", **g)
+    check(abs(g["Urms_first"] - URMS0_F64) <= 1e-3 * URMS0_F64, "blankenbach: Urms[0]")
+    check(abs(g["Urms_last"] - 0.40987052065118357) <= 1e-1 * 0.40987052065118357,
+          "blankenbach: Urms[-1]")
+    check(abs(g["Nu_last"] - 1.0026242251320245) <= 1e-2 * 1.0026242251320245,
+          "blankenbach: Nu[-1]")
+    check(g["err"] < 1e-4, "blankenbach: err")
+    check(g["launches"] > 0, "blankenbach: the VEP kernel was not launched")
+
+    # ---- 12. main path: the production grid, the default entry point
+    n = 1024
+    thermal, pt, bc, geometry, K, rc, dt = thermal_1024_setup(n, torch.float32)
+    hv.stokes_vep_chunk.launches = hs.stokes_chunk.launches = ht.thermal_chunk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    th, info = heatdiffusion_PT(thermal, pt, bc, dt, geometry, K=K, rho_Cp=rc,
+                                iter_max=20_000, nout=1_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_launches = ht.thermal_chunk.launches
+    check(th.T.device.type == "cuda", "main path thermal: the default device is not the card")
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        th.T, th.qTx, th.qTy, th.qTx2, th.qTy2, th.ResT))
+    emit("main_path_thermal", n=n, dtype="float32", iters=int(info.iters),
+         err=float(info.err), wall_s=wall, wall_ms_per_iter=wall / int(info.iters) * 1e3,
+         launches=main_launches, finite=finite)
+    check(finite, "main path thermal: non-finite fields")
+    check(main_launches > 0, "main path thermal: the kernel was not launched")
+
+    # 200 iterations kernel vs plain from the main path's initial state
+    args = (thermal.T, thermal.qTx, thermal.qTy, thermal.T, K, rc,
+            thermal.H + thermal.shear_heating, pt.dtau_rho, pt.theta_r_dtau, 1.0 / dt,
+            1.0 / geometry.di[0], 1.0 / geometry.di[1], bc)
+    kw = dict(adiabatic=thermal.adiabatic)
+    per_field, worst32, k_vs_64, p_vs_64, _ = f32_gaps(
+        ht.thermal_chunk, ht.thermal_chunk_reference, rel_diffs_th, args, kw, 200)
+    tol = max(TOL_F32_1024, 2.0 * p_vs_64)
+    emit("f32_1024_parity_thermal", nout=200, max_rel_diff=worst32, tol=tol,
+         kernel_vs_plain_f64=k_vs_64, plain_f32_vs_plain_f64=p_vs_64, per_field=per_field)
+    check(worst32 <= tol, f"f32 1024^2 thermal: {worst32} > {tol}")
+
+    # ---- 13. timing at 1024^2 f32, in turns kernel, plain, plain, kernel
+    nk, npl = 1000, 20
+    tk1 = cuda_time_ms(lambda: ht.thermal_chunk(*args, nout=nk, **kw)) / nk
+    tp1 = cuda_time_ms(lambda: ht.thermal_chunk_reference(*args, nout=npl, **kw)) / npl
+    tp2 = cuda_time_ms(lambda: ht.thermal_chunk_reference(*args, nout=npl, **kw)) / npl
+    tk2 = cuda_time_ms(lambda: ht.thermal_chunk(*args, nout=nk, **kw)) / nk
+    ht.thermal_chunk.launches = main_launches  # comparison launches do not count
+    t_k, t_p = min(tk1, tk2), min(tp1, tp2)
+    t_eff = WORDS_TH * n * n * 4 / (t_k * 1e-3)
+    t_eff_bench = WORDS_TH_BENCH * n * n * 4 / (t_k * 1e-3)
+    bound = bound_ms(WORDS_TH, n * n, 4, kind)
+    emit("timing_thermal", n=n, dtype="float32", kernel_ms_per_iter=[tk1, tk2],
+         plain_ms_per_iter=[tp1, tp2], T_eff_GBs=t_eff / 1e9,
+         T_eff_16_word_convention_GBs=t_eff_bench / 1e9,
+         hbm_peak_GBs=HBM_PEAK[kind] / 1e9, hbm_share=t_eff / HBM_PEAK[kind],
+         bound_ms=bound, bound_share=bound / t_k, plain_over_kernel=t_p / t_k,
+         nvidia_smi=smi)
+    return {
+        "name": "thermal_chunk",
+        "route": "cuda",
+        "source": "justrelax_tpu_torch/csrc/thermal.cu",
+        "replaces": "justrelax_tpu/ops/pallas_thermal.py:113 (B5 thermal_chunk_vmem)",
         "launches": main_launches,
         "max_abs_err": worst_abs,
         "max_rel_diff_f64": worst_rel,

@@ -14,17 +14,26 @@ the package needs no GPU: each CUDA kernel is built and loaded at its first
 launch on a CUDA tensor.
 """
 
-from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs
+from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs, PTThermalCoeffs
 from justrelax_tpu_torch.core.grid import Geometry
-from justrelax_tpu_torch.core.state import StokesState
-from justrelax_tpu_torch.ops.bc import VelocityBoundaryConditions, flow_bcs
+from justrelax_tpu_torch.core.state import StokesState, ThermalState
+from justrelax_tpu_torch.ops.bc import (
+    TemperatureBoundaryConditions,
+    VelocityBoundaryConditions,
+    flow_bcs,
+    thermal_bcs,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Geometry",
     "PTStokesCoeffs",
+    "PTThermalCoeffs",
     "StokesState",
+    "TemperatureBoundaryConditions",
+    "ThermalState",
     "VelocityBoundaryConditions",
     "flow_bcs",
+    "thermal_bcs",
 ]

@@ -2,9 +2,10 @@
 
 The JAX package's containers turn into nested dicts of arrays with
 ``flax.serialization.to_state_dict`` (done by the caller, so this module
-needs no JAX). ``stokes_state_from_dict`` and ``material_from_dict`` build
-the port's :class:`StokesState` and :class:`MaterialStack` from such dicts
-on a given device (the card unless given) and dtype; ``to_state_dict`` turns a port container back
+needs no JAX). ``stokes_state_from_dict``, ``thermal_state_from_dict`` and
+``material_from_dict`` build the port's :class:`StokesState`,
+:class:`ThermalState` and :class:`MaterialStack` from such dicts on a given
+device (the card unless given) and dtype; ``to_state_dict`` turns a port container back
 into the same nested dict of numpy arrays (``None`` where the JAX container
 has an unused 3D field).
 """
@@ -18,10 +19,11 @@ import numpy as np
 import torch
 
 from justrelax_tpu_torch.core.device import resolve_device
-from justrelax_tpu_torch.core.state import StokesState
+from justrelax_tpu_torch.core.state import StokesState, ThermalState
 from justrelax_tpu_torch.rheology.materials import MaterialStack
 
-__all__ = ["stokes_state_from_dict", "material_from_dict", "to_state_dict"]
+__all__ = ["stokes_state_from_dict", "thermal_state_from_dict", "material_from_dict",
+           "to_state_dict"]
 
 
 def _build(cls, d, dtype, device):
@@ -42,6 +44,12 @@ def stokes_state_from_dict(d, device=None, dtype=None) -> StokesState:
     """Port ``StokesState`` from the JAX state's dict (``dtype=None`` keeps
     the arrays' own dtype)."""
     return _build(StokesState, d, dtype, resolve_device(device))
+
+
+def thermal_state_from_dict(d, device=None, dtype=None) -> ThermalState:
+    """Port ``ThermalState`` from the JAX state's dict (``dtype=None`` keeps
+    the arrays' own dtype)."""
+    return _build(ThermalState, d, dtype, resolve_device(device))
 
 
 def material_from_dict(d, device=None, dtype=None) -> MaterialStack:

@@ -1,13 +1,17 @@
-"""Stokes solver state as dataclasses of tensors.
+"""Stokes and thermal solver states as dataclasses of tensors.
 
 Counterpart of ``justrelax_tpu/core/state.py`` for 2D (``ni = (nx, ny)``),
-with the same staggered shapes:
+with the same staggered shapes. Stokes:
 
   - cell centers ``(nx, ny)``: P, P0, ∇V, Q, τ.xx/yy/xy_c, ε.*, EII_pl, λ
   - vertices ``(nx+1, ny+1)``: τ.xy, τ.xx_v/yy_v, ω.xy, λv, viscosity.ηv
   - velocities with ghost rows on the transverse axis:
       Vx ``(nx+1, ny+2)``, Vy ``(nx+2, ny+1)``
   - momentum residuals Rx ``(nx-1, ny)``, Ry ``(nx, ny-1)``
+
+Thermal (``ThermalState``): T, Told and dT with one ghost node per face
+``(nx+2, ny+2)``; fluxes on faces qTx/qTx2 ``(nx+1, ny)``, qTy/qTy2
+``(nx, ny+1)``; adiabatic, dT_dt, H, shear_heating and ResT at centers.
 
 The 3D-only fields keep their names and stay ``None``, so a state converts
 field for field to and from the JAX package (``justrelax_tpu_torch.convert``).
@@ -35,6 +39,7 @@ __all__ = [
     "SymmetricTensor",
     "Residual",
     "StokesState",
+    "ThermalState",
 ]
 
 
@@ -251,3 +256,48 @@ class StokesState(_Replace):
     @property
     def ndim(self) -> int:
         return self.P.ndim
+
+
+@dataclasses.dataclass(frozen=True)
+class ThermalState(_Replace):
+    """Thermal solver state (the JAX package's ``ThermalState``)."""
+
+    T: Tensor
+    Told: Tensor
+    dT: Tensor
+    adiabatic: Tensor
+    dT_dt: Tensor
+    qTx: Tensor
+    qTy: Tensor
+    qTx2: Tensor
+    qTy2: Tensor
+    H: Tensor
+    shear_heating: Tensor
+    ResT: Tensor
+    qTz: Optional[Tensor] = None
+    qTz2: Optional[Tensor] = None
+
+    @classmethod
+    def make(cls, ni: Tuple[int, ...], dtype=None, device=None) -> "ThermalState":
+        nx, ny = _check_2d(ni)
+        device = resolve_device(device)
+
+        def z(shape):
+            return _zeros(shape, dtype, device)
+
+        ni, ni_g = (nx, ny), (nx + 2, ny + 2)
+        qx, qy = (nx + 1, ny), (nx, ny + 1)
+        return cls(
+            T=z(ni_g), Told=z(ni_g), dT=z(ni_g), adiabatic=z(ni), dT_dt=z(ni),
+            qTx=z(qx), qTy=z(qy), qTx2=z(qx), qTy2=z(qy),
+            H=z(ni), shear_heating=z(ni), ResT=z(ni),
+        )
+
+    @property
+    def ni(self) -> Tuple[int, ...]:
+        return tuple(self.H.shape)
+
+    @property
+    def T_inner(self) -> Tensor:
+        """Interior (non-ghost) temperature view."""
+        return self.T[1:-1, 1:-1]

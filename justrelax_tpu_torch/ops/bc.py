@@ -1,9 +1,13 @@
-"""Ghost-node velocity boundary conditions on the staggered grid (2D).
+"""Ghost-node velocity and temperature boundary conditions on the staggered
+grid (2D).
 
-Counterpart of the flow part of ``justrelax_tpu/ops/bc.py``. BC configs are
-frozen dataclasses; ``flow_bcs`` returns new tensors. Face naming: ``left``/
-``right`` bound the x-axis, ``bot``/``top`` the y-axis. Application order is
-no-slip, then free-slip (later writes win).
+Counterpart of ``justrelax_tpu/ops/bc.py``. BC configs are frozen
+dataclasses; ``flow_bcs`` and ``thermal_bcs`` return new tensors. Face
+naming: ``left``/``right`` bound the x-axis, ``bot``/``top`` the y-axis.
+Application order (later writes win): flow no-slip, then free-slip; thermal
+constant_value, then no_flux, then periodic, each over the faces bot, top,
+left, right. Each face writes its whole ghost line, corners included, so the
+order decides the corner ghosts.
 """
 
 from __future__ import annotations
@@ -13,7 +17,14 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-__all__ = ["Faces", "VelocityBoundaryConditions", "flow_bcs", "pureshear_bc"]
+__all__ = [
+    "Faces",
+    "TemperatureBoundaryConditions",
+    "VelocityBoundaryConditions",
+    "thermal_bcs",
+    "flow_bcs",
+    "pureshear_bc",
+]
 
 Value = Union[bool, float, None]
 
@@ -56,6 +67,20 @@ def _as_faces(f) -> Faces:
 
 
 @dataclasses.dataclass(frozen=True)
+class TemperatureBoundaryConditions:
+    no_flux: Faces = Faces()
+    constant_value: Faces = Faces()
+    constant_flux: Faces = Faces()
+    periodic: Faces = Faces()
+
+    def __init__(self, no_flux=None, constant_value=None, constant_flux=None, periodic=None):
+        object.__setattr__(self, "no_flux", _as_faces(no_flux))
+        object.__setattr__(self, "constant_value", _as_faces(constant_value))
+        object.__setattr__(self, "constant_flux", _as_faces(constant_flux))
+        object.__setattr__(self, "periodic", _as_faces(periodic))
+
+
+@dataclasses.dataclass(frozen=True)
 class VelocityBoundaryConditions:
     no_slip: Faces = Faces()
     free_slip: Faces = Faces()
@@ -80,6 +105,44 @@ def _slab_set(A, axis: int, dst: int, src: Optional[int], scale=None):
     slab = A[tuple(src_idx)]
     A[tuple(dst_idx)] = slab if scale is None else slab * scale
     return A
+
+
+# (axis, side) of each face, in the order thermal_bcs applies them
+THERMAL_FACE_ORDER = (("bot", 1, 0), ("top", 1, 1), ("left", 0, 0), ("right", 0, 1))
+
+
+def _line(A, axis: int, k: int):
+    idx = [slice(None)] * A.ndim
+    idx[axis] = k
+    return tuple(idx)
+
+
+def thermal_bcs(T, bcs: TemperatureBoundaryConditions):
+    """Scalar BCs on a ghosted ``(nx+2, ny+2)`` temperature; returns a new
+    tensor. constant_value: ghost = 2·value − interior (Dirichlet at the
+    face); no_flux: ghost = interior (mirror); periodic: ghost = opposite
+    interior."""
+    if T.ndim != 2:
+        raise NotImplementedError("the PyTorch port covers 2D grids only")
+    T = T.clone()
+    n = T.shape
+    if bcs.constant_value.any():
+        for name, axis, side in THERMAL_FACE_ORDER:
+            v = getattr(bcs.constant_value, name)
+            if Faces.active(v):
+                inner = T[_line(T, axis, 1 if side == 0 else n[axis] - 2)]
+                T[_line(T, axis, 0 if side == 0 else n[axis] - 1)] = 2.0 * v - inner
+    if bcs.no_flux.any():
+        for name, axis, side in THERMAL_FACE_ORDER:
+            if Faces.on(getattr(bcs.no_flux, name)):
+                inner = T[_line(T, axis, 1 if side == 0 else n[axis] - 2)]
+                T[_line(T, axis, 0 if side == 0 else n[axis] - 1)] = inner
+    if bcs.periodic.any():
+        for name, axis, side in THERMAL_FACE_ORDER:
+            if Faces.on(getattr(bcs.periodic, name)):
+                inner = T[_line(T, axis, n[axis] - 2 if side == 0 else 1)]
+                T[_line(T, axis, 0 if side == 0 else n[axis] - 1)] = inner
+    return T
 
 
 def _free_slip_velocity_2d(Vx, Vy, fs: Faces):

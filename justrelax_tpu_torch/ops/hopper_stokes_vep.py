@@ -90,12 +90,14 @@ def vep_chunk_bc_modes(flow_bc):
     return tuple(modes)
 
 
-def vep_chunk_supported(material, geometry, flow_bc, free_surface) -> bool:
+def vep_chunk_supported(material, geometry, flow_bc, free_surface, like=None) -> bool:
     """Whether the chunk kernel covers a configuration: linear creep or a
     collapsible tau-mode power law, solve-invariant density (beta == 0),
     the consistent ∂Q/∂τ convention (dqdtau_alt == 0), a uniform grid, each
-    face free-slip or no-slip, no free-surface term."""
-    m = _as_stack(material).params
+    face free-slip or no-slip, no free-surface term. A bare material is
+    stacked as ``like``."""
+    material = _as_stack(material, like)
+    m = material.params
     creep_ok = _is_linear_creep(material) or shared_powerlaw_exponent(material) is not None
     const_rho = not bool((m.beta != 0).any())
     consistent_dq = not bool((m.dqdtau_alt != 0).any())
@@ -106,8 +108,10 @@ def vep_chunk_supported(material, geometry, flow_bc, free_surface) -> bool:
     )
 
 
-def _resolve_static(material, has_cap, visc_m):
-    """Resolve the kernel's specialisations from the material table."""
+def _resolve_static(material, has_cap, visc_m, like=None):
+    """Resolve the kernel's specialisations from the material table (a bare
+    material is stacked as ``like``)."""
+    material = _as_stack(material, like)
     if visc_m == "auto":
         linear = _is_linear_creep(material)
         visc_m = None if linear else shared_powerlaw_exponent(material)
@@ -117,7 +121,7 @@ def _resolve_static(material, has_cap, visc_m):
                 "power law (see shared_powerlaw_exponent)"
             )
     if has_cap is None:
-        has_cap = bool((_as_stack(material).params.tension_pT != 0).any())
+        has_cap = bool((material.params.tension_pT != 0).any())
     return bool(has_cap), visc_m
 
 
@@ -130,7 +134,7 @@ def _vep_prepare(theta, P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
     materials have beta == 0, so the entry pressure ``theta`` fixes it."""
     nx, ny = P0.shape
     dev = P0.device
-    material = _as_stack(material).to(device=dev, dtype=dtype)
+    material = _as_stack(material, P0).to(device=dev, dtype=dtype)
     dt = float(dt)
     pr_c, pr_v = phase_ratios_center, phase_ratios_vertex
 
@@ -209,7 +213,7 @@ def stokes_vep_chunk_reference(
     inv = vep_invariants(txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl, material,
                          phase_ratios_center, phase_ratios_vertex)
     eta_tables = None
-    if _is_linear_creep(material):
+    if _is_linear_creep(material, eta):
         eta_tables = linear_viscosity_tables(
             material, phase_ratios_center, phase_ratios_vertex, T, T_v, eta, eta_v)
     for _ in range(int(nout)):
@@ -256,7 +260,7 @@ def stokes_vep_chunk(
     bc_modes = ("free_slip",) * 4 if flow_bc is None else vep_chunk_bc_modes(flow_bc)
     if bc_modes is None:
         raise ValueError("each face must be exactly one of free-slip / no-slip")
-    has_cap, visc_m = _resolve_static(material, has_cap, visc_m)
+    has_cap, visc_m = _resolve_static(material, has_cap, visc_m, like=theta)
     cinv, vinv = _vep_prepare(theta, P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
                               material, phase_ratios_center,
                               phase_ratios_vertex, T, T_v, dt, visc_m, dtype)

@@ -113,10 +113,10 @@ def vep_invariants(txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl, material,
         txx_o=txx_o, tyy_o=tyy_o, txy_c_o=txy_c_o, txy_v_o=txy_v_o,
         txx_ov=av_a(expand_edges(txx_o)),
         tyy_ov=av_a(expand_edges(tyy_o)),
-        K_c=get_bulk_modulus(material, phase_ratios_center),
-        G_c=get_shear_modulus(material, phase_ratios_center),
-        K_v=get_bulk_modulus(material, phase_ratios_vertex),
-        G_v=get_shear_modulus(material, phase_ratios_vertex),
+        K_c=get_bulk_modulus(material, phase_ratios_center, like=txx_o),
+        G_c=get_shear_modulus(material, phase_ratios_center, like=txx_o),
+        K_v=get_bulk_modulus(material, phase_ratios_vertex, like=txy_v_o),
+        G_v=get_shear_modulus(material, phase_ratios_vertex, like=txy_v_o),
         ppc=plastic_params_phase(material, EII_pl, phase_ratios_center),
         ppv=plastic_params_phase(
             material, av_a(expand_edges(EII_pl)), phase_ratios_vertex),
@@ -259,7 +259,7 @@ class VEPCarry(NamedTuple):
 def rho_g_fields(material, T, P, phase_ratios_center):
     """Buoyancy (ρg_x, ρg_y) at cell centers: ρ(T, P)·g along y."""
     rho = compute_density(material, T=T, P=P, phase_ratios=phase_ratios_center)
-    g = phase_average(_as_stack(material).params.gravity, phase_ratios_center)
+    g = phase_average(_as_stack(material, rho).params.gravity, phase_ratios_center)
     rho_gy = rho * g.expand(rho.shape)
     return torch.zeros_like(rho_gy), rho_gy
 

@@ -6,10 +6,17 @@ properties are evaluated for all phases at once, and multi-phase cells blend
 them with phase-ratio weighted sums.
 
 Parameterizations (unused parameters take neutral defaults): density
-ρ = ρ0 (1 − α (T − T0) + β (P − P0)); elastic moduli G and K (∞ means
+ρ = ρ0 (1 − α (T − T0) + β (P − P0)); volumetric heat capacity ρ·Cp,
+conductivity k and radiogenic heat H_r; elastic moduli G and K (∞ means
 rigid/incompressible); creep η0, dislocation, diffusion, Peierls and
 grain-boundary sliding (see viscosity.py); Drucker-Prager plasticity with
 softening and a tension cap (see plasticity.py).
+
+Every function takes a :class:`MaterialStack` or a bare :class:`Material`
+(or a list of them). A bare material is stacked on the device and in the
+floating dtype of the field it is evaluated against (T, P, the phase ratios,
+or ``like`` where a function has no field), as the JAX package evaluates it
+wherever its fields are; an explicit stack stands as given.
 """
 
 from __future__ import annotations
@@ -26,6 +33,10 @@ __all__ = [
     "MaterialStack",
     "phase_average",
     "compute_density",
+    "compute_rhoCp",
+    "compute_conductivity",
+    "compute_radioactive_heating",
+    "compute_diffusivity",
     "get_shear_modulus",
     "get_bulk_modulus",
 ]
@@ -128,16 +139,32 @@ class MaterialStack:
         return self.params.rho0.dtype
 
 
-def _as_stack(material, device=None) -> MaterialStack:
-    """``material`` as a stack; a bare ``Material`` or a list of them is
-    stacked on ``device`` (the card unless given)."""
+def _as_stack(material, like) -> MaterialStack:
+    """``material`` as a stack. A bare ``Material`` or a list of them is
+    stacked on the device of the tensor ``like`` and in its floating dtype
+    (float64 for a non-floating ``like``); an explicit ``MaterialStack``
+    stands as given. A bare material with no field to follow (``like`` is
+    ``None``) raises ``ValueError``."""
     if isinstance(material, MaterialStack):
         return material
     if isinstance(material, Material):
-        return MaterialStack.make([material], device=device)
-    if isinstance(material, (list, tuple)):
-        return MaterialStack.make(list(material), device=device)
-    raise TypeError(f"cannot interpret {material!r} as MaterialStack")
+        materials = [material]
+    elif isinstance(material, (list, tuple)):
+        materials = list(material)
+    else:
+        raise TypeError(f"cannot interpret {material!r} as MaterialStack")
+    if like is None:
+        raise ValueError(
+            "a bare Material is evaluated on the device and in the dtype of "
+            "its fields; none was given (pass a field, or a MaterialStack)")
+    dtype = like.dtype if like.is_floating_point() else torch.float64
+    return MaterialStack.make(materials, dtype=dtype, device=like.device)
+
+
+def _field(*fields):
+    """The first of ``fields`` that is not ``None`` (the field a bare
+    material follows)."""
+    return next((f for f in fields if f is not None), None)
 
 
 def phase_average(values, phase_ratios: Optional[torch.Tensor]):
@@ -157,7 +184,7 @@ def _bcast(param, T):
 
 def compute_density(material, T=None, P=None, phase_ratios=None):
     """ρ(T, P) per cell (GeoParams PT_Density)."""
-    m = _as_stack(material).params
+    m = _as_stack(material, _field(T, P, phase_ratios)).params
     ref = T if T is not None else P
     rho0 = _bcast(m.rho0, ref)
     rho = rho0
@@ -169,6 +196,45 @@ def compute_density(material, T=None, P=None, phase_ratios=None):
     return phase_average(rho, phase_ratios)
 
 
+def compute_rhoCp(material, T=None, P=None, phase_ratios=None):
+    """ρ(T, P)·Cp per cell, phase-weighted on the product (not the
+    factors)."""
+    ref = T if T is not None else P
+    stack = _as_stack(material, _field(T, P, phase_ratios)).params
+    rho0 = _bcast(stack.rho0, ref)
+    rho_p = rho0
+    if T is not None:
+        rho_p = rho_p * (1.0 - _bcast(stack.alpha, ref) * (T[..., None] - _bcast(stack.T0, ref)))
+    if P is not None:
+        rho_p = rho_p + rho0 * _bcast(stack.beta, ref) * (P[..., None] - _bcast(stack.P0, ref))
+    rhoCp = rho_p * _bcast(stack.Cp, ref)
+    return phase_average(rhoCp, phase_ratios)
+
+
+def compute_conductivity(material, T=None, P=None, phase_ratios=None):
+    """Conductivity k per cell; broadcast to ``T``'s shape when there are no
+    phase ratios."""
+    m = _as_stack(material, _field(T, P, phase_ratios)).params
+    k = _bcast(m.k, T if T is not None else P)
+    out = phase_average(k, phase_ratios)
+    if phase_ratios is None and T is not None:
+        out = out.expand(T.shape)
+    return out
+
+
+def compute_diffusivity(material, T=None, P=None, phase_ratios=None):
+    """Thermal diffusivity κ = k/(ρ·Cp) per cell."""
+    return compute_conductivity(material, T=T, P=P, phase_ratios=phase_ratios) / \
+        compute_rhoCp(material, T=T, P=P, phase_ratios=phase_ratios)
+
+
+def compute_radioactive_heating(material, phase_ratios=None, like=None):
+    """Radiogenic heat H_r per cell (a 0-d tensor without phase ratios). A
+    bare material follows ``phase_ratios``, or ``like`` without them."""
+    m = _as_stack(material, _field(phase_ratios, like)).params
+    return phase_average(m.H_r, phase_ratios)
+
+
 def _phase_average_inf_safe(values, phase_ratios):
     """Ratio-weighted sum skipping zero-ratio phases (∞·0 would be NaN)."""
     if phase_ratios is None:
@@ -177,13 +243,17 @@ def _phase_average_inf_safe(values, phase_ratios):
     return torch.sum(contrib, dim=-1)
 
 
-def get_shear_modulus(material, phase_ratios=None):
-    m = _as_stack(material).params
+def get_shear_modulus(material, phase_ratios=None, like=None):
+    """G per cell (∞ where G is 0 or NaN). A bare material follows
+    ``phase_ratios``, or ``like`` without them."""
+    m = _as_stack(material, _field(phase_ratios, like)).params
     G = torch.where((m.G == 0) | torch.isnan(m.G), _INF, m.G)
     return _phase_average_inf_safe(G, phase_ratios)
 
 
-def get_bulk_modulus(material, phase_ratios=None):
-    m = _as_stack(material).params
+def get_bulk_modulus(material, phase_ratios=None, like=None):
+    """K per cell (∞ where K is 0 or NaN). A bare material follows
+    ``phase_ratios``, or ``like`` without them."""
+    m = _as_stack(material, _field(phase_ratios, like)).params
     Kb = torch.where((m.Kb == 0) | torch.isnan(m.Kb), _INF, m.Kb)
     return _phase_average_inf_safe(Kb, phase_ratios)

@@ -52,7 +52,7 @@ def _soften(val, min_v, slope_active, lo, hi, EII):
 
 
 def plastic_params_phase(material, EII, phase_ratios: Optional[torch.Tensor]) -> PlasticParams:
-    m = _as_stack(material).params
+    m = _as_stack(material, EII).params
     deg = math.pi / 180.0
     E = EII[..., None]
 

@@ -43,7 +43,7 @@ def phase_viscosity(material, invII, T: Optional[torch.Tensor], phase_ratios,
     ``invII`` (``mode="tau"``)."""
     if mode != "tau":
         raise NotImplementedError("the PyTorch port has the 'tau' mode only")
-    m = _as_stack(material).params
+    m = _as_stack(material, invII).params
     tiny = _tiny(invII)
     inv_safe = torch.clamp_min(invII[..., None], tiny)
     iRT = None if T is None else 1.0 / (R_GAS * torch.clamp_min(T[..., None], 1e-30))
@@ -101,22 +101,24 @@ def phase_viscosity(material, invII, T: Optional[torch.Tensor], phase_ratios,
     return torch.where(dominant, eta_dom, harm)
 
 
-def _is_linear_creep(material) -> bool:
-    """No creep mechanism in any phase: the viscosity is η0 per phase."""
-    m = _as_stack(material).params
+def _is_linear_creep(material, like=None) -> bool:
+    """No creep mechanism in any phase: the viscosity is η0 per phase. A
+    bare material is stacked as ``like``."""
+    m = _as_stack(material, like).params
     return not any(
         bool((getattr(m, a) > 0).any())
         for a in ("disl_A", "diff_A", "peierls_A", "gbs_A")
     )
 
 
-def shared_powerlaw_exponent(material):
+def shared_powerlaw_exponent(material, like=None):
     """The shared stress power ``m = n − 1`` of ``1/η(τII) = A + B·τII^m``
     when the creep table collapses to it (dislocation creep with one shared
     ``n`` plus diffusion creep and linear phases); ``0.0`` when only
     diffusion creep is present; ``None`` when it does not collapse (Peierls
-    or GBS mechanisms, mixed exponents) or is purely linear."""
-    p = _as_stack(material).params
+    or GBS mechanisms, mixed exponents) or is purely linear. A bare material
+    is stacked as ``like``."""
+    p = _as_stack(material, like).params
     if bool((p.peierls_A > 0).any()) or bool((p.gbs_A > 0).any()):
         return None
     ns = p.disl_n[p.disl_A > 0]
@@ -132,7 +134,7 @@ def powerlaw_recip_coeffs(material, shape_like, T, phase_ratios):
     ``1/η(τII) = A + B·τII^m`` (valid when :func:`shared_powerlaw_exponent`
     is not None). Harmonic phase blending is linear in reciprocals, so the
     blend collapses exactly, dominant-phase exit included."""
-    p = _as_stack(material).params
+    p = _as_stack(material, shape_like).params
     ref = shape_like
     tiny = _tiny(ref)
     A = _bcast(p.disl_A, ref)

@@ -37,6 +37,7 @@ from justrelax_tpu_torch.ops.stokes_vep import (
     vep_invariants,
     vep_iteration,
 )
+from justrelax_tpu_torch.rheology.materials import _as_stack
 from justrelax_tpu_torch.rheology.plasticity import second_invariant_staggered
 from justrelax_tpu_torch.rheology.viscosity import _is_linear_creep
 from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm
@@ -68,7 +69,10 @@ def solve_vep(
     does so for a state on the card and runs the plain path for one on the
     CPU; ``False`` asks for the plain path. A configuration the kernel does
     not cover (see ``vep_chunk_supported``) raises ``ValueError`` when the
-    kernel is asked for. Keyword arguments as :func:`_solve_vep`."""
+    kernel is asked for. A bare ``Material`` is stacked once, on the
+    state's device and in its dtype. Keyword arguments as
+    :func:`_solve_vep`."""
+    material = _as_stack(material, stokes.P)
     use_kernel = resolve_use_kernel(use_kernel, stokes.P)
     has_cap, visc_m = False, None
     if use_kernel:

@@ -10,10 +10,11 @@ import torch
 
 from justrelax_tpu_torch import convert
 from justrelax_tpu_torch.core.device import resolve_device, resolve_use_kernel
-from justrelax_tpu_torch.core.state import StokesState
-from justrelax_tpu_torch.models import elastic_buildup, shearband, solcx, solkz
+from justrelax_tpu_torch.core.state import StokesState, ThermalState
+from justrelax_tpu_torch.models import blankenbach, diffusion2d, elastic_buildup, shearband, solcx, solkz
 from justrelax_tpu_torch.ops import hopper_stokes as hs
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv
+from justrelax_tpu_torch.ops import hopper_thermal as ht
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack
 
 torch.set_num_threads(1)
@@ -46,8 +47,11 @@ def test_resolve_device():
     lambda: solcx.run(nx=8, ny=8),
     lambda: solkz.run(nx=8, ny=8),
     lambda: elastic_buildup.run(nx=8, ny=8, endtime_kyr=0.05),
+    lambda: ThermalState.make((8, 8)),
+    lambda: diffusion2d.run(nx=8, ny=8),
+    lambda: blankenbach.run(nx=8, ny=8, nit=1),
 ], ids=["StokesState", "MaterialStack", "convert", "shearband", "softening", "dpcap",
-        "solcx", "solkz", "elastic_buildup"])
+        "solcx", "solkz", "elastic_buildup", "ThermalState", "diffusion2d", "blankenbach"])
 def test_entry_points_raise_without_a_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
@@ -78,3 +82,21 @@ def test_default_path_on_cpu_is_plain():
     assert hv.stokes_vep_chunk.launches == 0
     assert torch.equal(sa[0].V.Vx, sb[0].V.Vx)
     assert math.isclose(sa[2][-1], sb[2][-1], rel_tol=0.0)
+
+
+def test_default_thermal_path_on_cpu_is_plain():
+    """heatdiffusion_PT with no use_kernel on CPU tensors: no launches, the
+    same result as ``use_kernel=False``."""
+    from chip_smoke import pallas_thermal_setup
+    from justrelax_tpu_torch.core.coeffs import PTThermalCoeffs
+    from justrelax_tpu_torch.solvers.thermal import heatdiffusion_PT
+
+    g, K, rc, bc, Tg = pallas_thermal_setup(12, torch.float64, "cpu")
+    th = ThermalState.make((12, 12), device="cpu").replace(T=Tg, Told=Tg)
+    pt = PTThermalCoeffs.make(K, rc, 0.3, g.di, g.li)
+    ht.thermal_chunk.launches = 0
+    a, ia = heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, iter_max=400, nout=100)
+    b, ib = heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, iter_max=400, nout=100,
+                             use_kernel=False)
+    assert ht.thermal_chunk.launches == 0
+    assert ia.iters == ib.iters and torch.equal(a.T, b.T)

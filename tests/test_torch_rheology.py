@@ -99,7 +99,7 @@ def test_material_stack():
     p, _ = _stacks("shearband")
     assert p.nphase == 2 and p.dtype == torch.float64
     assert p.to(dtype=torch.float32).params.G.dtype == torch.float32
-    one = pm._as_stack(pm.Material(G=3.0), device="cpu")
+    one = pm._as_stack(pm.Material(G=3.0), torch.zeros(1, dtype=torch.float64))
     assert one.nphase == 1 and float(one.params.G[0]) == 3.0
 
 
