@@ -6,10 +6,11 @@
 Run from the root of a checkout. Phases, each printing JSON lines:
 
 0. device   : the card's name and power limit (nvidia-smi).
-1. build    : nvcc builds the three Hopper kernel libraries from
+1. build    : nvcc builds the four Hopper kernel libraries from
               justrelax_tpu_torch/csrc, one nvcc per source, side by side
-              (lines "build" for stokes_vep.cu, "build_ve" for stokes_ve.cu
-              and "build_thermal" for thermal.cu).
+              (lines "build" for stokes_vep.cu, "build_ve" for stokes_ve.cu,
+              "build_thermal" for thermal.cu and "build_ve3d" for
+              stokes3d_ve.cu).
 2. parity   : the VEP chunk kernel against its plain PyTorch version on the
               card, f64, n=64, nout 1 and 50, in four configurations.
 3. golden   : shearband.run(n=32, nt=10, f64) through the kernel against the
@@ -47,6 +48,29 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               it; then 200 iterations kernel vs plain from its initial state.
 13. timing_thermal: per-iteration time of the thermal kernel and its plain
               version at 1024^2 f32, by CUDA events.
+14. parity_ve3d: the 3D VE chunk kernel against its plain version, f64, nout
+              1 and 200: the general VE form at (22, 9, 7), the viscous form
+              at 32^3 with and without the free-slip ghosts, the general form
+              with dt = inf at 32^3 (its uniform canvases passed as scalars),
+              and the viscous_consts route against the plain chunk on the
+              viscous coefficients.
+15. golden_ve3d: SolVi 3D at 16^3 f64 through the default entry point (B7;
+              norm_Rx < 1e-8 within 5 000 iterations, the plain path's count
+              beside it) and Burstedde at 16^3 f64 on the plain path (Vx
+              within 5e-2, no B7 launch).
+16. main_path_ve3d: SolVi 3D at 126^3 f32 (the production 3D grid of
+              bench_kernels.py's ve3d) through the default entry point,
+              10 000 iterations, with the launch count read around it; the
+              kernel's and the plain version's time per iteration on the
+              solve's own first-chunk inputs, by CUDA events, and the split
+              of its wall time (set-up, kernel, the rest); then 200
+              iterations kernel vs plain from those inputs in f32 and f64.
+17. timing_ve3d: per-iteration time of the 3D kernel and its plain version
+              at 126^3 and 254^3 f32 (bench_kernels.py's ve3d set-up), by
+              CUDA events.
+
+Bounds are the bytes an iteration must move over the HBM peak, counted from
+the run's own inputs (ve3d_words for the 3D kernel).
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
@@ -75,15 +99,18 @@ from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs, PTThermalCoeffs  # n
 from justrelax_tpu_torch.core.state import ThermalState  # noqa: E402
 from justrelax_tpu_torch.models import (  # noqa: E402
     blankenbach,
+    burstedde,
     diffusion2d,
     elastic_buildup,
     shearband,
     solcx,
     solkz,
+    solvi3d,
 )
 from justrelax_tpu_torch.models.shearband import _circle_phase_ratios  # noqa: E402
 from justrelax_tpu_torch.ops import _cuda_build  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes as hs  # noqa: E402
+from justrelax_tpu_torch.ops import hopper_stokes3d as h3  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_thermal as ht  # noqa: E402
 from justrelax_tpu_torch.ops.bc import (  # noqa: E402
@@ -93,8 +120,10 @@ from justrelax_tpu_torch.ops.bc import (  # noqa: E402
     flow_bcs,
     thermal_bcs,
 )
+from justrelax_tpu_torch.solvers.stokes3d import kernel_chunk_inputs  # noqa: E402
 from justrelax_tpu_torch.solvers.thermal import heatdiffusion_PT  # noqa: E402
 from justrelax_tpu_torch.ops.stencil import av_vertex_to_center, expand_edges, maxloc  # noqa: E402
+from justrelax_tpu_torch.ops.stokes3d_canvas import pack_carry, ve3d_canvas_coefficients  # noqa: E402
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack  # noqa: E402
 from justrelax_tpu_torch.rheology.viscosity import phase_viscosity  # noqa: E402
 
@@ -113,6 +142,10 @@ TOL_VE_NOUT500 = 1e-10
 # words per cell and PT iteration in the repo's accounting
 # (justrelax_tpu/utils/bench_kernels.py: vep2d 39, ve2d 23)
 WORDS_VEP, WORDS_VE = 39, 23
+VE3D_FIELDS = ("Vx", "Vy", "Vz", "P", "txx", "tyy", "tzz", "tyz", "txz", "txy")
+VE3D_CASES = ("ve_general", "viscous", "viscous_no_free_slip", "ve_dt_inf")
+TOL_VE3D_NOUT1 = 1e-13  # rounding only (differences as rel_diffs_ve3d defines them)
+TOL_VE3D_NOUT200 = 1e-10
 TH_FIELDS = ("T", "qx", "qy")
 TH_CASES = ("pallas_setup", "dirichlet_box", "insulated")
 TOL_TH_NOUT1 = 1e-12  # rounding only (differences as rel_diffs_th defines them)
@@ -178,6 +211,12 @@ def rel_diffs_ve(a, b):
     version), with no floor: SolCx velocities are far below 1. A field that
     is zero in both has no difference."""
     return _rel_no_floor(VE_FIELDS, a, b)
+
+
+def rel_diffs_ve3d(a, b):
+    """max |a − b| per 3D VE canvas relative to the canvas's max |b| (b the
+    plain version), with no floor."""
+    return _rel_no_floor(VE3D_FIELDS, a, b)
 
 
 def rel_diffs_th(a, b):
@@ -314,6 +353,65 @@ def ve_case(name, n, dtype, dev):
     return args, phys
 
 
+# ---- the three configurations of the 3D VE parity phase --------------------
+def ve3d_numpy(name, ni):
+    """numpy inputs of one 3D chunk call at ``ni`` cells, from a seed:
+    (the 10 staggered fields, (η, fx, fy, fz), the VE physics, the lengths,
+    free_slip). "ve_general" is the set-up of
+    tests/test_pallas3d_blocked.py:52-73 (seeds 4 and 7: G, K, P0, Q, τ_o
+    and dt = 0.5, the general coefficient form); "viscous" and
+    "viscous_no_free_slip" draw the state from seeds 5 and 6 and take the
+    viscous form (G = None), the second without the free-slip ghosts;
+    "ve_dt_inf" draws the state from seed 8 and the physics of "ve_general"
+    with dt = ∞, where 12 of the general form's canvases are uniform and
+    the kernel takes them as scalars or leaves them out."""
+    nx, ny, nz = ni
+    seed = {"ve_general": 4, "viscous": 5, "viscous_no_free_slip": 6, "ve_dt_inf": 8}[name]
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.standard_normal(shape)
+
+    fields = (r(nx + 1, ny + 2, nz + 2), r(nx + 2, ny + 1, nz + 2), r(nx + 2, ny + 2, nz + 1),
+              r(*ni), r(*ni), r(*ni), r(*ni),
+              r(nx, ny + 1, nz + 1), r(nx + 1, ny, nz + 1), r(nx + 1, ny + 1, nz))
+    consts = (np.exp(0.5 * r(*ni)), r(*ni), r(*ni), r(*ni))
+    phys = {}
+    if name in ("ve_general", "ve_dt_inf"):
+        rng2 = np.random.default_rng(7)
+
+        def r2(*shape):
+            return rng2.standard_normal(shape) * 0.1
+
+        phys = dict(G=np.exp(r2(*ni) + 1.0), K=np.exp(r2(*ni) + 2.0), P0=r2(*ni), Q=r2(*ni),
+                    tau_o=(r2(*ni), r2(*ni), r2(*ni), r2(nx, ny + 1, nz + 1),
+                           r2(nx + 1, ny, nz + 1), r2(nx + 1, ny + 1, nz)),
+                    dt=0.5 if name == "ve_general" else math.inf)
+    return fields, consts, phys, (1.0, 1.3, 0.8), name != "viscous_no_free_slip"
+
+
+def ve3d_case(name, ni, dtype, dev):
+    """Inputs of one ``stokes3d_chunk`` call from :func:`ve3d_numpy`:
+    (carry, co, inv_di, free_slip, (viscous_consts, pt_scalars)), the last
+    the ``viscous_consts`` route's inputs for the same η and f."""
+    fields, consts, phys, li, free_slip = ve3d_numpy(name, ni)
+
+    def t(a):
+        if isinstance(a, tuple):
+            return tuple(map(t, a))
+        return torch.as_tensor(a, dtype=dtype, device=dev) if isinstance(a, np.ndarray) else a
+
+    geometry = Geometry(ni, li)
+    pt = PTStokesCoeffs.make(li, geometry.di, CFL=0.9 / math.sqrt(3.1))
+    eta, fx, fy, fz = t(consts)
+    eta_tau = maxloc(eta, 1)
+    co = ve3d_canvas_coefficients(eta, eta_tau, pt.r, pt.theta_dtau, pt.etadtau,
+                                  fx=fx, fy=fy, fz=fz, **{k: t(v) for k, v in phys.items()})
+    derive = ((eta, eta_tau, fx, fy, fz), (pt.r / pt.theta_dtau, pt.theta_dtau, pt.etadtau))
+    return (tuple(pack_carry(*t(fields))), co, tuple(1.0 / d for d in geometry.di),
+            free_slip, derive)
+
+
 # ---- the three configurations of the thermal parity phase -----------------
 def pallas_thermal_setup(n, dtype, dev):
     """The set-up of tests/test_pallas_thermal.py::_setup: lognormal K,
@@ -445,12 +543,12 @@ def main():
         path = _cuda_build.build_library(source)
         return path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = list(pool.map(build, (hv.SOURCE, hs.SOURCE, ht.SOURCE)))
-    hv._library()
-    hs._library()
-    ht._library()
-    for phase, (lib_path, build_s) in zip(("build", "build_ve", "build_thermal"), builds):
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        builds = list(pool.map(build, (hv.SOURCE, hs.SOURCE, ht.SOURCE, h3.SOURCE)))
+    for mod in (hv, hs, ht, h3):
+        mod._library()
+    for phase, (lib_path, build_s) in zip(("build", "build_ve", "build_thermal", "build_ve3d"),
+                                          builds):
         log = lib_path.with_suffix(".log")
         ptxas = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
                  if "registers" in ln or "spill" in ln]
@@ -574,7 +672,8 @@ def main():
 
     ve_line = run_ve(dev, smi, kind)
     th_line = run_thermal(dev, smi, kind)
-    print(json.dumps({"kernels": [vep_line, ve_line, th_line]}), flush=True)
+    ve3d_line = run_ve3d(dev, smi, kind)
+    print(json.dumps({"kernels": [vep_line, ve_line, th_line, ve3d_line]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
@@ -835,6 +934,226 @@ def run_thermal(dev, smi, kind):
         "bound_ms": bound,
         "bound_by": "bytes",
         "library_ms": None,
+    }
+
+
+def ve3d_words(eta, eta_tau, f):
+    """Words per cell that one 3D VE iteration with dt = ∞ must move: the 10
+    unknowns read and written, and each read-only input its result depends
+    on (η, ητ, fx, fy, fz) that does not hold one value everywhere (a kernel
+    takes such an input as a scalar). bench_kernels.py::ve3d counts 35, with
+    15 read-only inputs; the other ten (G, K, P0, Q, τ_o×6) drop out of
+    every coefficient where dt = ∞."""
+    return 20 + sum(not bool((t == t.reshape(-1)[0]).all()) for t in (eta, eta_tau, *f))
+
+
+def solvi3d_inputs(n, dtype, dev):
+    """The first chunk's inputs of solvi3d.run at n³, from the model's own
+    set-up through the solver's kernel_chunk_inputs: ((carry, packed
+    coefficients, inv_di), (η, ρg, dt))."""
+    geometry, st, pt, _, rho_g, G, K, dt = solvi3d._setup(nx=n, ny=n, nz=n, dtype=dtype,
+                                                          device=dev)
+    return (kernel_chunk_inputs(st, pt, geometry, rho_g, G, K, dt),
+            (st.viscosity.eta, rho_g, dt))
+
+
+def ve3d_bench_inputs(n, dtype, dev):
+    """bench_kernels.py::pallas_ve3d_blocked at n³: η = exp(0.3·N(0, 1)),
+    fz ~ N(0, 1) (seed 0), the viscous coefficient form (G = K = dt = ∞),
+    zero fields, all free slip. Returns (carry, packed coefficients,
+    inv_di, words per cell)."""
+    kw = dict(dtype=dtype, device=dev)
+    ni = (n, n, n)
+    geometry = Geometry(ni, (1.0, 1.0, 1.0))
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di)
+    rng = np.random.default_rng(0)
+    eta = torch.as_tensor(np.exp(0.3 * rng.normal(size=ni)), **kw)
+    fz = torch.as_tensor(rng.normal(size=ni), **kw)
+    z = torch.zeros(ni, **kw)
+    eta_tau = maxloc(eta, 1)
+    co = ve3d_canvas_coefficients(eta, eta_tau, pt.r, pt.theta_dtau, pt.etadtau,
+                                  fx=z, fy=z, fz=fz)
+    X = n + 2
+    carry = tuple(torch.zeros((X, X, X), **kw) for _ in range(10))
+    return (carry, h3.pack_coeffs(co), tuple(1.0 / d for d in geometry.di),
+            ve3d_words(eta, eta_tau, (z, z, fz)))
+
+
+def time_ve3d(carry, co, inv_di, nk, npl):
+    """ms per iteration of the 3D VE kernel and its plain version on the
+    same inputs, in turns kernel, plain, plain, kernel: ([k1, k2], [p1, p2])."""
+    tk1 = cuda_time_ms(lambda: h3.stokes3d_chunk(carry, co, inv_di, nk)) / nk
+    tp1 = cuda_time_ms(lambda: h3.stokes3d_chunk_reference(carry, co, inv_di, npl)) / npl
+    tp2 = cuda_time_ms(lambda: h3.stokes3d_chunk_reference(carry, co, inv_di, npl)) / npl
+    tk2 = cuda_time_ms(lambda: h3.stokes3d_chunk(carry, co, inv_di, nk)) / nk
+    return [tk1, tk2], [tp1, tp2]
+
+
+def run_ve3d(dev, smi, kind):
+    """Phases 14-17, the 3D VE solve; returns the 3D VE kernel's entry of
+    the kernels line."""
+    # ---- 14. 3D VE kernel against plain, f64
+    worst_rel, worst_abs = 0.0, 0.0
+    routes = [(case, case) for case in VE3D_CASES] + [("viscous_consts", "viscous")]
+    for label, case in routes:
+        ni = (22, 9, 7) if case == "ve_general" else (32, 32, 32)
+        carry, co, inv_di, free_slip, (consts, scalars) = ve3d_case(case, ni, torch.float64,
+                                                                    dev)
+        for nout, tol in ((1, TOL_VE3D_NOUT1), (200, TOL_VE3D_NOUT200)):
+            # the viscous_consts route against the plain chunk on co (G = None)
+            ref = h3.stokes3d_chunk_reference(carry, co, inv_di, nout, free_slip=free_slip)
+            if label == "viscous_consts":
+                out = h3.stokes3d_chunk(carry, None, inv_di, nout, viscous_consts=consts,
+                                        pt_scalars=scalars)
+            else:
+                out = h3.stokes3d_chunk(carry, co, inv_di, nout, free_slip=free_slip)
+            torch.cuda.synchronize()
+            d = rel_diffs_ve3d(out, ref)
+            worst = max(d.values())
+            worst_rel, worst_abs = max(worst_rel, worst), max(worst_abs, abs_diff(out, ref))
+            moved = min(float((o - a).abs().max()) for o, a in zip(out[:3], carry[:3]))
+            emit("parity_ve3d", case=label, ni=list(ni), nout=nout, max_rel_diff=worst, tol=tol,
+                 V_moved=moved, per_field=d)
+            check(worst <= tol, f"{label} nout={nout}: {worst} > {tol}")
+            check(moved > 0.0, f"{label} nout={nout}: the kernel left V unchanged")
+            if not free_slip:
+                check(torch.equal(out[0][:, 0], carry[0][:, 0]), f"{label}: ghosts moved")
+
+    # ---- 15. goldens through the default entry points, f64, 16^3
+    h3.stokes3d_chunk.launches = 0
+    t0 = time.perf_counter()
+    geom, st, info = solvi3d.run(dtype=torch.float64)
+    nrx = info.norm_Rx.cpu().numpy()
+    Vx = st.V.Vx.cpu().numpy()
+    xv = np.asarray(geom.xvi[0])
+    g = dict(iters=int(info.iters), err=float(info.err),
+             norm_Rx_last=float(nrx[np.isfinite(nrx)][-1]),
+             boundary_Vx_err=float(max(np.abs(Vx[0, 1:-1, 1:-1] - xv[0]).max(),
+                                       np.abs(Vx[-1, 1:-1, 1:-1] - xv[-1]).max())),
+             launches=h3.stokes3d_chunk.launches, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    _, _, info_plain = solvi3d.run(dtype=torch.float64, use_kernel=False)
+    g.update(iters_plain=int(info_plain.iters), seconds_plain=time.perf_counter() - t0)
+    emit("golden_ve3d", case="solvi3d_16", **g)
+    check(st.P.device.type == "cuda", "solvi3d: the default device is not the card")
+    check(g["norm_Rx_last"] < 1e-8 and g["iters"] <= 5_000, "solvi3d: norm_Rx")
+    check(g["boundary_Vx_err"] <= 1e-12, "solvi3d: boundary Vx")
+    check(g["launches"] > 0, "solvi3d: the kernel was not launched")
+
+    h3.stokes3d_chunk.launches = 0
+    t0 = time.perf_counter()
+    geom, st, info = burstedde.run(nx=16, ny=16, nz=16, iter_max=20_000, nout=1_000,
+                                   dtype=torch.float64)
+    vx_a, _ = burstedde.analytic_velocity(geom)
+    vx = st.V.Vx[:, 1:-1, 8].cpu().numpy()
+    rel = float(np.linalg.norm(vx - vx_a) / np.linalg.norm(vx_a))
+    emit("golden_ve3d", case="burstedde_16", rel_err=rel, tol=5e-2, iters=int(info.iters),
+         err=float(info.err), launches=h3.stokes3d_chunk.launches,
+         seconds=time.perf_counter() - t0)
+    check(rel < 5e-2, f"burstedde: Vx relative error {rel}")
+    check(h3.stokes3d_chunk.launches == 0, "burstedde: the plain path launched B7")
+
+    # ---- 16. main path: SolVi at the production 3D grid, the default entry
+    n = 126
+    hv.stokes_vep_chunk.launches = hs.stokes_chunk.launches = 0
+    ht.thermal_chunk.launches = h3.stokes3d_chunk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st, info = solvi3d.run(nx=n, ny=n, nz=n, dtype=torch.float32, iter_max=10_000,
+                              nout=1_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_launches = h3.stokes3d_chunk.launches
+    check(st.P.device.type == "cuda", "main path 3D: the default device is not the card")
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        st.V.Vx, st.V.Vy, st.V.Vz, st.P, st.tau.xx, st.tau.zz, st.tau.yz, st.tau.xy, st.tau.II))
+    emit("main_path_ve3d", n=n, dtype="float32", iters=int(info.iters), err=float(info.err),
+         wall_s=wall, wall_ms_per_iter=wall / int(info.iters) * 1e3, launches=main_launches,
+         other_launches=hv.stokes_vep_chunk.launches + hs.stokes_chunk.launches
+         + ht.thermal_chunk.launches, finite=finite)
+    check(finite, "main path 3D: non-finite fields")
+    check(main_launches > 0, "main path 3D: the kernel was not launched")
+
+    # the main path's first-chunk inputs, built as the solve builds them;
+    # their set-up is part of the solve's wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (carry, co, inv_di), (eta, rho_g, dt) = solvi3d_inputs(n, torch.float32, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(math.isinf(dt), "main path 3D: ve3d_words counts dt = inf only")
+    words = ve3d_words(eta, maxloc(eta, 1), rho_g)
+    # the kernel and its plain version on those inputs, and the split of the
+    # solve's wall time they give
+    tk, tp = time_ve3d(carry, co, inv_di, 200, 10)
+    t_main, tp_main = min(tk), min(tp)
+    bound_main = bound_ms(words, n ** 3, 4, kind)
+    kernel_s = t_main * 1e-3 * int(info.iters)
+    emit("main_path_ve3d_split", n=n, n_canvas=int(co.stack.shape[0]), words=words,
+         kernel_ms_per_iter=tk, plain_ms_per_iter=tp,
+         T_eff_GBs=words * n ** 3 * 4 / (t_main * 1e-3) / 1e9, bound_ms=bound_main,
+         bound_share=bound_main / t_main, setup_s=setup_s, kernel_s=kernel_s,
+         rest_s=wall - setup_s - kernel_s, kernel_share=kernel_s / wall, nvidia_smi=smi)
+
+    # 200 iterations kernel vs plain from the main path's initial state: the
+    # kernel reads the packed (uniform canvases as scalars), the plain
+    # version the full canvases
+    (carry64, co64, _), _ = solvi3d_inputs(n, torch.float64, dev)
+    out = h3.stokes3d_chunk(carry, co, inv_di, 200)
+    ref = h3.stokes3d_chunk_reference(carry, co, inv_di, 200)
+    ref64 = h3.stokes3d_chunk_reference(carry64, co64, inv_di, 200)
+    per_field = rel_diffs_ve3d(out, ref)
+    worst32, p_vs_64 = max(per_field.values()), max(rel_diffs_ve3d(ref, ref64).values())
+    k_vs_64 = max(rel_diffs_ve3d(out, ref64).values())
+    tol = max(TOL_F32_1024, 2.0 * p_vs_64)
+    emit("f32_126_parity_ve3d", nout=200, max_rel_diff=worst32, tol=tol,
+         kernel_vs_plain_f64=k_vs_64, plain_f32_vs_plain_f64=p_vs_64, per_field=per_field)
+    check(worst32 <= tol, f"f32 126^3: {worst32} > {tol}")
+    out64 = h3.stokes3d_chunk(carry64, co64, inv_di, 200)
+    worst64 = max(rel_diffs_ve3d(out64, ref64).values())
+    worst_abs = max(worst_abs, abs_diff(out64, ref64))
+    emit("f64_126_parity_ve3d", nout=200, max_rel_diff=worst64, tol=TOL_VE3D_NOUT200)
+    check(worst64 <= TOL_VE3D_NOUT200, f"f64 126^3: {worst64}")
+    del carry, co, carry64, co64, out, ref, ref64, out64
+
+    # ---- 17. timing, bench_kernels.py::ve3d at 126^3 and 254^3 f32
+    timing = {}
+    for n, nk, npl in ((126, 200, 10), (254, 100, 3)):
+        carry, co, inv_di, words = ve3d_bench_inputs(n, torch.float32, dev)
+        tk, tp = time_ve3d(carry, co, inv_di, nk, npl)
+        t_k, t_p = min(tk), min(tp)
+        t_eff = words * n ** 3 * 4 / (t_k * 1e-3)
+        bound = bound_ms(words, n ** 3, 4, kind)
+        timing[n] = (t_k, t_p, bound)
+        emit("timing_ve3d", n=n, dtype="float32", n_canvas=int(co.stack.shape[0]), words=words,
+             kernel_ms_per_iter=tk, plain_ms_per_iter=tp, T_eff_GBs=t_eff / 1e9,
+             T_eff_35_word_convention_GBs=35 * n ** 3 * 4 / (t_k * 1e-3) / 1e9,
+             hbm_peak_GBs=HBM_PEAK[kind] / 1e9, hbm_share=t_eff / HBM_PEAK[kind],
+             bound_ms=bound, bound_share=bound / t_k, plain_over_kernel=t_p / t_k,
+             nvidia_smi=smi)
+        del carry, co
+    h3.stokes3d_chunk.launches = main_launches  # comparison launches do not count
+    return {
+        "name": "stokes3d_chunk",
+        "route": "cuda",
+        "source": "justrelax_tpu_torch/csrc/stokes3d_ve.cu",
+        "replaces": ("justrelax_tpu/ops/pallas_stokes3d_blocked.py:296 "
+                     "(B7 stokes3d_chunk_blocked)"),
+        "launches": main_launches,
+        "max_abs_err": worst_abs,
+        "max_rel_diff_f64": worst_rel,
+        "max_rel_diff_f32_126": worst32,
+        "ms": t_main,
+        "plain_ms": tp_main,
+        "bound_ms": bound_main,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ve3d_ms_126": timing[126][0],
+        "ve3d_plain_ms_126": timing[126][1],
+        "ve3d_bound_ms_126": timing[126][2],
+        "ve3d_ms_254": timing[254][0],
+        "ve3d_plain_ms_254": timing[254][1],
+        "ve3d_bound_ms_254": timing[254][2],
     }
 
 

@@ -1,7 +1,7 @@
 """Stokes and thermal solver states as dataclasses of tensors.
 
-Counterpart of ``justrelax_tpu/core/state.py`` for 2D (``ni = (nx, ny)``),
-with the same staggered shapes. Stokes:
+Counterpart of ``justrelax_tpu/core/state.py`` for 2D (``ni = (nx, ny)``)
+and 3D (``ni = (nx, ny, nz)``), with the same staggered shapes. Stokes, 2D:
 
   - cell centers ``(nx, ny)``: P, P0, ∇V, Q, τ.xx/yy/xy_c, ε.*, EII_pl, λ
   - vertices ``(nx+1, ny+1)``: τ.xy, τ.xx_v/yy_v, ω.xy, λv, viscosity.ηv
@@ -9,12 +9,20 @@ with the same staggered shapes. Stokes:
       Vx ``(nx+1, ny+2)``, Vy ``(nx+2, ny+1)``
   - momentum residuals Rx ``(nx-1, ny)``, Ry ``(nx, ny-1)``
 
-Thermal (``ThermalState``): T, Told and dT with one ghost node per face
-``(nx+2, ny+2)``; fluxes on faces qTx/qTx2 ``(nx+1, ny)``, qTy/qTy2
-``(nx, ny+1)``; adiabatic, dT_dt, H, shear_heating and ResT at centers.
+3D adds the z analogues: Vx ``(nx+1, ny+2, nz+2)``, Vy ``(nx+2, ny+1, nz+2)``,
+Vz ``(nx+2, ny+2, nz+1)``; τ/ε shear components on cell edges, yz
+``(nx, ny+1, nz+1)``, xz ``(nx+1, ny, nz+1)``, xy ``(nx+1, ny+1, nz)``, and
+at centers (``*_c``); normal components also at vertices (``*_v``); Rz
+``(nx, ny, nz-1)``; vorticity on the edges.
 
-The 3D-only fields keep their names and stay ``None``, so a state converts
-field for field to and from the JAX package (``justrelax_tpu_torch.convert``).
+Thermal (``ThermalState``): T, Told and dT with one ghost node per face
+``(nx+2, ny+2[, nz+2])``; fluxes on faces qTx/qTx2 ``(nx+1, ny[, nz])``,
+qTy/qTy2 ``(nx, ny+1[, nz])`` and, in 3D, qTz/qTz2 ``(nx, ny, nz+1)``;
+adiabatic, dT_dt, H, shear_heating and ResT at centers.
+
+In 2D the 3D-only fields keep their names and stay ``None``, so a state
+converts field for field to and from the JAX package
+(``justrelax_tpu_torch.convert``).
 Solvers return new states; ``state.replace(field=value)`` builds one.
 ``dtype`` defaults to float64, the type the goldens are held in; ``device``
 to the card (``core/device.py::resolve_device``: pass ``"cpu"`` for the CPU).
@@ -51,9 +59,9 @@ def _zeros(shape, dtype, device):
     return torch.zeros(shape, dtype=_dtype(dtype), device=resolve_device(device))
 
 
-def _check_2d(ni):
-    if len(ni) != 2:
-        raise NotImplementedError("the PyTorch port covers 2D grids only")
+def _check_ni(ni):
+    if len(ni) not in (2, 3):
+        raise ValueError(f"a state is 2D or 3D, got ni={tuple(ni)}")
     return tuple(int(n) for n in ni)
 
 
@@ -70,15 +78,25 @@ class Velocity(_Replace):
 
     @classmethod
     def make(cls, ni, dtype=None, device=None) -> "Velocity":
-        nx, ny = _check_2d(ni)
+        ni = _check_ni(ni)
+        if len(ni) == 2:
+            nx, ny = ni
+            return cls(
+                Vx=_zeros((nx + 1, ny + 2), dtype, device),
+                Vy=_zeros((nx + 2, ny + 1), dtype, device),
+            )
+        nx, ny, nz = ni
         return cls(
-            Vx=_zeros((nx + 1, ny + 2), dtype, device),
-            Vy=_zeros((nx + 2, ny + 1), dtype, device),
+            Vx=_zeros((nx + 1, ny + 2, nz + 2), dtype, device),
+            Vy=_zeros((nx + 2, ny + 1, nz + 2), dtype, device),
+            Vz=_zeros((nx + 2, ny + 2, nz + 1), dtype, device),
         )
 
     @property
     def components(self):
-        return (self.Vx, self.Vy)
+        if self.Vz is None:
+            return (self.Vx, self.Vy)
+        return (self.Vx, self.Vy, self.Vz)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,11 +108,13 @@ class Displacement(_Replace):
     @classmethod
     def make(cls, ni, dtype=None, device=None) -> "Displacement":
         v = Velocity.make(ni, dtype, device)
-        return cls(Ux=v.Vx, Uy=v.Vy)
+        return cls(Ux=v.Vx, Uy=v.Vy, Uz=v.Vz)
 
     @property
     def components(self):
-        return (self.Ux, self.Uy)
+        if self.Uz is None:
+            return (self.Ux, self.Uy)
+        return (self.Ux, self.Uy, self.Uz)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +125,16 @@ class Vorticity(_Replace):
 
     @classmethod
     def make(cls, ni, dtype=None, device=None) -> "Vorticity":
-        nx, ny = _check_2d(ni)
-        return cls(xy=_zeros((nx + 1, ny + 1), dtype, device))
+        ni = _check_ni(ni)
+        if len(ni) == 2:
+            nx, ny = ni
+            return cls(xy=_zeros((nx + 1, ny + 1), dtype, device))
+        nx, ny, nz = ni
+        return cls(
+            xy=_zeros((nx + 1, ny + 1, nz), dtype, device),
+            yz=_zeros((nx, ny + 1, nz + 1), dtype, device),
+            xz=_zeros((nx + 1, ny, nz + 1), dtype, device),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +148,7 @@ class Viscosity(_Replace):
 
     @classmethod
     def make(cls, ni, dtype=None, device=None) -> "Viscosity":
-        ni = _check_2d(ni)
+        ni = _check_ni(ni)
         ni_v = tuple(n + 1 for n in ni)
         kw = dict(dtype=_dtype(dtype), device=resolve_device(device))
         return cls(
@@ -133,8 +161,9 @@ class Viscosity(_Replace):
 
 @dataclasses.dataclass(frozen=True)
 class SymmetricTensor(_Replace):
-    """Normal components at centers (xx, yy) and vertices (xx_v, yy_v);
-    shear at vertices (xy) and centers (xy_c); II at centers."""
+    """Normal components at centers (xx, yy[, zz]) and vertices (xx_v,
+    yy_v[, zz_v]); shear at vertices in 2D and on cell edges in 3D (xy[, yz,
+    xz]) and at centers (xy_c[, yz_c, xz_c]); II at centers."""
 
     xx: Tensor
     yy: Tensor
@@ -152,25 +181,37 @@ class SymmetricTensor(_Replace):
 
     @classmethod
     def make(cls, ni, dtype=None, device=None) -> "SymmetricTensor":
-        nx, ny = _check_2d(ni)
-        nc, nv = (nx, ny), (nx + 1, ny + 1)
+        nc = _check_ni(ni)
+        nv = tuple(n + 1 for n in nc)
+
+        def z(shape):
+            return _zeros(shape, dtype, device)
+
+        if len(nc) == 2:
+            return cls(xx=z(nc), yy=z(nc), xx_v=z(nv), yy_v=z(nv), xy=z(nv),
+                       xy_c=z(nc), II=z(nc))
+        nx, ny, nz = nc
         return cls(
-            xx=_zeros(nc, dtype, device),
-            yy=_zeros(nc, dtype, device),
-            xx_v=_zeros(nv, dtype, device),
-            yy_v=_zeros(nv, dtype, device),
-            xy=_zeros(nv, dtype, device),
-            xy_c=_zeros(nc, dtype, device),
-            II=_zeros(nc, dtype, device),
+            xx=z(nc), yy=z(nc), zz=z(nc),
+            xx_v=z(nv), yy_v=z(nv), zz_v=z(nv),
+            xy=z((nx + 1, ny + 1, nz)),
+            yz=z((nx, ny + 1, nz + 1)),
+            xz=z((nx + 1, ny, nz + 1)),
+            xy_c=z(nc), yz_c=z(nc), xz_c=z(nc),
+            II=z(nc),
         )
 
     @property
     def normal(self):
-        return (self.xx, self.yy)
+        if self.zz is None:
+            return (self.xx, self.yy)
+        return (self.xx, self.yy, self.zz)
 
     @property
     def shear(self):
-        return (self.xy,)
+        if self.zz is None:
+            return (self.xy,)
+        return (self.yz, self.xz, self.xy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,11 +223,20 @@ class Residual(_Replace):
 
     @classmethod
     def make(cls, ni, dtype=None, device=None) -> "Residual":
-        nx, ny = _check_2d(ni)
+        ni = _check_ni(ni)
+        if len(ni) == 2:
+            nx, ny = ni
+            return cls(
+                RP=_zeros((nx, ny), dtype, device),
+                Rx=_zeros((nx - 1, ny), dtype, device),
+                Ry=_zeros((nx, ny - 1), dtype, device),
+            )
+        nx, ny, nz = ni
         return cls(
-            RP=_zeros((nx, ny), dtype, device),
-            Rx=_zeros((nx - 1, ny), dtype, device),
-            Ry=_zeros((nx, ny - 1), dtype, device),
+            RP=_zeros(ni, dtype, device),
+            Rx=_zeros((nx - 1, ny, nz), dtype, device),
+            Ry=_zeros((nx, ny - 1, nz), dtype, device),
+            Rz=_zeros((nx, ny, nz - 1), dtype, device),
         )
 
 
@@ -218,7 +268,7 @@ class StokesState(_Replace):
 
     @classmethod
     def make(cls, ni: Tuple[int, ...], dtype=None, device=None) -> "StokesState":
-        ni = _check_2d(ni)
+        ni = _check_ni(ni)
         ni_v = tuple(n + 1 for n in ni)
         device = resolve_device(device)
 
@@ -279,18 +329,23 @@ class ThermalState(_Replace):
 
     @classmethod
     def make(cls, ni: Tuple[int, ...], dtype=None, device=None) -> "ThermalState":
-        nx, ny = _check_2d(ni)
+        ni = _check_ni(ni)
         device = resolve_device(device)
 
         def z(shape):
-            return _zeros(shape, dtype, device)
+            return None if shape is None else _zeros(shape, dtype, device)
 
-        ni, ni_g = (nx, ny), (nx + 2, ny + 2)
-        qx, qy = (nx + 1, ny), (nx, ny + 1)
+        ni_g = tuple(n + 2 for n in ni)
+        if len(ni) == 2:
+            nx, ny = ni
+            qx, qy, qz = (nx + 1, ny), (nx, ny + 1), None
+        else:
+            nx, ny, nz = ni
+            qx, qy, qz = (nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)
         return cls(
             T=z(ni_g), Told=z(ni_g), dT=z(ni_g), adiabatic=z(ni), dT_dt=z(ni),
             qTx=z(qx), qTy=z(qy), qTx2=z(qx), qTy2=z(qy),
-            H=z(ni), shear_heating=z(ni), ResT=z(ni),
+            H=z(ni), shear_heating=z(ni), ResT=z(ni), qTz=z(qz), qTz2=z(qz),
         )
 
     @property
@@ -300,4 +355,4 @@ class ThermalState(_Replace):
     @property
     def T_inner(self) -> Tensor:
         """Interior (non-ghost) temperature view."""
-        return self.T[1:-1, 1:-1]
+        return self.T[(slice(1, -1),) * self.T.ndim]

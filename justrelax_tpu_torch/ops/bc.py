@@ -1,13 +1,15 @@
 """Ghost-node velocity and temperature boundary conditions on the staggered
-grid (2D).
+grid: velocity BCs in 2D and 3D, temperature BCs in 2D.
 
 Counterpart of ``justrelax_tpu/ops/bc.py``. BC configs are frozen
 dataclasses; ``flow_bcs`` and ``thermal_bcs`` return new tensors. Face
-naming: ``left``/``right`` bound the x-axis, ``bot``/``top`` the y-axis.
-Application order (later writes win): flow no-slip, then free-slip; thermal
-constant_value, then no_flux, then periodic, each over the faces bot, top,
-left, right. Each face writes its whole ghost line, corners included, so the
-order decides the corner ghosts.
+naming: ``left``/``right`` bound the x-axis; in 2D ``bot``/``top`` bound the
+y-axis; in 3D ``front``/``back`` bound the y-axis and ``top``/``bot`` the
+z-axis (``top`` at z index 0). Application order (later writes win): flow
+no-slip, then free-slip (2D over bot, top, left, right; 3D over front, back,
+top, bot, left, right); thermal constant_value, then no_flux, then periodic,
+each over the faces bot, top, left, right. Each face writes its whole ghost
+line or plane, edges and corners included, so the order decides them.
 """
 
 from __future__ import annotations
@@ -175,16 +177,70 @@ def _no_slip_velocity_2d(Vx, Vy, ns: Faces):
         _slab_set(Vy, 1, -1, None)
 
 
+def _free_slip_velocity_3d(Vx, Vy, Vz, fs: Faces):
+    """Mirror the tangential components into the ghost planes."""
+    if Faces.on(fs.front):
+        _slab_set(Vx, 1, 0, 1)
+        _slab_set(Vz, 1, 0, 1)
+    if Faces.on(fs.back):
+        _slab_set(Vx, 1, -1, -2)
+        _slab_set(Vz, 1, -1, -2)
+    if Faces.on(fs.top):
+        _slab_set(Vx, 2, 0, 1)
+        _slab_set(Vy, 2, 0, 1)
+    if Faces.on(fs.bot):
+        _slab_set(Vx, 2, -1, -2)
+        _slab_set(Vy, 2, -1, -2)
+    if Faces.on(fs.left):
+        _slab_set(Vy, 0, 0, 1)
+        _slab_set(Vz, 0, 0, 1)
+    if Faces.on(fs.right):
+        _slab_set(Vy, 0, -1, -2)
+        _slab_set(Vz, 0, -1, -2)
+
+
+def _no_slip_velocity_3d(Vx, Vy, Vz, ns: Faces):
+    """Zero the normal component on the face and negative-mirror the
+    tangential ghosts."""
+    if Faces.on(ns.left):
+        _slab_set(Vx, 0, 0, None)
+        _slab_set(Vy, 0, 0, 1, scale=-1.0)
+        _slab_set(Vz, 0, 0, 1, scale=-1.0)
+    if Faces.on(ns.right):
+        _slab_set(Vx, 0, -1, None)
+        _slab_set(Vy, 0, -1, -2, scale=-1.0)
+        _slab_set(Vz, 0, -1, -2, scale=-1.0)
+    if Faces.on(ns.front):
+        _slab_set(Vx, 1, 0, 1, scale=-1.0)
+        _slab_set(Vy, 1, 0, None)
+        _slab_set(Vz, 1, 0, 1, scale=-1.0)
+    if Faces.on(ns.back):
+        _slab_set(Vx, 1, -1, -2, scale=-1.0)
+        _slab_set(Vy, 1, -1, None)
+        _slab_set(Vz, 1, -1, -2, scale=-1.0)
+    if Faces.on(ns.bot):
+        _slab_set(Vx, 2, 0, 1, scale=-1.0)
+        _slab_set(Vy, 2, 0, 1, scale=-1.0)
+        _slab_set(Vz, 2, 0, None)
+    if Faces.on(ns.top):
+        _slab_set(Vx, 2, -1, -2, scale=-1.0)
+        _slab_set(Vy, 2, -1, -2, scale=-1.0)
+        _slab_set(Vz, 2, -1, None)
+
+
 def flow_bcs(V: Tuple, bcs: VelocityBoundaryConditions) -> Tuple:
-    """Apply velocity BCs to ``(Vx, Vy)``; returns new tensors."""
-    if len(V) != 2:
-        raise NotImplementedError("the PyTorch port covers 2D grids only")
-    Vx, Vy = V[0].clone(), V[1].clone()
+    """Apply velocity BCs to ``(Vx, Vy)`` or ``(Vx, Vy, Vz)``; returns new
+    tensors."""
+    if len(V) not in (2, 3):
+        raise ValueError(f"flow_bcs takes 2 or 3 velocity components, got {len(V)}")
+    V = tuple(v.clone() for v in V)
+    no_slip, free_slip = ((_no_slip_velocity_2d, _free_slip_velocity_2d) if len(V) == 2
+                          else (_no_slip_velocity_3d, _free_slip_velocity_3d))
     if bcs.no_slip.any():
-        _no_slip_velocity_2d(Vx, Vy, bcs.no_slip)
+        no_slip(*V, bcs.no_slip)
     if bcs.free_slip.any():
-        _free_slip_velocity_2d(Vx, Vy, bcs.free_slip)
-    return Vx, Vy
+        free_slip(*V, bcs.free_slip)
+    return V
 
 
 def pureshear_bc(Vx, Vy, xvi, eps_bg):

@@ -9,12 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import serialization
 
 from justrelax_tpu.core.coeffs import PTStokesCoeffs as JCoeffs
 from justrelax_tpu.core.grid import Geometry as JGeometry
 from justrelax_tpu.core.state import StokesState as JStokesState
 from justrelax_tpu.ops import bc as jbc
 from justrelax_tpu.ops import stencil as jst
+from justrelax_tpu_torch import convert
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs
 from justrelax_tpu_torch.core.grid import Geometry
 from justrelax_tpu_torch.core.state import StokesState
@@ -73,6 +75,58 @@ def test_state_shapes_and_replace():
     assert float(new.P.max()) == 1.0 and float(port.P.max()) == 0.0
     f32 = StokesState.make(ni, dtype=torch.float32, device="cpu")
     assert f32.tau.xy.dtype == torch.float32
+
+
+def _jshapes(obj):
+    if hasattr(obj, "__dataclass_fields__"):
+        return {k: _jshapes(getattr(obj, k)) for k in obj.__dataclass_fields__}
+    return None if obj is None else tuple(obj.shape)
+
+
+def _leaves(d, prefix=""):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def test_state_shapes_3d_and_convert_round_trip():
+    """3D shapes equal the JAX package's, every field a tensor; a JAX 3D
+    state goes to the port and back unchanged (JAX → port → JAX)."""
+    ni = (5, 4, 3)
+    port = StokesState.make(ni, device="cpu")
+    assert _shapes(port) == _jshapes(JStokesState.make(ni))
+    assert port.ni == ni and port.ndim == 3
+    assert all(v is not None for v in _leaves(convert.to_state_dict(port)).values())
+    assert len(port.V.components) == 3 and len(port.U.components) == 3
+    assert len(port.tau.normal) == 3 and len(port.tau.shear) == 3
+    assert tuple(port.tau.shear[0].shape) == (5, 5, 4)  # yz on the x-edges
+    rng = np.random.default_rng(5)
+    template = JStokesState.make(ni)
+    d = _leaves(serialization.to_state_dict(template))
+    values = {k: rng.standard_normal(v.shape) for k, v in d.items()}
+
+    def nest(flat):
+        out = {}
+        for k, v in flat.items():
+            node = out
+            *path, leaf = k.split(".")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = v
+        return out
+
+    j = serialization.from_state_dict(template, nest({k: jnp.asarray(v) for k, v in values.items()}))
+    p = convert.stokes_state_from_dict(serialization.to_state_dict(j), device="cpu")
+    assert p.tau.yz.dtype == torch.float64 and p.V.Vz.shape == (7, 6, 4)
+    back = serialization.from_state_dict(template, convert.to_state_dict(p))
+    for k, v in _leaves(serialization.to_state_dict(back)).items():
+        np.testing.assert_array_equal(np.asarray(v), values[k], err_msg=k)
+    with pytest.raises(ValueError):
+        StokesState.make((4,), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(eps_rel=1e-8, CFL=0.75 / np.sqrt(2.1)),

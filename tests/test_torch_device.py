@@ -11,8 +11,19 @@ import torch
 from justrelax_tpu_torch import convert
 from justrelax_tpu_torch.core.device import resolve_device, resolve_use_kernel
 from justrelax_tpu_torch.core.state import StokesState, ThermalState
-from justrelax_tpu_torch.models import blankenbach, diffusion2d, elastic_buildup, shearband, solcx, solkz
+from justrelax_tpu_torch.models import (
+    blankenbach,
+    burstedde,
+    diffusion2d,
+    elastic_buildup,
+    shearband,
+    solcx,
+    solkz,
+    solvi3d,
+    taylor_green,
+)
 from justrelax_tpu_torch.ops import hopper_stokes as hs
+from justrelax_tpu_torch.ops import hopper_stokes3d as h3
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv
 from justrelax_tpu_torch.ops import hopper_thermal as ht
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack
@@ -50,8 +61,13 @@ def test_resolve_device():
     lambda: ThermalState.make((8, 8)),
     lambda: diffusion2d.run(nx=8, ny=8),
     lambda: blankenbach.run(nx=8, ny=8, nit=1),
+    lambda: StokesState.make((4, 4, 4)),
+    lambda: solvi3d.run(nx=8, ny=8, nz=8, iter_max=10, nout=5),
+    lambda: burstedde.run(nx=8, ny=8, nz=8, iter_max=10, nout=5),
+    lambda: taylor_green.run(n=8, iter_max=10, nout=5),
 ], ids=["StokesState", "MaterialStack", "convert", "shearband", "softening", "dpcap",
-        "solcx", "solkz", "elastic_buildup", "ThermalState", "diffusion2d", "blankenbach"])
+        "solcx", "solkz", "elastic_buildup", "ThermalState", "diffusion2d", "blankenbach",
+        "StokesState3d", "solvi3d", "burstedde", "taylor_green"])
 def test_entry_points_raise_without_a_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
@@ -100,3 +116,20 @@ def test_default_thermal_path_on_cpu_is_plain():
                              use_kernel=False)
     assert ht.thermal_chunk.launches == 0
     assert ia.iters == ib.iters and torch.equal(a.T, b.T)
+
+
+def test_default_3d_path_on_cpu_is_plain():
+    """solvi3d with no use_kernel on CPU tensors: no launches, and the same
+    result as ``use_kernel=False``; ``solve_ve_3d`` resolves the path from
+    the state's device."""
+    h3.stokes3d_chunk.launches = 0
+    kw = dict(nx=8, ny=8, nz=8, rc=2.0, iter_max=20, nout=10, device="cpu")
+    _, a, ia = solvi3d.run(**kw)
+    _, b, ib = solvi3d.run(use_kernel=False, **kw)
+    assert h3.stokes3d_chunk.launches == 0
+    assert ia.iters == ib.iters
+    assert torch.equal(a.V.Vx, b.V.Vx) and torch.equal(a.P, b.P) and torch.equal(a.R.RP, b.R.RP)
+    _, c, _ = solvi3d.run(use_kernel=True, **kw)  # the kernel route: the plain chunk on CPU
+    assert h3.stokes3d_chunk.launches == 0
+    assert not torch.equal(c.R.RP, a.R.RP)  # post-update residuals
+    assert float((c.V.Vx - a.V.Vx).abs().max()) <= 1e-12 * float(a.V.Vx.abs().max())

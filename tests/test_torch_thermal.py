@@ -101,8 +101,13 @@ def test_thermal_state_make_and_convert():
     back = convert.thermal_state_from_dict(serialization.to_state_dict(j), device="cpu")
     assert np.array_equal(back.T.numpy(), np.asarray(j.T))
     assert back.replace(H=back.H + 1.0).H.sum() == 30.0
-    with pytest.raises(NotImplementedError):
-        ThermalState.make((4, 4, 4), device="cpu")
+    p3, j3 = ThermalState.make((4, 5, 3), device="cpu"), JThermalState.make((4, 5, 3))
+    a3, b3 = convert.to_state_dict(p3), serialization.to_state_dict(j3)
+    assert {k: None if v is None else v.shape for k, v in a3.items()} == \
+        {k: None if v is None else v.shape for k, v in b3.items()}
+    assert tuple(p3.T_inner.shape) == (4, 5, 3)
+    with pytest.raises(ValueError):
+        ThermalState.make((4,), device="cpu")
 
 
 @pytest.mark.parametrize("scalars", [False, True])
