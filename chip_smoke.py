@@ -6,11 +6,12 @@
 Run from the root of a checkout. Phases, each printing JSON lines:
 
 0. device   : the card's name and power limit (nvidia-smi).
-1. build    : nvcc builds the four Hopper kernel libraries from
+1. build    : nvcc builds the five Hopper kernel libraries from
               justrelax_tpu_torch/csrc, one nvcc per source, side by side
               (lines "build" for stokes_vep.cu, "build_ve" for stokes_ve.cu,
-              "build_thermal" for thermal.cu and "build_ve3d" for
-              stokes3d_ve.cu).
+              "build_thermal" for thermal.cu, "build_ve3d" for
+              stokes3d_ve.cu and "build_vep3d" for stokes3d_vep.cu, the 3D
+              VEP edge passes and the fused 3D VEP chunk).
 2. parity   : the VEP chunk kernel against its plain PyTorch version on the
               card, f64, n=64, nout 1 and 50, in four configurations.
 3. golden   : shearband.run(n=32, nt=10, f64) through the kernel against the
@@ -68,9 +69,52 @@ Run from the root of a checkout. Phases, each printing JSON lines:
 17. timing_ve3d: per-iteration time of the 3D kernel and its plain version
               at 126^3 and 254^3 f32 (bench_kernels.py's ve3d set-up), by
               CUDA events.
+18. parity_vep3d: the 3D VEP edge kernel (B6, and B9 per family) against
+              its plain version, f64 and f32: one call, then hybrid chunks of
+              1 and 50 iterations, in four configurations (the set-up of
+              tests/test_pallas_vep3d_blocked.py at 10^3, plastic on and
+              off; a non-cubic (11, 8, 6) grid with random state near yield,
+              dilatancy and a tension cap; ShearBand3D at 10^3 with Kb = inf
+              and old stresses near yield); the slots a family does not own
+              come back bit-equal.
+19. golden_vep3d: the vep3d_hybrid configuration of bench.py at 10^3 f64
+              through the default entry point (B6), on the "blocked" route
+              (B8) and on the serial path, on bench.py's gates (ShearBand3D's
+              n=12 goldens run as the slow cuda test
+              test_shearband3d_golden_f64).
+20. main_path_vep3d: ShearBand3D at 126^3 f32 (bench_kernels.py's vep3d
+              grid), one time step through the default entry point (B6),
+              iter_max 2 000, nout 200, with the launch counts read around
+              it; B6 and its plain version timed on the solve's first-chunk
+              inputs; then 200 iterations of the same step on the
+              "edges_split" route (B9), its launches read around it, and B9
+              timed on that route's first-chunk inputs; then ShearBand3D's
+              set-up at 126^3 with stresses near yield: one call and 50
+              hybrid iterations of B6 and B9 against the plain version, f64
+              and f32, lambda_e > 0, and B6's time there.
+21. timing_vep3d: bench_kernels.py's pallas_vep3d_edges configuration at
+              126^3 f32: B6, B9 and vep3d_edges_reference per call, and the
+              hybrid iteration against the plain canvas iteration per PT
+              iteration, by CUDA events; T_eff and the share of each bound.
+22. parity_vep3d_chunk: the fused 3D VEP chunk kernel (B8) against its
+              plain version (the canvas chunk), f64 for 1 and 50 iterations
+              and f32 for 50, in the four configurations of phase 18 and a
+              fifth with buoyancy and a power-law creep table; the input
+              carry is not written; then ShearBand3D's set-up at 126^3 near
+              yield, f64, 1 and 50 iterations, lambda and lambda_e > 0, and
+              B8's time per iteration there.
+23. main_path_vep3d_blocked: the ShearBand3D 126^3 f32 step of phase 20 on
+              the "blocked" route (B8), with the launch counts read around
+              it, its tauII max against the default route's; B8 and its
+              plain version timed per iteration on the solve's first-chunk
+              inputs; 50 iterations kernel vs plain from them, f32 against
+              f64.
+24. timing_vep3d_chunk: B8 per iteration in phase 21's set-up, beside the
+              hybrid and the plain canvas iteration.
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
-the run's own inputs (ve3d_words for the 3D kernel).
+the run's own inputs (ve3d_words for the 3D VE kernel, vep3d_edges_words
+for the edge kernel, vep3d_chunk_words for the fused 3D VEP chunk).
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
@@ -79,6 +123,7 @@ printing any result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -96,7 +141,7 @@ import torch  # noqa: E402
 
 from justrelax_tpu_torch.core.grid import Geometry  # noqa: E402
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs, PTThermalCoeffs  # noqa: E402
-from justrelax_tpu_torch.core.state import ThermalState  # noqa: E402
+from justrelax_tpu_torch.core.state import StokesState, ThermalState  # noqa: E402
 from justrelax_tpu_torch.models import (  # noqa: E402
     blankenbach,
     burstedde,
@@ -105,14 +150,17 @@ from justrelax_tpu_torch.models import (  # noqa: E402
     shearband,
     solcx,
     solkz,
+    shearband3d,
     solvi3d,
 )
 from justrelax_tpu_torch.models.shearband import _circle_phase_ratios  # noqa: E402
 from justrelax_tpu_torch.ops import _cuda_build  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes as hs  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes3d as h3  # noqa: E402
+from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_thermal as ht  # noqa: E402
+from justrelax_tpu_torch.ops import hopper_vep3d_edges as he  # noqa: E402
 from justrelax_tpu_torch.ops.bc import (  # noqa: E402
     Faces,
     TemperatureBoundaryConditions,
@@ -124,6 +172,15 @@ from justrelax_tpu_torch.solvers.stokes3d import kernel_chunk_inputs  # noqa: E4
 from justrelax_tpu_torch.solvers.thermal import heatdiffusion_PT  # noqa: E402
 from justrelax_tpu_torch.ops.stencil import av_vertex_to_center, expand_edges, maxloc  # noqa: E402
 from justrelax_tpu_torch.ops.stokes3d_canvas import pack_carry, ve3d_canvas_coefficients  # noqa: E402
+from justrelax_tpu_torch.ops.stokes3d_vep_canvas import (  # noqa: E402
+    VEP3DCanvasCarry,
+    edge_masks,
+    pack_vep_carry,
+    vep3d_canvas_consts,
+    vep3d_chunk_canvas,
+)
+from justrelax_tpu_torch.rheology.phases import phase_ratios_from_field  # noqa: E402
+from justrelax_tpu_torch.solvers.stokes3d_vep import canvas_chunk_inputs, solve_vep_3d  # noqa: E402
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack  # noqa: E402
 from justrelax_tpu_torch.rheology.viscosity import phase_viscosity  # noqa: E402
 
@@ -166,6 +223,19 @@ GOLDEN_THERMAL = {"iters": 400, "err": 1.1513363166971779e-09,
                   "T_centre": 0.4813572752812458, "T_corner_lo": 0.9840796475262239,
                   "T_corner_hi": 0.016517392162716873}
 URMS0_F64 = 0.29207194481326537  # blankenbach 32^2 f64 after one step (bench.py)
+VEP3D_CASES = ("blocked_plastic", "blocked_elastic", "noncubic_near_yield",
+               "shearband3d_kb_inf")
+VEP3D_CHUNK_CASES = VEP3D_CASES + ("buoyant_powerlaw",)
+VEP3D_EDGE_FIELDS = ("tyz", "txz", "txy", "lam_yz", "lam_xz", "lam_xy")
+VEP3D_CARRY_FIELDS = ("Vx", "Vy", "Vz", "P", "theta", "txx", "tyy", "tzz", "tyz_c", "txz_c",
+                      "txy_c", "tyz", "txz", "txy", "eta", "lam", "lam_yz", "lam_xz", "lam_xy")
+TOL_VEP3D_CALL = 1e-12    # rounding only (one call, and a hybrid chunk of one iteration)
+TOL_VEP3D_NOUT50 = 2e-6   # yield-branch flips of edges on the yield surface
+# the 3D VEP iteration's words per cell (bench_kernels.py::vep3d: 36 unknown,
+# 13 write-only, 22 read-only)
+WORDS_VEP3D = 71
+# bench.py's vep3d_hybrid golden: max τII of the frozen CPU/f64 solve
+GOLDEN_VEP3D_HYBRID = 0.16069082924126105
 
 
 def emit(phase, **kw):
@@ -543,12 +613,12 @@ def main():
         path = _cuda_build.build_library(source)
         return path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        builds = list(pool.map(build, (hv.SOURCE, hs.SOURCE, ht.SOURCE, h3.SOURCE)))
-    for mod in (hv, hs, ht, h3):
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        builds = list(pool.map(build, (hv.SOURCE, hs.SOURCE, ht.SOURCE, h3.SOURCE, he.SOURCE)))
+    for mod in (hv, hs, ht, h3, he):
         mod._library()
-    for phase, (lib_path, build_s) in zip(("build", "build_ve", "build_thermal", "build_ve3d"),
-                                          builds):
+    for phase, (lib_path, build_s) in zip(("build", "build_ve", "build_thermal", "build_ve3d",
+                                           "build_vep3d"), builds):
         log = lib_path.with_suffix(".log")
         ptxas = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
                  if "registers" in ln or "spill" in ln]
@@ -673,7 +743,10 @@ def main():
     ve_line = run_ve(dev, smi, kind)
     th_line = run_thermal(dev, smi, kind)
     ve3d_line = run_ve3d(dev, smi, kind)
-    print(json.dumps({"kernels": [vep_line, ve_line, th_line, ve3d_line]}), flush=True)
+    b6_line, b9_line, bench, tau_edges = run_vep3d(dev, smi, kind)
+    b8_line = run_vep3d_chunk(dev, smi, kind, bench, tau_edges)
+    print(json.dumps({"kernels": [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line,
+                                  b8_line]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
@@ -1154,6 +1227,773 @@ def run_ve3d(dev, smi, kind):
         "ve3d_ms_254": timing[254][0],
         "ve3d_plain_ms_254": timing[254][1],
         "ve3d_bound_ms_254": timing[254][2],
+    }
+
+
+# ---- the 3D VEP edge kernel (B6/B9) ----------------------------------------
+def vep3d_numpy(name, n=10):
+    """numpy inputs of one configuration of the edge kernel's parity phase,
+    from a seed: a dict with the grid (``ni``, ``li``), the materials
+    (``mats``, Material keyword dicts), the cell phase index, the staggered
+    state (V×3, P, θ, τ_c×6, τ_e×3, η, λ, λ_e×3), the old stresses
+    (τ_o_c×6, τ_o_e×3), EII, P0, Q, dt and the CFL number.
+
+    "blocked_plastic"/"blocked_elastic" are the set-up of
+    tests/test_pallas_vep3d_blocked.py::_setup at n³ (pure shear, a
+    spherical weak inclusion, zero stresses, τxx_o = −τyy_o = 0.3 with
+    plasticity on, C = 1e9 with it off). "noncubic_near_yield" is a
+    (11, 8, 6) grid with unequal spacings, random stresses, multipliers and
+    pressures around the yield stress, dilatancy, a tension cap and a finite
+    Kb, on a random two-phase field (seed 11). "buoyant_powerlaw" adds to it
+    a density ρ(T, P)·g with a random temperature (seed 2) and a power-law
+    creep table (n = 3): the body force and the power-law viscosity target
+    of the fused chunk."""
+    if name == "buoyant_powerlaw":
+        d = vep3d_numpy("noncubic_near_yield", n)
+        d["mats"] = [dict(m, rho0=1.0 + k, alpha=0.1, T0=0.5, beta=0.01, gravity=1.0,
+                          disl_A=0.5, disl_n=3.0) for k, m in enumerate(d["mats"])]
+        d["T"] = 0.5 + 0.1 * np.random.default_rng(2).standard_normal(d["ni"])
+        return d
+    if name in ("blocked_plastic", "blocked_elastic"):
+        plastic = name == "blocked_plastic"
+        ni, li = (n, n, n), (1.0, 1.0, 1.0)
+        common = dict(rho0=0.0, Kb=4.0, is_plastic=1.0,
+                      C=(0.2 if plastic else 1.0e9) / math.cos(math.radians(30.0)),
+                      friction_angle=30.0, dilation_angle=0.0, eta_reg=1.25e-2)
+        mats = [dict(G=1.0, eta0=1.0, **common), dict(G=0.5, eta0=0.1, **common)]
+        geometry = Geometry(ni, li)
+        X, Y, Z = np.meshgrid(*[np.asarray(c) for c in geometry.xci], indexing="ij")
+        inside = (X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.5) ** 2 <= 0.04
+        xv, zv = np.asarray(geometry.xvi[0]), np.asarray(geometry.xvi[2])
+        V = (np.broadcast_to(xv[:, None, None], (n + 1, n + 2, n + 2)).copy(),
+             np.zeros((n + 2, n + 1, n + 2)),
+             np.broadcast_to(-zv[None, None, :], (n + 2, n + 2, n + 1)).copy())
+        z = np.zeros(ni)
+        edges = (np.zeros((n, n + 1, n + 1)), np.zeros((n + 1, n, n + 1)),
+                 np.zeros((n + 1, n + 1, n)))
+        txx_o = np.full(ni, 0.3 if plastic else 0.0)
+        d = dict(phase=inside.astype(np.int64), V=V, P=z, theta=z, tau_c=(z,) * 6, tau_e=edges,
+                 eta=np.where(inside, 0.1, 1.0), lam=z, lam_e=edges,
+                 tau_o_c=(txx_o, -txx_o, z, z, z, z), tau_o_e=edges, EII=z, P0=z, Q=z,
+                 dt=0.125)
+    elif name == "noncubic_near_yield":
+        ni, li = (11, 8, 6), (1.0, 1.0, 1.0)
+        nx, ny, nz = ni
+        rng = np.random.default_rng(11)
+        common = dict(rho0=0.0, Kb=6.0, is_plastic=1.0, C=0.3 / math.cos(math.radians(30.0)),
+                      friction_angle=30.0, dilation_angle=10.0, eta_reg=1.0e-2,
+                      tension_pT=-0.6)
+        mats = [dict(G=1.0, eta0=1.0, **common), dict(G=0.6, eta0=0.2, **common)]
+
+        def r(*shape, scale=0.3):
+            return scale * rng.standard_normal(shape)
+
+        eshape = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1), (nx + 1, ny + 1, nz))
+        geometry = Geometry(ni, li)
+        xv, zv = np.asarray(geometry.xvi[0]), np.asarray(geometry.xvi[2])
+        V = (xv[:, None, None] + r(nx + 1, ny + 2, nz + 2, scale=0.05),
+             r(nx + 2, ny + 1, nz + 2, scale=0.05),
+             -zv[None, None, :] + r(nx + 2, ny + 2, nz + 1, scale=0.05))
+        P = r(*ni, scale=0.15)
+        d = dict(phase=(rng.random(ni) < 0.3).astype(np.int64), V=V, P=P,
+                 theta=P + r(*ni, scale=0.02),
+                 tau_c=tuple(r(*ni) for _ in range(6)), tau_e=tuple(r(*s) for s in eshape),
+                 eta=np.exp(r(*ni)), lam=np.abs(r(*ni, scale=0.05)),
+                 lam_e=tuple(np.abs(r(*s, scale=0.05)) for s in eshape),
+                 tau_o_c=tuple(r(*ni) for _ in range(6)), tau_o_e=tuple(r(*s) for s in eshape),
+                 EII=np.abs(r(*ni, scale=0.01)), P0=P, Q=np.zeros(ni), dt=0.2)
+    else:
+        raise ValueError(name)
+    d.update(ni=ni, li=li, mats=mats, CFL=0.75 / math.sqrt(3.1))
+    return d
+
+
+def _vep3d_inputs(geometry, material, pr_c, pr_e, V, P, theta, tau_c, tau_e, eta, lam, lam_e,
+                  tau_o_c, tau_o_e, EII, P0, Q, dt, pt, T=None):
+    """(carry, consts for B6 and B8, consts for B9, material, inv_di, chunk
+    keywords) of one configuration."""
+    carry = pack_vep_carry(V, P, theta, tau_c, tau_e, eta, lam, lam_e)
+    ckw = dict(tau_o_c6=tau_o_c, tau_o_e3=tau_o_e, EII_pl=EII, P0=P0, Q=Q,
+               phase_ratios_center=pr_c, phase_ratios_edges=pr_e, T=T,
+               scalar_plastic=True, scalar_K=True)
+    co6 = vep3d_canvas_consts(material, hoist_tau_o=False, **ckw)
+    co9 = vep3d_canvas_consts(material, hoist_tau_o=True, **ckw)
+    kw = dict(dt=dt, r=pt.r, theta_dtau=pt.theta_dtau, etadtau=pt.etadtau,
+              lambda_relaxation=0.2, viscosity_relaxation=1.0e-2)
+    return carry, co6, co9, material, tuple(1.0 / d for d in geometry.di), kw
+
+
+def vep3d_case(name, dtype, dev, n=10):
+    """Inputs of the 3D VEP kernels' parity phases: (carry, consts for B6
+    and B8, consts for B9, material, inv_di, chunk keywords). The numpy
+    configurations of :func:`vep3d_numpy`, and "shearband3d_kb_inf":
+    ShearBand3D's own set-up (``models/shearband3d._setup``, Kb = ∞) at n³
+    with random stresses, multipliers and old stresses around its yield
+    stress 1.6 (seed 13)."""
+    kw = dict(dtype=dtype, device=dev)
+
+    def t(a):
+        if isinstance(a, tuple):
+            return tuple(map(t, a))
+        return torch.as_tensor(np.ascontiguousarray(a), **kw)
+
+    if name == "shearband3d_kb_inf":
+        geometry, st, material, (pr_c, pr_e), _, pt, dt = shearband3d._setup(n, dtype, dev)
+        rng = np.random.default_rng(13)
+        ni = (n, n, n)
+        eshape = ((n, n + 1, n + 1), (n + 1, n, n + 1), (n + 1, n + 1, n))
+
+        def r(*shape, scale=0.5, mean=0.0):
+            return t(mean + scale * rng.standard_normal(shape))
+
+        normals = (r(*ni, mean=1.6), r(*ni, mean=-1.6), r(*ni))
+        return _vep3d_inputs(
+            geometry, material, pr_c, pr_e, (st.V.Vx, st.V.Vy, st.V.Vz), st.P, st.P,
+            normals + tuple(r(*ni) for _ in range(3)), tuple(r(*s) for s in eshape),
+            st.viscosity.eta, st.lam, tuple(r(*s, scale=0.05).abs() for s in eshape),
+            normals + tuple(r(*ni) for _ in range(3)), tuple(r(*s) for s in eshape),
+            st.EII_pl, st.P, st.Q, dt, pt)
+    d = vep3d_numpy(name, n)
+    geometry = Geometry(d["ni"], d["li"])
+    material = MaterialStack.make([Material(**m) for m in d["mats"]], **kw)
+    pr = phase_ratios_from_field(torch.as_tensor(d["phase"], device=dev), 2, dtype=dtype)
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=d["CFL"])
+    return _vep3d_inputs(
+        geometry, material, pr.center, (pr.edge_yz, pr.edge_xz, pr.edge_xy), t(d["V"]),
+        t(d["P"]), t(d["theta"]), t(d["tau_c"]),
+        t(d["tau_e"]), t(d["eta"]), t(d["lam"]), t(d["lam_e"]), t(d["tau_o_c"]),
+        t(d["tau_o_e"]), t(d["EII"]), t(d["P0"]), t(d["Q"]), d["dt"], pt,
+        T=t(d["T"]) if "T" in d else None)
+
+
+def edge_args(carry, co, inv_di, kw):
+    """(positional, keyword) arguments of one ``vep3d_edges`` call on the
+    canvases of ``carry``."""
+    return ((carry.V, carry.theta, carry.eta, carry.tau_c[:3], carry.tau_e, carry.lam_e, co,
+             inv_di),
+            dict(dt=kw["dt"], theta_dtau=kw["theta_dtau"],
+                 lambda_relaxation=kw["lambda_relaxation"]))
+
+
+def flat_vep_carry(c: VEP3DCanvasCarry):
+    return (*c.V, c.P, c.theta, *c.tau_c, *c.tau_e, c.eta, c.lam, *c.lam_e)
+
+
+def rel_diffs_edges(a, b):
+    """max |a − b| of the six edge outputs relative to the field's max |b|
+    (b the plain version), with no floor."""
+    return _rel_no_floor(VEP3D_EDGE_FIELDS, a, b)
+
+
+def rel_diffs_vep3d(a, b):
+    """max |a − b| per carry canvas relative to the canvas's max |b|, the max
+    floored at 1, as rel_diffs: the configurations are non-dimensional with
+    O(1) fields, and θ and the velocities transverse to the pure shear are
+    zero up to rounding."""
+    return {name: float((x - y).abs().max()) / max(float(y.abs().max()), 1.0)
+            for name, x, y in zip(VEP3D_CARRY_FIELDS, flat_vep_carry(a), flat_vep_carry(b))}
+
+
+def hybrid_chunk(carry, co, material, inv_di, kw, nit, split, plain=False, packed=None):
+    """``nit`` hybrid iterations, the edge passes in B6 (B9 with ``split``)
+    or, with ``plain``, in their plain version; ``packed`` the edge consts
+    when already packed."""
+    packed = he.pack_edge_consts(co, split) if packed is None else packed
+    fn = he.vep3d_edges_reference if plain else he.vep3d_edges
+    return vep3d_chunk_canvas(carry, co, material, inv_di, nit,
+                              edges_fn=functools.partial(fn, co=packed, split=split), **kw)
+
+
+def fused_chunk(carry, co, inv_di, kw, nit, plain=False):
+    """``nit`` iterations of the fused chunk (B8) or, with ``plain``, of its
+    plain version."""
+    fn = hc.stokes3d_vep_chunk_reference if plain else hc.stokes3d_vep_chunk
+    return fn(carry, co, inv_di, nit, **kw)
+
+
+def vep3d_chunk_words(packed):
+    """Words per slot that one fused iteration must move: the 19 carry
+    canvases read and written, and each constant canvas that does not hold
+    one value on the slots it is read on (the kernel takes those as
+    scalars)."""
+    return 2 * 19 + sum(t is not None for t in packed.canvases)
+
+
+def vep3d_edges_words(packed):
+    """Words per slot that one edge-kernel call must move: 14 dynamic inputs
+    read, 6 outputs written, and each G_e and old-stress canvas that does
+    not hold one value on the slots it is read on (the kernel takes those as
+    scalars): at most 29 for B6 (τ_o_c normals×3, τ_o_e×3 and G_e×3), 41 for
+    B9 (18 hoisted τ_o and G_e×3)."""
+    tau_o = packed.tau_o if packed.split else packed.tau_o[:1]
+    return 20 + sum(g is not None for g in packed.G) + \
+        sum(t is not None for fam in tau_o for t in fam)
+
+
+def vep3d_hybrid_setup(dtype, dev):
+    """bench.py's vep3d_hybrid configuration (bench.py:332-394) at 10³:
+    (positional, keyword) arguments of ``solve_vep_3d``."""
+    n = 10
+    ni = (n, n, n)
+    geometry = Geometry(ni, (1.0, 1.0, 1.0))
+    kw = dict(dtype=dtype, device=dev)
+    common = dict(Kb=4.0, eta0=1.0, is_plastic=1.0, C=0.15 / math.cos(math.radians(30.0)),
+                  friction_angle=30.0, eta_reg=8.0e-3)
+    mat = MaterialStack.make([Material(G=1.0, **common), Material(G=0.5, **common)], **kw)
+    X, Y, Z = geometry.cell_centers_mesh()
+    sph = ((X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.5) ** 2) < 0.15 ** 2
+    pr = phase_ratios_from_field(torch.as_tensor(sph.astype(np.int64), device=dev), 2,
+                                 dtype=dtype)
+    st = StokesState.make(ni, **kw)
+    st = st.replace(viscosity=st.viscosity.replace(eta=torch.ones(ni, **kw)))
+    xv = torch.as_tensor(geometry.xvi[0], **kw)
+    zv = torch.as_tensor(geometry.xvi[2], **kw)
+    bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True,
+                                                    front=True, back=True))
+    V = flow_bcs((xv[:, None, None].expand(n + 1, n + 2, n + 2),
+                  torch.zeros((n + 2, n + 1, n + 2), **kw),
+                  (-zv)[None, None, :].expand(n + 2, n + 2, n + 1)), bc)
+    st = st.replace(V=st.V.replace(Vx=V[0], Vy=V[1], Vz=V[2]))
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, eps_rel=1.0e-5, eps_abs=1.0e-5,
+                             CFL=0.75 / math.sqrt(3.1))
+    return ((st, pt, geometry, bc, mat, pr.center, (pr.edge_yz, pr.edge_xz, pr.edge_xy), 0.25),
+            dict(iter_max=3000, iter_min=100, nout=100))
+
+
+def vep3d_bench_inputs(n, dtype, dev):
+    """bench_kernels.py::vep3d_canvas (:1026-1165) at n³, the configuration
+    of its pallas_vep3d_edges family: ShearBand3D-like material with Kb = 4,
+    a weak inclusion of radius 0.1, τxx_o = −τyy_o = 1, zero stresses, dt =
+    0.125. Returns (carry, consts for B6, consts for B9, the plain canvas
+    chunk's consts, material, inv_di, chunk keywords)."""
+    kw = dict(dtype=dtype, device=dev)
+    ni = (n, n, n)
+    geometry = Geometry(ni, (1.0, 1.0, 1.0))
+    common = dict(rho0=0.0, Kb=4.0, is_plastic=1.0, C=1.6 / math.cos(math.radians(30.0)),
+                  friction_angle=30.0, dilation_angle=0.0, eta_reg=1.25e-2)
+    material = MaterialStack.make([Material(G=1.0, eta0=1.0, **common),
+                                   Material(G=0.5, eta0=0.1, **common)], **kw)
+    X, Y, Z = geometry.cell_centers_mesh()
+    inside = (X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.5) ** 2 <= 0.01
+    pr = phase_ratios_from_field(torch.as_tensor(inside.astype(np.int64), device=dev), 2,
+                                 dtype=dtype)
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=0.75 / math.sqrt(3.1))
+    bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True,
+                                                    front=True, back=True))
+    xv = torch.as_tensor(geometry.xvi[0], **kw)
+    zv = torch.as_tensor(geometry.xvi[2], **kw)
+    V = flow_bcs((xv[:, None, None].expand(n + 1, n + 2, n + 2),
+                  torch.zeros((n + 2, n + 1, n + 2), **kw),
+                  (-zv)[None, None, :].expand(n + 2, n + 2, n + 1)), bc)
+    z = torch.zeros(ni, **kw)
+    edges = (torch.zeros((n, n + 1, n + 1), **kw), torch.zeros((n + 1, n, n + 1), **kw),
+             torch.zeros((n + 1, n + 1, n), **kw))
+    eta = torch.where(torch.as_tensor(inside, device=dev), 0.1, 1.0).to(dtype)
+    one = torch.ones(ni, **kw)
+    carry, co6, co9, material, inv_di, ckw = _vep3d_inputs(
+        geometry, material, pr.center, (pr.edge_yz, pr.edge_xz, pr.edge_xy), V, z, z,
+        (z,) * 6, edges, eta, z, edges,
+        (one, -one, z, z, z, z), edges, z, z, z, 0.125, pt)
+    co_plain = vep3d_canvas_consts(material, (one, -one, z, z, z, z), edges, z, z, z,
+                                   pr.center, (pr.edge_yz, pr.edge_xz, pr.edge_xy))
+    return carry, co6, co9, co_plain, material, inv_di, ckw
+
+
+def time_pair(kernel, plain, nk=1, npl=1):
+    """ms per call of ``kernel`` and ``plain``, in turns kernel, plain,
+    plain, kernel: ([k1, k2], [p1, p2])."""
+    tk1 = cuda_time_ms(kernel) / nk
+    tp1 = cuda_time_ms(plain) / npl
+    tp2 = cuda_time_ms(plain) / npl
+    tk2 = cuda_time_ms(kernel) / nk
+    return [tk1, tk2], [tp1, tp2]
+
+
+def run_vep3d(dev, smi, kind):
+    """Phases 18-21, the 3D VEP solve; returns the entries of the edge
+    kernel's two routes (B6, B9) in the kernels line."""
+    # ---- 18. B6 and B9 against their plain version, f64 and f32
+    worst_rel, worst_abs, worst32 = 0.0, 0.0, 0.0
+    for case in VEP3D_CASES:
+        inputs = {dt: vep3d_case(case, dt, dev) for dt in (torch.float64, torch.float32)}
+        for split in (False, True):
+            label = f"{case}_{'B9' if split else 'B6'}"
+            res = {}
+            for dt, (carry, co6, co9, material, inv_di, kw) in inputs.items():
+                co = co9 if split else co6
+                args, ekw = edge_args(carry, co, inv_di, kw)
+                out = he.vep3d_edges(*args, split=split, **ekw)
+                ref = he.vep3d_edges_reference(*args, split=split, **ekw)
+                torch.cuda.synchronize()
+                out, ref = (*out[0], *out[1]), (*ref[0], *ref[1])
+                res[dt] = (out, ref)
+                # the slots a family does not own come back bit-equal
+                _, Me = edge_masks(tuple(carry.P.shape), dev)
+                before = (*carry.tau_e, *carry.lam_e)
+                kept = all(torch.equal(o[~Me[k % 3].expand(o.shape)],
+                                       b[~Me[k % 3].expand(o.shape)])
+                           for k, (o, b) in enumerate(zip(out, before)))
+                check(kept, f"{label}: a slot outside the owned edges moved")
+            (o64, r64), (o32, r32) = res[torch.float64], res[torch.float32]
+            d = rel_diffs_edges(o64, r64)
+            worst = max(d.values())
+            gap32 = max(rel_diffs_edges(o32, r32).values())
+            p32 = max(rel_diffs_edges(tuple(x.double() for x in r32), r64).values())
+            tol32 = max(TOL_F32_1024, 2.0 * p32)
+            worst_rel, worst_abs = max(worst_rel, worst), max(worst_abs, abs_diff(o64, r64))
+            worst32 = max(worst32, gap32)
+            emit("parity_vep3d", case=label, call="one", max_rel_diff=worst, tol=TOL_VEP3D_CALL,
+                 f32_max_rel_diff=gap32, f32_tol=tol32, plain_f32_vs_plain_f64=p32,
+                 lam_e_max=max(float(x.max()) for x in r64[3:]), per_field=d)
+            check(worst <= TOL_VEP3D_CALL, f"{label} one call: {worst}")
+            check(gap32 <= tol32, f"{label} one call f32: {gap32} > {tol32}")
+
+            carry, co6, co9, material, inv_di, kw = inputs[torch.float64]
+            co = co9 if split else co6
+            for nit, tol in ((1, TOL_VEP3D_CALL), (50, TOL_VEP3D_NOUT50)):
+                out = hybrid_chunk(carry, co, material, inv_di, kw, nit, split)
+                ref = hybrid_chunk(carry, co, material, inv_di, kw, nit, split, plain=True)
+                torch.cuda.synchronize()
+                d = rel_diffs_vep3d(out, ref)
+                worst = max(d.values())
+                worst_rel = max(worst_rel, worst)
+                lam_max = max(float(x.max()) for x in ref.lam_e)
+                emit("parity_vep3d", case=label, call="hybrid_chunk", nout=nit,
+                     max_rel_diff=worst, tol=tol, lam_e_max=lam_max, per_field=d)
+                check(worst <= tol, f"{label} nout={nit}: {worst} > {tol}")
+                if nit == 50 and case != "blocked_elastic":
+                    check(lam_max > 0.0, f"{label}: plasticity inactive on the edges")
+            # f32, 50 hybrid iterations: 1e-4, or twice the plain version's
+            # own f32 error against f64
+            c32, co6_32, co9_32, mat32, _, kw32 = inputs[torch.float32]
+            co32 = co9_32 if split else co6_32
+            out = hybrid_chunk(c32, co32, mat32, inv_di, kw32, 50, split)
+            ref = hybrid_chunk(c32, co32, mat32, inv_di, kw32, 50, split, plain=True)
+            ref64 = hybrid_chunk(carry, co, material, inv_di, kw, 50, split, plain=True)
+            gap = max(rel_diffs_vep3d(out, ref).values())
+            p32 = max(rel_diffs_vep3d(VEP3DCanvasCarry(*(
+                tuple(x.double() for x in f) if isinstance(f, tuple) else f.double()
+                for f in ref)), ref64).values())
+            tol32 = max(TOL_F32_1024, 2.0 * p32)
+            worst32 = max(worst32, gap)
+            emit("parity_vep3d", case=label, call="hybrid_chunk_f32", nout=50,
+                 max_rel_diff=gap, tol=tol32, plain_f32_vs_plain_f64=p32)
+            check(gap <= tol32, f"{label} f32 nout=50: {gap} > {tol32}")
+        del inputs
+
+    # ---- 19. goldens through the default entry points, f64: the default
+    # route (B6), the fused chunk (B8) and the serial path
+    args, kw = vep3d_hybrid_setup(torch.float64, dev)
+    t0 = time.perf_counter()
+    out_x, info_x = solve_vep_3d(*args, use_kernel=False, **kw)
+    t_x = time.perf_counter() - t0
+    scale = float(out_x.tau.II.abs().max())
+    for route, counter in ((None, (he.vep3d_edges, "launches")),
+                           ("blocked", (hc.stokes3d_vep_chunk, "launches"))):
+        setattr(*counter, 0)
+        t0 = time.perf_counter()
+        out_h, info_h = solve_vep_3d(*args, use_kernel=route, **kw)
+        t_h = time.perf_counter() - t0
+        launches = getattr(*counter)
+        gap = float((out_h.tau.II - out_x.tau.II).abs().max()) / scale
+        v = float(out_h.tau.II.abs().max())
+        rel_abs = abs(v - GOLDEN_VEP3D_HYBRID) / GOLDEN_VEP3D_HYBRID
+        label = "B6" if route is None else "B8"
+        emit("golden_vep3d", case="vep3d_hybrid_10", kernel=label, tauII_max=v,
+             tauII_max_serial=scale, golden_f64=GOLDEN_VEP3D_HYBRID, rel_vs_golden=rel_abs,
+             rel_gap=gap, iters=int(info_h.iters), iters_serial=int(info_x.iters),
+             err=float(info_h.err), launches=launches, seconds=t_h, seconds_serial=t_x)
+        check(out_h.P.device.type == "cuda", "vep3d_hybrid: the default device is not the card")
+        check(rel_abs < 2e-2 and gap < 1e-3 and math.isfinite(scale) and scale > 0,
+              f"vep3d_hybrid {label}: gap {gap}, rel {rel_abs}")
+        check(launches > 0, f"vep3d_hybrid: {label} was not launched")
+
+    # ShearBand3D n=12 nt=14 on tests/test_shearband3d.py's goldens takes
+    # 54-86 s on an H100, bound by the host's dispatch of the hybrid
+    # iteration's plain launches: it runs as tests/test_torch_cuda.py::
+    # test_shearband3d_golden_f64 (slow) instead
+
+    # ---- 20. main path: ShearBand3D at 126^3 f32, one step, the default entry
+    n = 126
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, info, tau, _ = shearband3d.run(n=n, nt=1, dtype=torch.float32, iter_max=2_000,
+                                       nout=200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_launches = he.vep3d_edges.launches
+    other = sum(counts().values()) - main_launches
+    check(st.P.device.type == "cuda", "main path 3D VEP: the default device is not the card")
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        st.V.Vx, st.V.Vy, st.V.Vz, st.P, st.tau.xx, st.tau.zz, st.tau.yz, st.tau.xz,
+        st.tau.xy, st.tau.II, st.viscosity.eta, st.EII_pl))
+    emit("main_path_vep3d", n=n, dtype="float32", iters=int(info.iters), err=float(info.err),
+         tauII_max=tau[-1], wall_s=wall, wall_ms_per_iter=wall / int(info.iters) * 1e3,
+         launches=main_launches, other_launches=other, finite=finite)
+    check(finite, "main path 3D VEP: non-finite fields")
+    check(main_launches > 0, "main path 3D VEP: B6 was not launched")
+    tau_edges = tau[-1]
+    del st
+
+    # B6 and its plain version on the solve's first-chunk inputs, built by the
+    # solver's own canvas_chunk_inputs: the kernels line's numbers for B6
+    geometry, st0, material, (pr_c, pr_e), _, pt, dt = shearband3d._setup(n, torch.float32,
+                                                                          dev)
+    carry, co, packed = canvas_chunk_inputs(st0, material, pr_c, pr_e, route="edges")
+    kw = dict(dt=dt, r=pt.r, theta_dtau=pt.theta_dtau, etadtau=pt.etadtau,
+              lambda_relaxation=0.2, viscosity_relaxation=1.0)
+    inv_di = tuple(1.0 / d for d in geometry.di)
+    args, ekw = edge_args(carry, packed, inv_di, kw)
+    tk, tp = time_pair(lambda: he.vep3d_edges(*args, **ekw),
+                       lambda: he.vep3d_edges_reference(*args, **ekw))
+    words = vep3d_edges_words(packed)
+    bound_main = bound_ms(words, n ** 3, 4, kind)
+    main6 = (min(tk), min(tp), bound_main, words)
+    emit("main_path_vep3d_timing", kernel="B6", n=n, words=words, kernel_ms=tk, plain_ms=tp,
+         bound_ms=bound_main, bound_share=bound_main / min(tk), nvidia_smi=smi)
+    # 50 hybrid iterations kernel vs plain from those inputs, f32 against f64
+    out = hybrid_chunk(carry, co, material, inv_di, kw, 50, False, packed=packed)
+    ref = hybrid_chunk(carry, co, material, inv_di, kw, 50, False, plain=True, packed=packed)
+    _, st64, mat64, (pr_c64, pr_e64), _, _, _ = shearband3d._setup(n, torch.float64, dev)
+    carry64, co64, packed64 = canvas_chunk_inputs(st64, mat64, pr_c64, pr_e64, route="edges")
+    ref64 = hybrid_chunk(carry64, co64, mat64, inv_di, kw, 50, False, plain=True,
+                         packed=packed64)
+    gap = max(rel_diffs_vep3d(out, ref).values())
+    p32 = max(rel_diffs_vep3d(as_f64(ref), ref64).values())
+    tol = max(TOL_F32_1024, 2.0 * p32)
+    emit("f32_126_parity_vep3d", kernel="B6", nout=50, max_rel_diff=gap, tol=tol,
+         plain_f32_vs_plain_f64=p32)
+    check(gap <= tol, f"f32 126^3 VEP: {gap} > {tol}")
+    del carry, co, packed, out, ref, carry64, co64, packed64, ref64, st64
+
+    # the "edges_split" route (B9) on the same step, cut to 200 iterations
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, info9, tau9, _ = shearband3d.run(n=n, nt=1, dtype=torch.float32, iter_max=200,
+                                         nout=100, use_kernel="edges_split")
+    torch.cuda.synchronize()
+    wall9 = time.perf_counter() - t0
+    split_launches = he.vep3d_edges.split_launches
+    other9 = sum(counts().values()) - split_launches
+    finite9 = all(bool(torch.isfinite(t).all()) for t in (
+        st.V.Vx, st.V.Vz, st.P, st.tau.xx, st.tau.yz, st.tau.II))
+    emit("main_path_vep3d_split_route", n=n, dtype="float32", iters=int(info9.iters),
+         err=float(info9.err), tauII_max=tau9[-1], wall_s=wall9,
+         split_launches=split_launches, other_launches=other9, finite=finite9)
+    check(finite9, "edges_split 126^3: non-finite fields")
+    check(split_launches > 0 and other9 == 0,
+          "edges_split 126^3: B9 was not launched, or another kernel was")
+    del st
+    # B9 and its plain version on that route's first-chunk inputs: the
+    # kernels line's numbers for B9
+    carry, co, packed = canvas_chunk_inputs(st0, material, pr_c, pr_e, route="edges_split")
+    args, ekw = edge_args(carry, packed, inv_di, kw)
+    ekw["split"] = True
+    tk, tp = time_pair(lambda: he.vep3d_edges(*args, **ekw),
+                       lambda: he.vep3d_edges_reference(*args, **ekw))
+    words = vep3d_edges_words(packed)
+    bound9 = bound_ms(words, n ** 3, 4, kind)
+    main9 = (min(tk), min(tp), bound9, words)
+    emit("main_path_vep3d_timing", kernel="B9", n=n, words=words, kernel_ms=tk, plain_ms=tp,
+         bound_ms=bound9, bound_share=bound9 / min(tk), nvidia_smi=smi)
+    del carry, co, packed, args
+
+    # near yield at 126^3: ShearBand3D's set-up with old stresses, stresses
+    # and multipliers around its yield stress (vep3d_case "shearband3d_kb_inf"),
+    # so that the yield branch runs at full width: one call and 50 hybrid
+    # iterations of B6 and B9 against the plain version, and B6's time there
+    near = {d: vep3d_case("shearband3d_kb_inf", d, dev, n=n)
+            for d in (torch.float64, torch.float32)}
+    near_ms = {}
+    for split in (False, True):
+        label = "B9" if split else "B6"
+        carry, co6, co9, material_n, inv_n, kw_n = near[torch.float64]
+        co = co9 if split else co6
+        args, ekw = edge_args(carry, co, inv_n, kw_n)
+        out = he.vep3d_edges(*args, split=split, **ekw)
+        ref = he.vep3d_edges_reference(*args, split=split, **ekw)
+        d1 = max(rel_diffs_edges((*out[0], *out[1]), (*ref[0], *ref[1])).values())
+        lam1 = max(float(x.max()) for x in ref[1])
+        out = hybrid_chunk(carry, co, material_n, inv_n, kw_n, 50, split)
+        ref64 = hybrid_chunk(carry, co, material_n, inv_n, kw_n, 50, split, plain=True)
+        d50 = max(rel_diffs_vep3d(out, ref64).values())
+        lam50 = max(float(x.max()) for x in ref64.lam_e)
+        c32, co6_32, co9_32, mat32, _, kw32 = near[torch.float32]
+        co32 = co9_32 if split else co6_32
+        out = hybrid_chunk(c32, co32, mat32, inv_n, kw32, 50, split)
+        ref = hybrid_chunk(c32, co32, mat32, inv_n, kw32, 50, split, plain=True)
+        gap = max(rel_diffs_vep3d(out, ref).values())
+        p32 = max(rel_diffs_vep3d(as_f64(ref), ref64).values())
+        tol32 = max(TOL_F32_1024, 2.0 * p32)
+        if not split:
+            a32, e32 = edge_args(c32, he.pack_edge_consts(co32, False), inv_n, kw32)
+            tk, tp = time_pair(lambda: he.vep3d_edges(*a32, **e32),
+                               lambda: he.vep3d_edges_reference(*a32, **e32))
+            near_ms = dict(near_yield_ms=min(tk), near_yield_plain_ms=min(tp))
+        emit("near_yield_126_vep3d", kernel=label, n=n, one_call_max_rel_diff=d1,
+             tol=TOL_VEP3D_CALL, nout50_max_rel_diff=d50, nout50_tol=TOL_VEP3D_NOUT50,
+             lam_e_max_one_call=lam1, lam_e_max_nout50=lam50, f32_nout50_max_rel_diff=gap,
+             f32_tol=tol32, plain_f32_vs_plain_f64=p32, **({} if split else near_ms))
+        check(d1 <= TOL_VEP3D_CALL, f"near yield 126^3 {label} one call: {d1}")
+        check(d50 <= TOL_VEP3D_NOUT50, f"near yield 126^3 {label} nout=50: {d50}")
+        check(gap <= tol32, f"near yield 126^3 {label} f32 nout=50: {gap} > {tol32}")
+        check(lam1 > 0.0 and lam50 > 0.0, f"near yield 126^3 {label}: lambda_e stays 0")
+        del out, ref, ref64
+
+    # ---- 21. timing, bench_kernels.py's pallas_vep3d_edges set-up, 126^3 f32
+    carry, co6, co9, co_plain, material, inv_di, kw = vep3d_bench_inputs(n, torch.float32, dev)
+    timing = {}
+    for split, co in ((False, co6), (True, co9)):
+        packed = he.pack_edge_consts(co, split)
+        args, ekw = edge_args(carry, packed, inv_di, kw)
+        ekw["split"] = split
+        tk, tp = time_pair(lambda: he.vep3d_edges(*args, **ekw),
+                           lambda: he.vep3d_edges_reference(*args, **ekw))
+        words = vep3d_edges_words(packed)
+        bound = bound_ms(words, n ** 3, 4, kind)
+        t_k = min(tk)
+        timing[split] = (t_k, min(tp), bound, words)
+        emit("timing_vep3d", kernel="B9" if split else "B6", n=n, dtype="float32",
+             words=words, kernel_ms=tk, plain_ms=tp,
+             T_eff_GBs=words * n ** 3 * 4 / (t_k * 1e-3) / 1e9, bound_ms=bound,
+             bound_share=bound / t_k, bound_ms_at_most=bound_ms(41 if split else 29, n ** 3,
+                                                               4, kind),
+             plain_over_kernel=min(tp) / t_k, nvidia_smi=smi)
+    packed6 = he.pack_edge_consts(co6, False)
+    nit = 20
+    th, tc = time_pair(
+        lambda: hybrid_chunk(carry, co6, material, inv_di, kw, nit, False, packed=packed6),
+        lambda: vep3d_chunk_canvas(carry, co_plain, material, inv_di, nit, **kw), nit, nit)
+    bound_it = bound_ms(WORDS_VEP3D, n ** 3, 4, kind)
+    t_h = min(th)
+    emit("timing_vep3d", kernel="hybrid_iteration", n=n, dtype="float32", words=WORDS_VEP3D,
+         hybrid_ms_per_iter=th, plain_canvas_ms_per_iter=tc,
+         T_eff_GBs=WORDS_VEP3D * n ** 3 * 4 / (t_h * 1e-3) / 1e9, bound_ms=bound_it,
+         bound_share=bound_it / t_h, edges_share=timing[False][0] / t_h,
+         plain_over_hybrid=min(tc) / t_h, nvidia_smi=smi)
+    bench = dict(carry=carry, co6=co6, co_plain=co_plain, material=material, inv_di=inv_di,
+                 kw=kw, hybrid_ms=t_h, plain_canvas_ms=min(tc))
+
+    def entry(split, launches, main):
+        t_k, t_p, bound, words = main
+        b_k, b_p, b_bound, b_words = timing[split]
+        line = ":449 (B9 vep3d_edges_split)" if split else ":242 (B6 vep3d_edges_blocked)"
+        return {
+            "name": "vep3d_edges_split" if split else "vep3d_edges",
+            "route": "cuda",
+            "source": "justrelax_tpu_torch/csrc/stokes3d_vep.cu",
+            "replaces": "justrelax_tpu/ops/pallas_vep3d_edges.py" + line,
+            "launches": launches,
+            "max_abs_err": worst_abs,
+            "max_rel_diff_f64": worst_rel,
+            "max_rel_diff_f32": worst32,
+            "ms": t_k,
+            "plain_ms": t_p,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": None,
+            "words": words,
+            **({} if split else near_ms),
+            "bench_ms": b_k,
+            "bench_plain_ms": b_p,
+            "bench_bound_ms": b_bound,
+            "bench_words": b_words,
+            "hybrid_iteration_ms": t_h,
+            "hybrid_iteration_bound_ms": bound_it,
+        }
+
+    return (entry(False, main_launches, main6), entry(True, split_launches, main9),
+            bench, tau_edges)
+
+
+def counts():
+    """The launch counter of every kernel wrapper."""
+    return {"stokes_vep_chunk": hv.stokes_vep_chunk.launches,
+            "stokes_chunk": hs.stokes_chunk.launches,
+            "thermal_chunk": ht.thermal_chunk.launches,
+            "stokes3d_chunk": h3.stokes3d_chunk.launches,
+            "vep3d_edges": he.vep3d_edges.launches,
+            "vep3d_edges_split": he.vep3d_edges.split_launches,
+            "stokes3d_vep_chunk": hc.stokes3d_vep_chunk.launches}
+
+
+def reset_counts():
+    hv.stokes_vep_chunk.launches = hs.stokes_chunk.launches = 0
+    ht.thermal_chunk.launches = h3.stokes3d_chunk.launches = 0
+    he.vep3d_edges.launches = he.vep3d_edges.split_launches = 0
+    hc.stokes3d_vep_chunk.launches = 0
+
+
+def as_f64(c: VEP3DCanvasCarry):
+    return VEP3DCanvasCarry(*(tuple(x.double() for x in f) if isinstance(f, tuple)
+                              else f.double() for f in c))
+
+
+def run_vep3d_chunk(dev, smi, kind, bench, tau_edges):
+    """Phases 22-24, the fused 3D VEP chunk (B8); returns its entry in the
+    kernels line."""
+    # ---- 22. B8 against its plain version, f64 and f32
+    worst_rel, worst_abs, worst32 = 0.0, 0.0, 0.0
+    for case in VEP3D_CHUNK_CASES:
+        inputs = {d: vep3d_case(case, d, dev) for d in (torch.float64, torch.float32)}
+        carry, co, _, material, inv_di, kw = inputs[torch.float64]
+        before = [t.clone() for t in flat_vep_carry(carry)]
+        for nit, tol in ((1, TOL_VEP3D_CALL), (50, TOL_VEP3D_NOUT50)):
+            out = fused_chunk(carry, co, inv_di, kw, nit)
+            ref = fused_chunk(carry, co, inv_di, kw, nit, plain=True)
+            torch.cuda.synchronize()
+            d = rel_diffs_vep3d(out, ref)
+            worst = max(d.values())
+            worst_rel = max(worst_rel, worst)
+            worst_abs = max(worst_abs, abs_diff(flat_vep_carry(out), flat_vep_carry(ref)))
+            lam_max = max(float(ref.lam.max()), *(float(x.max()) for x in ref.lam_e))
+            emit("parity_vep3d_chunk", case=case, nout=nit, max_rel_diff=worst, tol=tol,
+                 lam_max=lam_max, per_field=d)
+            check(worst <= tol, f"B8 {case} nout={nit}: {worst} > {tol}")
+            if nit == 50 and case != "blocked_elastic":
+                check(lam_max > 0.0, f"B8 {case}: plasticity inactive")
+        check(all(torch.equal(a, b) for a, b in zip(before, flat_vep_carry(carry))),
+              f"B8 {case}: the input carry was written")
+        # f32, 50 iterations: 1e-4, or twice the plain version's own f32
+        # error against f64
+        c32, co32, _, _, _, kw32 = inputs[torch.float32]
+        out = fused_chunk(c32, co32, inv_di, kw32, 50)
+        ref = fused_chunk(c32, co32, inv_di, kw32, 50, plain=True)
+        ref64 = fused_chunk(carry, co, inv_di, kw, 50, plain=True)
+        gap = max(rel_diffs_vep3d(out, ref).values())
+        p32 = max(rel_diffs_vep3d(as_f64(ref), ref64).values())
+        tol32 = max(TOL_F32_1024, 2.0 * p32)
+        worst32 = max(worst32, gap)
+        emit("parity_vep3d_chunk", case=case, nout=50, dtype="float32", max_rel_diff=gap,
+             tol=tol32, plain_f32_vs_plain_f64=p32)
+        check(gap <= tol32, f"B8 {case} f32 nout=50: {gap} > {tol32}")
+        del inputs
+
+    # near yield at 126^3, f64: one and 50 iterations, the yield branch active
+    n = 126
+    near = {d: vep3d_case("shearband3d_kb_inf", d, dev, n=n)
+            for d in (torch.float64, torch.float32)}
+    carry, co, _, _, inv_n, kw_n = near[torch.float64]
+    for nit, tol in ((1, TOL_VEP3D_CALL), (50, TOL_VEP3D_NOUT50)):
+        out = fused_chunk(carry, co, inv_n, kw_n, nit)
+        ref = fused_chunk(carry, co, inv_n, kw_n, nit, plain=True)
+        d = max(rel_diffs_vep3d(out, ref).values())
+        lam = float(ref.lam.max())
+        lam_e = max(float(x.max()) for x in ref.lam_e)
+        emit("near_yield_126_vep3d_chunk", n=n, nout=nit, max_rel_diff=d, tol=tol,
+             lam_max=lam, lam_e_max=lam_e)
+        check(d <= tol, f"near yield 126^3 B8 nout={nit}: {d} > {tol}")
+        check(lam > 0.0 and lam_e > 0.0, "near yield 126^3 B8: plasticity inactive")
+        worst_rel = max(worst_rel, d)
+    del carry, co, out, ref
+    c32, co32, _, _, _, kw32 = near[torch.float32]
+    pk32 = hc.pack_chunk_consts(co32)
+    nk, npl = 20, 5
+    tk, tp = time_pair(lambda: fused_chunk(c32, pk32, inv_n, kw32, nk),
+                       lambda: fused_chunk(c32, co32, inv_n, kw32, npl, plain=True), nk, npl)
+    near_ms = dict(near_yield_ms=min(tk), near_yield_plain_ms=min(tp),
+                   near_yield_words=vep3d_chunk_words(pk32))
+    emit("near_yield_126_vep3d_chunk_timing", n=n, kernel_ms_per_iter=tk,
+         plain_ms_per_iter=tp, words=vep3d_chunk_words(pk32), nvidia_smi=smi)
+    del near, c32, co32, pk32
+
+    # ---- 23. main path: ShearBand3D at 126^3 f32, one step on "blocked" (B8)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, info, tau, _ = shearband3d.run(n=n, nt=1, dtype=torch.float32, iter_max=2_000,
+                                       nout=200, use_kernel="blocked")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hc.stokes3d_vep_chunk.launches
+    other = sum(counts().values()) - launches
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        st.V.Vx, st.V.Vy, st.V.Vz, st.P, st.tau.xx, st.tau.zz, st.tau.yz, st.tau.xz,
+        st.tau.xy, st.tau.II, st.viscosity.eta, st.EII_pl))
+    gap = abs(tau[-1] - tau_edges) / abs(tau_edges)
+    emit("main_path_vep3d_blocked", n=n, dtype="float32", iters=int(info.iters),
+         err=float(info.err), tauII_max=tau[-1], tauII_max_edges_route=tau_edges,
+         rel_gap_to_edges_route=gap, wall_s=wall,
+         wall_ms_per_iter=wall / int(info.iters) * 1e3, launches=launches,
+         other_launches=other, finite=finite)
+    check(st.P.device.type == "cuda", "main path B8: the state is not on the card")
+    check(finite, "main path B8: non-finite fields")
+    check(launches > 0 and other == 0, "main path B8: B8 was not launched, or another was")
+    check(gap < 1e-3, f"main path B8: tauII max {tau[-1]} vs {tau_edges} on 'edges'")
+    del st
+
+    # B8 and its plain version on the solve's first-chunk inputs: the kernels
+    # line's numbers
+    geometry, st0, material, (pr_c, pr_e), _, pt, dt = shearband3d._setup(n, torch.float32,
+                                                                          dev)
+    carry, co, packed = canvas_chunk_inputs(st0, material, pr_c, pr_e, route="blocked")
+    kw = dict(dt=dt, r=pt.r, theta_dtau=pt.theta_dtau, etadtau=pt.etadtau,
+              lambda_relaxation=0.2, viscosity_relaxation=1.0)
+    inv_di = tuple(1.0 / d for d in geometry.di)
+    tk, tp = time_pair(lambda: fused_chunk(carry, packed, inv_di, kw, nk),
+                       lambda: fused_chunk(carry, co, inv_di, kw, npl, plain=True), nk, npl)
+    words = vep3d_chunk_words(packed)
+    bound_main = bound_ms(words, n ** 3, 4, kind)
+    t_k = min(tk)
+    emit("main_path_vep3d_blocked_timing", n=n, words=words, kernel_ms_per_iter=tk,
+         plain_ms_per_iter=tp, T_eff_GBs=words * n ** 3 * 4 / (t_k * 1e-3) / 1e9,
+         bound_ms=bound_main, bound_share=bound_main / t_k, bound_ms_71_words=bound_ms(
+             WORDS_VEP3D, n ** 3, 4, kind), nvidia_smi=smi)
+    # 50 iterations kernel vs plain from those inputs, f32 against f64
+    out = fused_chunk(carry, packed, inv_di, kw, 50)
+    ref = fused_chunk(carry, co, inv_di, kw, 50, plain=True)
+    _, st64, mat64, (pr_c64, pr_e64), _, _, _ = shearband3d._setup(n, torch.float64, dev)
+    carry64, co64, _ = canvas_chunk_inputs(st64, mat64, pr_c64, pr_e64, route="blocked")
+    ref64 = fused_chunk(carry64, co64, inv_di, kw, 50, plain=True)
+    gap = max(rel_diffs_vep3d(out, ref).values())
+    p32 = max(rel_diffs_vep3d(as_f64(ref), ref64).values())
+    tol = max(TOL_F32_1024, 2.0 * p32)
+    worst32 = max(worst32, gap)
+    emit("f32_126_parity_vep3d", kernel="B8", nout=50, max_rel_diff=gap, tol=tol,
+         plain_f32_vs_plain_f64=p32)
+    check(gap <= tol, f"f32 126^3 B8: {gap} > {tol}")
+    main8 = (t_k, min(tp), bound_main, words)
+    del carry, co, packed, out, ref, carry64, co64, ref64, st64, st0
+
+    # ---- 24. timing, bench_kernels.py's pallas_vep3d_edges set-up, 126^3 f32
+    b = bench
+    pk = hc.pack_chunk_consts(b["co6"])
+    tk, tp = time_pair(lambda: fused_chunk(b["carry"], pk, b["inv_di"], b["kw"], nk),
+                       lambda: fused_chunk(b["carry"], b["co6"], b["inv_di"], b["kw"], npl,
+                                           plain=True), nk, npl)
+    words = vep3d_chunk_words(pk)
+    bound = bound_ms(words, n ** 3, 4, kind)
+    t_b = min(tk)
+    emit("timing_vep3d_chunk", n=n, dtype="float32", words=words, kernel_ms_per_iter=tk,
+         plain_ms_per_iter=tp, T_eff_GBs=words * n ** 3 * 4 / (t_b * 1e-3) / 1e9,
+         bound_ms=bound, bound_share=bound / t_b, hybrid_ms_per_iter=b["hybrid_ms"],
+         plain_canvas_ms_per_iter=b["plain_canvas_ms"], hybrid_over_fused=b["hybrid_ms"] / t_b,
+         nvidia_smi=smi)
+    t_k, t_p, bound_main, words_main = main8
+    return {
+        "name": "stokes3d_vep_chunk",
+        "route": "cuda",
+        "source": "justrelax_tpu_torch/csrc/stokes3d_vep.cu",
+        "replaces": ("justrelax_tpu/ops/pallas_stokes3d_vep_blocked.py:327 "
+                     "(B8 stokes3d_vep_chunk_blocked)"),
+        "launches": launches,
+        "max_abs_err": worst_abs,
+        "max_rel_diff_f64": worst_rel,
+        "max_rel_diff_f32": worst32,
+        "ms": t_k,
+        "plain_ms": t_p,
+        "bound_ms": bound_main,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "per": "iteration (3 launches)",
+        "words": words_main,
+        **near_ms,
+        "bench_ms": t_b,
+        "bench_plain_ms": min(tp),
+        "bench_bound_ms": bound,
+        "bench_words": words,
     }
 
 

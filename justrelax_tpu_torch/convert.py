@@ -2,10 +2,11 @@
 
 The JAX package's containers turn into nested dicts of arrays with
 ``flax.serialization.to_state_dict`` (done by the caller, so this module
-needs no JAX). ``stokes_state_from_dict``, ``thermal_state_from_dict`` and
-``material_from_dict`` build the port's :class:`StokesState`,
-:class:`ThermalState` and :class:`MaterialStack` from such dicts on a given
-device (the card unless given) and dtype; ``to_state_dict`` turns a port container back
+needs no JAX). ``stokes_state_from_dict``, ``thermal_state_from_dict``, ``material_from_dict``
+and ``phase_ratios_from_dict`` build the port's :class:`StokesState`,
+:class:`ThermalState`, :class:`MaterialStack` and :class:`PhaseRatios` /
+:class:`PhaseRatios3D` from such dicts on a given device (the card unless
+given) and dtype; ``to_state_dict`` turns a port container back
 into the same nested dict of numpy arrays (``None`` where the JAX container
 has an unused 3D field).
 """
@@ -21,9 +22,10 @@ import torch
 from justrelax_tpu_torch.core.device import resolve_device
 from justrelax_tpu_torch.core.state import StokesState, ThermalState
 from justrelax_tpu_torch.rheology.materials import MaterialStack
+from justrelax_tpu_torch.rheology.phases import PhaseRatios, PhaseRatios3D
 
 __all__ = ["stokes_state_from_dict", "thermal_state_from_dict", "material_from_dict",
-           "to_state_dict"]
+           "phase_ratios_from_dict", "to_state_dict"]
 
 
 def _build(cls, d, dtype, device):
@@ -55,6 +57,17 @@ def thermal_state_from_dict(d, device=None, dtype=None) -> ThermalState:
 def material_from_dict(d, device=None, dtype=None) -> MaterialStack:
     """Port ``MaterialStack`` from the JAX ``MaterialStack``'s dict."""
     return _build(MaterialStack, d, dtype, resolve_device(device))
+
+
+def phase_ratios_from_dict(d, device=None, dtype=None):
+    """Port ``PhaseRatios`` (2D) or ``PhaseRatios3D`` (3D, told by its edge
+    fields) from a mapping of the JAX ratios' field names to arrays, e.g.
+    ``flax.serialization.to_state_dict`` of them or their ``_asdict()``
+    (``dtype=None`` keeps the arrays' own dtype)."""
+    cls = PhaseRatios3D if "edge_xy" in d else PhaseRatios
+    device = resolve_device(device)
+    return cls(**{f: torch.tensor(np.array(d[f]), dtype=dtype, device=device)
+                  for f in cls._fields})
 
 
 def to_state_dict(obj):

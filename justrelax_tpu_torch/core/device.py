@@ -27,12 +27,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def resolve_use_kernel(use_kernel, tensor):
+def resolve_use_kernel(use_kernel, tensor, allowed=(False, True, "blocked")):
     """``use_kernel=None`` is ``True`` for a CUDA ``tensor`` and ``False`` for
-    a CPU one; ``False``, ``True`` and ``"blocked"`` stand as given."""
+    a CPU one; the values in ``allowed`` (each solver passes the ones it
+    admits) stand as given, and any other raises ``ValueError``."""
     if use_kernel is None:
         return tensor.device.type == "cuda"
-    if use_kernel not in (False, True, "blocked"):
-        raise ValueError(
-            f"use_kernel must be None, False, True or 'blocked', not {use_kernel!r}")
+    if use_kernel not in allowed:
+        names = ", ".join(repr(v) for v in allowed)
+        raise ValueError(f"use_kernel must be None or one of {names}, not {use_kernel!r}")
     return use_kernel

@@ -1,0 +1,722 @@
+// The 3D visco-elasto-plastic (VEP) pseudo-transient iteration, hand-written
+// for Hopper (sm_90a): its three edge return-mapping passes alone, and the
+// whole iteration fused into a chunk.
+//
+// Replaces three TPU kernels:
+//   B6  justrelax_tpu/ops/pallas_vep3d_edges.py::vep3d_edges_blocked
+//       (the three edge families in one pass, the old-stress interpolants
+//       re-derived from the nine tau_o canvases): k_edges<T, -1>;
+//   B9  justrelax_tpu/ops/pallas_vep3d_edges.py::vep3d_edges_split
+//       (one launch per family, the six old-stress interpolants of the family
+//       hoisted into const canvases): k_edges<T, 0..2>;
+//   B8  justrelax_tpu/ops/pallas_stokes3d_vep_blocked.py::
+//       stokes3d_vep_chunk_blocked (nout fused iterations of
+//       ops/stokes3d_vep_canvas.py::iteration_vep3d_canvas on the 19 carry
+//       canvases): k_cells, k_stress and k_velocity, launched in turn once
+//       per iteration.
+//
+// The edge passes compute what the edge passes of
+// justrelax_tpu_torch/ops/stokes3d_vep.py::update_stresses_center_edges_3d
+// compute on the collocated canvases of ops/stokes3d_vep_canvas.py: for each
+// shear-edge family k (0 = yz, 1 = xz, 2 = xy) on the slots it owns (its
+// normal axis 1..n, its two edge axes 0..n), the visco-elastic trial stress
+// from the six stress and strain-rate components interpolated to the edge,
+// the Drucker-Prager yield test, the relaxed plastic multiplier lambda_k and
+// the corrected shear stress tau_k. In B6/B9 the center pass, theta/P, the
+// viscosity continuation and the velocity update stay in PyTorch; both read
+// the pre-iteration state (a Jacobi update), so the split is exact.
+//
+// One thread per canvas slot, z fastest. Each thread writes every output at
+// its slot: the new value where the slot is updated, the input's value
+// elsewhere. The canvas moves of the plain version become closed-form
+// index clamps (ops/stokes3d_vep.py::serial_moves):
+//   center -> edge k : the 2x2 average over k's edge axes of the center
+//                      values at clamp(j, 1, n) and clamp(j+1, 1, n) (the
+//                      ghost refresh), first along the lower axis;
+//   family m -> edge k: along k's normal axis (m's own staggered axis) the
+//                      pair j-1, min(j, n-1) (the center-count clamp never
+//                      reads m's outermost face), along m's normal axis the
+//                      pair clamp(q, 1, n), clamp(q+1, 1, n), along the
+//                      shared axis the index min(p, n-1).
+// Strain rates are re-derived from V at each point read (radius 2), as the
+// TPU kernels do, so no strain-rate canvas goes through device memory. Only
+// the three normal components of tau_c reach the edge passes.
+//
+// The chunk (B8) runs each iteration in three launches, from the carry A to
+// the carry B (the wrapper alternates two work sets, so the input carry is
+// never written):
+//   k_cells    the maxloc preconditioner eta_tau (the 3x3x3 max of eta over
+//              clamped indices, into a scratch canvas) and the new pressure
+//              iterate theta at the cells;
+//   k_stress   the center return mapping (tau_c x6, lambda, the corrected
+//              P), the viscosity continuation eta, and the three edge
+//              passes (k_edges' body, B6's form) on the new theta;
+//   k_velocity the damped velocity update on the interior faces; a ghost
+//              slot's thread computes the value of the slot the free-slip
+//              mirrors copy into it (the tangential axes clamped to 1..n),
+//              which is the serial order's result (front/back, top/bot,
+//              left/right act on different axes).
+//
+// Constants: each canvas constant is a pointer or, where it holds one value
+// over the slots it is read on, that value (the wrappers decide once per
+// chunk); K and the nine Drucker-Prager parameters are scalars under the
+// phase-uniform guard of ops/hopper_vep3d_edges.py::vep3d_blocked_supported.
+// K = infinity drops the volume term by a test, not a product (inf * 0 =
+// NaN). The tension cap follows rheology/plasticity.py: pT = 0 means no cap.
+//
+// What bounds them on this card: device-memory traffic. The edge passes
+// read at least 14 words per slot (V x3, theta, eta, tau_c normals x3, tau_e
+// x3, lambda_e x3) and write 6, plus each non-uniform constant (G_e x3, and
+// tau_o: 6 canvases re-derived in B6, 18 hoisted in B9); one chunk
+// iteration reads the 19 carry canvases and writes 19, plus its non-uniform
+// constants. A few hundred flops per slot and family against the card's
+// 67 TFLOP/s (f32) leave them far from the compute bound. Neighbours are
+// read from device memory through the caches (the 4-point interpolation
+// trees overlap between neighbouring threads); shared-memory tiles with a
+// radius-2 halo are left for later work.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int N_DYN = 14;   // Vx Vy Vz theta eta tc0..2 te0..2 le0..2
+constexpr int N_OUT = 6;    // te0..2 le0..2
+constexpr int N_PP = 9;     // is_pl pl_frac C_cosphi sinphi cosphi sinpsi eta_reg pT dq_shear
+
+template <typename T> struct Args {
+  const T *Vx, *Vy, *Vz, *theta, *eta;
+  const T* tc[3];
+  const T* te[3];
+  const T* le[3];
+  T* ote[3];
+  T* ole[3];
+  const T* G[3];       // nullptr: the scalar Gv
+  T Gv[3];
+  const T* to[3][6];   // per family the six old-stress sources; nullptr: tov
+  T tov[3][6];
+  T inv[3];            // 1/dx, 1/dy, 1/dz
+  T dt, theta_dtau, rel, one_minus_rel;
+  T pl_frac, C_cosphi, sinphi, sinpsi, eta_reg, pT, K;
+  bool is_pl;
+  int n[3];
+  int64_t st[3];       // strides of x, y, z (z = 1)
+};
+
+template <typename T> __device__ __forceinline__ T xsqrt(T a);
+template <> __device__ __forceinline__ float xsqrt(float a) { return sqrtf(a); }
+template <> __device__ __forceinline__ double xsqrt(double a) { return sqrt(a); }
+
+// NaN-propagating helpers, as torch.minimum / torch.clamp
+template <typename T> __device__ __forceinline__ T tmin(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T clamp_lo(T a, T lo) {
+  return a < lo ? lo : a;
+}
+template <typename T> __device__ __forceinline__ T clamp01(T a) {
+  return a < T(0) ? T(0) : (a > T(1) ? T(1) : a);
+}
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+__device__ __forceinline__ bool is_inf(float a) { return isinf(a); }
+__device__ __forceinline__ bool is_inf(double a) { return isinf(a); }
+
+template <typename T>
+__device__ __forceinline__ T at(const T* p, T v, int64_t i) {
+  return p ? p[i] : v;
+}
+
+// 0.5 * (0.5 * (a + b) + 0.5 * (c + d)): a pair average along the first
+// axis, then along the second
+template <typename T>
+__device__ __forceinline__ T avg4(T a, T b, T c, T d) {
+  return T(0.5) * (T(0.5) * (a + b) + T(0.5) * (c + d));
+}
+
+template <typename T>
+__device__ __forceinline__ int64_t lin(const Args<T>& g, const int* s) {
+  return s[0] * g.st[0] + s[1] * g.st[1] + s[2];
+}
+
+// deviatoric normal strain rates at a cell slot
+template <typename T>
+__device__ __forceinline__ void normal_strain(const Args<T>& g, int64_t p, T* e) {
+  const T dx = (g.Vx[p] - g.Vx[p - g.st[0]]) * g.inv[0];
+  const T dy = (g.Vy[p] - g.Vy[p - g.st[1]]) * g.inv[1];
+  const T dz = (g.Vz[p] - g.Vz[p - 1]) * g.inv[2];
+  const T gv = dx + dy + dz;
+  const T third = T(1.0 / 3.0);
+  e[0] = dx - gv * third;
+  e[1] = dy - gv * third;
+  e[2] = dz - gv * third;
+}
+
+// shear strain rate of family m at an edge slot of that family
+template <typename T>
+__device__ __forceinline__ T shear_strain(const Args<T>& g, int m, int64_t p) {
+  const int64_t sx = g.st[0], sy = g.st[1];
+  if (m == 0)
+    return T(0.5) * ((g.Vy[p + 1] - g.Vy[p]) * g.inv[2] + (g.Vz[p + sy] - g.Vz[p]) * g.inv[1]);
+  if (m == 1)
+    return T(0.5) * ((g.Vx[p + 1] - g.Vx[p]) * g.inv[2] + (g.Vz[p + sx] - g.Vz[p]) * g.inv[0]);
+  return T(0.5) * ((g.Vx[p + sy] - g.Vx[p]) * g.inv[1] + (g.Vy[p + sx] - g.Vy[p]) * g.inv[0]);
+}
+
+// the four canvas slots the center -> edge K average reads, in avg4 order
+template <typename T, int K>
+__device__ __forceinline__ void center_points(const Args<T>& g, const int* s, int64_t* q) {
+  constexpr int A0 = K == 0 ? 1 : 0;   // lower edge axis
+  constexpr int A1 = K == 2 ? 1 : 2;   // upper edge axis
+  const int u0 = clampi(s[A0], 1, g.n[A0]), u1 = clampi(s[A0] + 1, 1, g.n[A0]);
+  const int w0 = clampi(s[A1], 1, g.n[A1]), w1 = clampi(s[A1] + 1, 1, g.n[A1]);
+  int c[3] = {s[0], s[1], s[2]};
+  c[A0] = u0; c[A1] = w0; q[0] = lin(g, c);
+  c[A0] = u1;             q[1] = lin(g, c);
+  c[A0] = u0; c[A1] = w1; q[2] = lin(g, c);
+  c[A0] = u1;             q[3] = lin(g, c);
+}
+
+// the four slots of family M that the M -> K move reads, in avg4 order
+template <typename T, int K, int M>
+__device__ __forceinline__ void other_points(const Args<T>& g, const int* s, int64_t* q) {
+  constexpr int SO = K;              // K's normal axis: M's own staggered axis
+  constexpr int DO = M;              // M's normal axis: K's own staggered axis
+  constexpr int SH = 3 - K - M;      // the shared staggered axis
+  const int jl = s[SO] - 1, jh = min(s[SO], g.n[SO] - 1);
+  const int q0 = clampi(s[DO], 1, g.n[DO]), q1 = clampi(s[DO] + 1, 1, g.n[DO]);
+  int c[3];
+  c[SH] = min(s[SH], g.n[SH] - 1);
+  c[SO] = jl; c[DO] = q0; q[0] = lin(g, c);
+  c[SO] = jh;             q[1] = lin(g, c);
+  c[SO] = jl; c[DO] = q1; q[2] = lin(g, c);
+  c[SO] = jh;             q[3] = lin(g, c);
+}
+
+template <typename T>
+__device__ __forceinline__ T avg_at(const T* A, T v, const int64_t* q) {
+  if (!A) return v;   // a uniform source: its average is the value itself
+  return avg4(A[q[0]], A[q[1]], A[q[2]], A[q[3]]);
+}
+
+// Family M's shear stress, strain rate and (unless hoisted) old stress
+// moved onto edge K at slot s, into slot 3 + M of the six-component tuples.
+template <typename T, int K, int M, bool HOIST>
+__device__ __forceinline__ void other_family(const Args<T>& g, const int* s, T* t6, T* e6,
+                                             T* o6) {
+  int64_t q[4];
+  other_points<T, K, M>(g, s, q);
+  t6[3 + M] = avg4(g.te[M][q[0]], g.te[M][q[1]], g.te[M][q[2]], g.te[M][q[3]]);
+  e6[3 + M] = avg4(shear_strain(g, M, q[0]), shear_strain(g, M, q[1]),
+                   shear_strain(g, M, q[2]), shear_strain(g, M, q[3]));
+  if (!HOIST) o6[3 + M] = avg_at(g.to[K][3 + M], g.tov[K][3 + M], q);
+}
+
+// The Drucker-Prager cone with the optional tension cap (pT = 0: none) at
+// pressure Pv and trial invariant tII: the yield function F, the flow
+// gradient dQ/dP and the volume term K dt dF/dP dQ/dP of the multiplier's
+// denominator (rheology/plasticity.py: yield_function, flow_gradients_P).
+template <typename T>
+__device__ __forceinline__ void drucker_prager(const Args<T>& g, T Pv, T tII, T& F, T& dQdP,
+                                               T& volume) {
+  const T pT = g.pT == T(0) ? T(-INFINITY) : g.pT;
+  const T ratio = clamp01(Pv / pT);
+  const T cap = Pv < T(0) ? g.C_cosphi * xsqrt(clamp_lo(T(1) - ratio * ratio, T(0)))
+                          : T(INFINITY);
+  const T cone = g.C_cosphi + Pv * g.sinphi;
+  F = tII - tmin(cone, cap);
+  const T root = xsqrt(clamp_lo(T(1) - ratio * ratio, T(1e-12)));
+  const T dFdP_cap = g.C_cosphi * Pv / (is_inf(pT) ? T(INFINITY) : pT * pT) / root;
+  const bool on_cap = cap < cone;
+  const T dFdP = on_cap ? dFdP_cap : -g.sinphi;
+  dQdP = on_cap ? dFdP_cap : -g.sinpsi;
+  volume = is_inf(g.K) ? T(0) : g.K * g.dt * dFdP * dQdP;
+}
+
+// The second invariant of a six-component tuple (xx, yy, zz, yz, xz, xy).
+template <typename T>
+__device__ __forceinline__ T inv_II(const T* t) {
+  return xsqrt(T(0.5) * (t[0] * t[0] + t[1] * t[1] + t[2] * t[2]) + t[3] * t[3] +
+               t[4] * t[4] + t[5] * t[5]);
+}
+
+// One family's return mapping at an owned slot s (linear index i).
+template <typename T, int K, bool HOIST>
+__device__ void family(const Args<T>& g, const int* s, int64_t i, T& t_new, T& lam_new) {
+  int64_t qc[4];
+  center_points<T, K>(g, s, qc);
+  const T Pv = avg4(g.theta[qc[0]], g.theta[qc[1]], g.theta[qc[2]], g.theta[qc[3]]);
+  const T eta_e = T(1) / avg4(T(1) / g.eta[qc[0]], T(1) / g.eta[qc[1]],
+                              T(1) / g.eta[qc[2]], T(1) / g.eta[qc[3]]);
+  const T Ge = at(g.G[K], g.Gv[K], i);
+  const T Gedt = T(1) / (Ge * g.dt);
+  const T dtau = T(1) / (g.theta_dtau + eta_e * Gedt + T(1));
+
+  T t6[6], e6[6], o6[6];
+  {
+    T e4[4][3];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) normal_strain(g, qc[c], e4[c]);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      t6[j] = avg4(g.tc[j][qc[0]], g.tc[j][qc[1]], g.tc[j][qc[2]], g.tc[j][qc[3]]);
+      e6[j] = avg4(e4[0][j], e4[1][j], e4[2][j], e4[3][j]);
+    }
+  }
+  if (!HOIST) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) o6[j] = avg_at(g.to[K][j], g.tov[K][j], qc);
+  }
+  // the family's own shear lives here
+  t6[3 + K] = g.te[K][i];
+  e6[3 + K] = shear_strain(g, K, i);
+  if (!HOIST) o6[3 + K] = at(g.to[K][3 + K], g.tov[K][3 + K], i);
+  // the two other families interpolate over
+  other_family<T, K, (K + 1) % 3, HOIST>(g, s, t6, e6, o6);
+  other_family<T, K, (K + 2) % 3, HOIST>(g, s, t6, e6, o6);
+  if (HOIST) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) o6[j] = at(g.to[K][j], g.tov[K][j], i);
+  }
+
+  // visco-elastic trial stress
+  T d6[6], tr[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    d6[j] = dtau * (T(2) * eta_e * e6[j] - (t6[j] - o6[j]) * eta_e * Gedt - t6[j]);
+    tr[j] = t6[j] + d6[j];
+  }
+  const T tII = inv_II(tr);
+
+  T F, dQdP, volume;
+  drucker_prager(g, Pv, tII, F, dQdP, volume);
+  const bool yld = g.is_pl && tII != T(0) && F > T(0);
+
+  const T lam_old = g.le[K][i];
+  const T lam = g.one_minus_rel * lam_old +
+                g.rel * (clamp_lo(F, T(0)) / (eta_e * dtau + g.eta_reg + volume));
+  lam_new = yld ? lam : lam_old;
+  const T dQdt = g.pl_frac * T(0.5) * (tr[3 + K] / (tII == T(0) ? T(1) : tII));
+  const T e_pl = yld ? lam_new * dQdt : T(0);
+  const T d_own = d6[3 + K];
+  t_new = t6[3 + K] + (yld ? d_own - T(2) * eta_e * e_pl * dtau : d_own);
+}
+
+template <typename T, int K>
+__device__ __forceinline__ bool owned(const Args<T>& g, const int* s) {
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const int lo = ax == K ? 1 : 0;
+    if (s[ax] < lo || s[ax] > g.n[ax]) return false;
+  }
+  return true;
+}
+
+template <typename T, int K, bool HOIST>
+__device__ __forceinline__ void run_family(const Args<T>& g, const int* s, int64_t i) {
+  T t = g.te[K][i], l = g.le[K][i];
+  if (owned<T, K>(g, s)) family<T, K, HOIST>(g, s, i, t, l);
+  g.ote[K][i] = t;
+  g.ole[K][i] = l;
+}
+
+// FAM < 0: the three families, the old-stress interpolants re-derived (B6);
+// FAM = k: family k alone on its hoisted interpolants (B9)
+template <typename T, int FAM>
+__global__ void __launch_bounds__(256) k_edges(const Args<T> g) {
+  constexpr bool HOIST = FAM >= 0;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y * blockDim.y + threadIdx.y;
+  const int a = blockIdx.z;
+  if (b > g.n[1] + 1 || c > g.n[2] + 1) return;
+  const int s[3] = {a, b, c};
+  const int64_t i = a * g.st[0] + b * g.st[1] + c;
+  if (FAM < 0 || FAM == 0) run_family<T, 0, HOIST>(g, s, i);
+  if (FAM < 0 || FAM == 1) run_family<T, 1, HOIST>(g, s, i);
+  if (FAM < 0 || FAM == 2) run_family<T, 2, HOIST>(g, s, i);
+}
+
+// The plastic scalars (the order of ops/hopper_vep3d_edges.py _PP_FIELDS)
+// and K from `vals`.
+template <typename T>
+void set_plastic(Args<T>& g, const double* pp) {
+  g.is_pl = pp[0] > 0.5;
+  g.pl_frac = T(pp[1]); g.C_cosphi = T(pp[2]); g.sinphi = T(pp[3]);
+  g.sinpsi = T(pp[5]); g.eta_reg = T(pp[6]); g.pT = T(pp[7]);
+  g.K = T(pp[N_PP]);
+}
+
+template <typename T>
+void set_grid(Args<T>& g, int nx, int ny, int nz) {
+  g.n[0] = nx; g.n[1] = ny; g.n[2] = nz;
+  g.st[2] = 1; g.st[1] = nz + 2; g.st[0] = (int64_t)(ny + 2) * (nz + 2);
+}
+
+template <typename T>
+int launch_edges(const void* const* ptrs, const double* vals, int nx, int ny, int nz,
+                 int family, cudaStream_t stream) {
+  Args<T> g;
+  set_grid(g, nx, ny, nz);
+  auto cp = [&](int j) { return static_cast<const T*>(ptrs[j]); };
+  g.Vx = cp(0); g.Vy = cp(1); g.Vz = cp(2); g.theta = cp(3); g.eta = cp(4);
+  for (int k = 0; k < 3; ++k) {
+    g.tc[k] = cp(5 + k);
+    g.te[k] = cp(8 + k);
+    g.le[k] = cp(11 + k);
+    g.ote[k] = static_cast<T*>(const_cast<void*>(ptrs[N_DYN + k]));
+    g.ole[k] = static_cast<T*>(const_cast<void*>(ptrs[N_DYN + 3 + k]));
+    g.G[k] = cp(N_DYN + N_OUT + k);
+    for (int j = 0; j < 6; ++j) g.to[k][j] = cp(N_DYN + N_OUT + 3 + 6 * k + j);
+  }
+  for (int k = 0; k < 3; ++k) g.inv[k] = T(vals[k]);
+  g.dt = T(vals[3]); g.theta_dtau = T(vals[4]);
+  g.rel = T(vals[5]); g.one_minus_rel = T(1.0 - vals[5]);
+  set_plastic(g, vals + 6);
+  for (int k = 0; k < 3; ++k) g.Gv[k] = T(vals[7 + N_PP + k]);
+  for (int k = 0; k < 3; ++k)
+    for (int j = 0; j < 6; ++j) g.tov[k][j] = T(vals[10 + N_PP + 6 * k + j]);
+
+  const dim3 blk(32, 8, 1);
+  const dim3 grid((nz + 2 + 31) / 32, (ny + 2 + 7) / 8, nx + 2);
+  if (family < 0) k_edges<T, -1><<<grid, blk, 0, stream>>>(g);
+  else if (family == 0) k_edges<T, 0><<<grid, blk, 0, stream>>>(g);
+  else if (family == 1) k_edges<T, 1><<<grid, blk, 0, stream>>>(g);
+  else if (family == 2) k_edges<T, 2><<<grid, blk, 0, stream>>>(g);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// ---- the fused chunk (B8) -----------------------------------------------
+
+constexpr int N_CARRY = 19;   // Vx Vy Vz P theta tc0..5 te0..2 eta lam le0..2
+constexpr int N_CONST = 20;   // Gc Ge0..2 toc0..5 toe0..2 P0 Q fzA fzB visc_eta visc_A visc_B
+enum CarrySlot { C_VX, C_VY, C_VZ, C_P, C_TH, C_TC, C_TE = C_TC + 6, C_ETA = C_TE + 3, C_LAM,
+                 C_LE };
+enum ConstSlot { K_GC, K_GE, K_TOC = K_GE + 3, K_TOE = K_TOC + 6, K_P0 = K_TOE + 3, K_Q, K_FZA,
+                 K_FZB, K_VETA, K_VA, K_VB };
+
+template <typename T> struct Chunk {
+  Args<T> e;             // the edge passes' view: V, eta, tau_c normals, tau_e, lambda_e of
+                         // the input carry, the new theta, the outputs tau_e, lambda_e
+  const T* in[N_CARRY];  // carry A (read)
+  T* out[N_CARRY];       // carry B (written)
+  T* et;                 // eta_tau scratch (cells)
+  const T* c[N_CONST];   // constant canvases; nullptr: the value in cv
+  T cv[N_CONST];
+  T r_theta, inv_dt, etadtau, rel_visc, one_minus_rel_visc, cut_lo, cut_hi, vm, eps;
+  bool fz, linear;
+};
+
+template <typename T> __device__ __forceinline__ T xpow(T a, T b);
+template <> __device__ __forceinline__ float xpow(float a, float b) { return powf(a, b); }
+template <> __device__ __forceinline__ double xpow(double a, double b) { return pow(a, b); }
+
+// NaN-propagating max, as torch.maximum
+template <typename T> __device__ __forceinline__ T tmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+
+template <typename T>
+__device__ __forceinline__ bool is_cell(const Args<T>& g, const int* s) {
+  return s[0] >= 1 && s[0] <= g.n[0] && s[1] >= 1 && s[1] <= g.n[1] && s[2] >= 1 &&
+         s[2] <= g.n[2];
+}
+
+#define SLOT_OR_RETURN(g)                                            \
+  const int c_ = blockIdx.x * blockDim.x + threadIdx.x;              \
+  const int b_ = blockIdx.y * blockDim.y + threadIdx.y;              \
+  const int a_ = blockIdx.z;                                         \
+  if (b_ > (g).n[1] + 1 || c_ > (g).n[2] + 1) return;                \
+  const int s[3] = {a_, b_, c_};                                     \
+  const int64_t i = a_ * (g).st[0] + b_ * (g).st[1] + c_;
+
+// eta_tau (the maxloc of eta over the 3x3x3 neighbourhood, indices clamped to
+// the cells) and the compressible pressure iterate theta (ops/stokes.py
+// compute_P) at the cells; theta keeps its value elsewhere.
+template <typename T>
+__global__ void __launch_bounds__(256) k_cells(const Chunk<T> g) {
+  const Args<T>& e = g.e;
+  SLOT_OR_RETURN(e)
+  T th = g.in[C_TH][i];
+  if (is_cell(e, s)) {
+    const T* eta = g.in[C_ETA];
+    T m = eta[i];
+    for (int da = -1; da <= 1; ++da) {
+      const int a = clampi(s[0] + da, 1, e.n[0]);
+      for (int db = -1; db <= 1; ++db) {
+        const int b = clampi(s[1] + db, 1, e.n[1]);
+        for (int dc = -1; dc <= 1; ++dc) {
+          const int c = clampi(s[2] + dc, 1, e.n[2]);
+          m = tmax(m, eta[a * e.st[0] + b * e.st[1] + c]);
+        }
+      }
+    }
+    g.et[i] = m;
+    const T dx = (e.Vx[i] - e.Vx[i - e.st[0]]) * e.inv[0];
+    const T dy = (e.Vy[i] - e.Vy[i - e.st[1]]) * e.inv[1];
+    const T dz = (e.Vz[i] - e.Vz[i - 1]) * e.inv[2];
+    const T gv = dx + dy + dz;
+    const T Kdt = T(1) / (e.K * e.dt);
+    const T Gdt = T(1) / (at(g.c[K_GC], g.cv[K_GC], i) * e.dt);
+    const T rhs = -gv + at(g.c[K_Q], g.cv[K_Q], i) * g.inv_dt;
+    const T psi = T(1) / (T(1) / m + Gdt) * g.r_theta;
+    th = ((at(g.c[K_P0], g.cv[K_P0], i) * Kdt + rhs) * psi + th) / (T(1) + Kdt * psi);
+  }
+  g.out[C_TH][i] = th;
+}
+
+// The center return mapping at cell slot s: tau_c x6, lambda and the
+// corrected pressure, then the viscosity continuation, in place.
+template <typename T>
+__device__ void center(const Chunk<T>& g, int64_t i, T* tc, T& lam, T& P, T& eta) {
+  const Args<T>& e = g.e;
+  const int64_t sx = e.st[0], sy = e.st[1];
+  T e6[6];
+  normal_strain(e, i, e6);
+  // the shear strain rates, averaged from the four edges around the cell
+  e6[3] = avg4(shear_strain(e, 0, i - 1 - sy), shear_strain(e, 0, i - 1),
+               shear_strain(e, 0, i - sy), shear_strain(e, 0, i));
+  e6[4] = avg4(shear_strain(e, 1, i - 1 - sx), shear_strain(e, 1, i - 1),
+               shear_strain(e, 1, i - sx), shear_strain(e, 1, i));
+  e6[5] = avg4(shear_strain(e, 2, i - sy - sx), shear_strain(e, 2, i - sy),
+               shear_strain(e, 2, i - sx), shear_strain(e, 2, i));
+  const T Gdt = T(1) / (at(g.c[K_GC], g.cv[K_GC], i) * e.dt);
+  const T dtau = T(1) / (e.theta_dtau + eta * Gdt + T(1));
+  T tr[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const T to = at(g.c[K_TOC + j], g.cv[K_TOC + j], i);
+    tr[j] = tc[j] + dtau * (T(2) * eta * e6[j] - (tc[j] - to) * eta * Gdt - tc[j]);
+  }
+  const T tII = inv_II(tr);
+  const T Pr = e.theta[i];
+  T F, dQdP, volume;
+  drucker_prager(e, Pr, tII, F, dQdP, volume);
+  const bool yld = e.is_pl && tII != T(0) && F > T(0);
+  T lam_new = e.one_minus_rel * lam +
+              e.rel * (clamp_lo(F, T(0)) / (eta * dtau + e.eta_reg + volume));
+  lam_new = yld ? lam_new : lam;
+  const T scale = e.pl_frac * T(0.5);
+  const T corr = T(2) * eta * dtau;
+  const T div = tII == T(0) ? T(1) : tII;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const T epl = yld ? lam_new * scale * (tr[j] / div) : T(0);
+    tc[j] = yld ? tr[j] - corr * epl : tr[j];
+  }
+  lam = lam_new;
+  P = Pr - (is_inf(e.K) ? T(0) : e.K * e.dt * lam_new * dQdP);
+
+  // viscosity continuation on the new tau_c: the creep target (a constant
+  // for a linear table, else 1/eta = A + B tauII^m), relaxed and cut off
+  const T sabs = fabs(tc[0]) + fabs(tc[1]) + fabs(tc[2]) + fabs(tc[3]) + fabs(tc[4]) +
+                 fabs(tc[5]);
+  T t6[6] = {tc[0] + (sabs == T(0) ? g.eps : T(0)), tc[1], tc[2], tc[3], tc[4], tc[5]};
+  T eta_n;
+  if (g.linear) {
+    eta_n = at(g.c[K_VETA], g.cv[K_VETA], i);
+  } else {
+    eta_n = T(1) / (at(g.c[K_VA], g.cv[K_VA], i) +
+                    at(g.c[K_VB], g.cv[K_VB], i) * xpow(inv_II(t6), g.vm));
+  }
+  eta_n = g.rel_visc * eta_n + g.one_minus_rel_visc * eta;
+  eta = tmin(tmax(eta_n, g.cut_lo), g.cut_hi);
+}
+
+// The center pass and the viscosity at the cells, and the three edge passes
+// on their owned slots; every other slot keeps its value.
+template <typename T>
+__global__ void __launch_bounds__(256) k_stress(const Chunk<T> g) {
+  const Args<T>& e = g.e;
+  SLOT_OR_RETURN(e)
+  T tc[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) tc[j] = g.in[C_TC + j][i];
+  T lam = g.in[C_LAM][i], P = g.in[C_P][i], eta = g.in[C_ETA][i];
+  if (is_cell(e, s)) center(g, i, tc, lam, P, eta);
+#pragma unroll
+  for (int j = 0; j < 6; ++j) g.out[C_TC + j][i] = tc[j];
+  g.out[C_LAM][i] = lam;
+  g.out[C_P][i] = P;
+  g.out[C_ETA][i] = eta;
+  run_family<T, 0, false>(e, s, i);
+  run_family<T, 1, false>(e, s, i);
+  run_family<T, 2, false>(e, s, i);
+}
+
+// Index of the interior slot the free-slip mirrors copy into a ghost slot
+// along an axis of n cells (0 <- 1, n+1 <- n).
+__device__ __forceinline__ int mirror(int v, int n) { return v == 0 ? 1 : (v == n + 1 ? n : v); }
+
+// The damped velocity update of component D at slot q (a face slot it
+// updates: 1..n-1 along D, 1..n along the others), from the new stresses and
+// pressure of carry B; the input's value elsewhere.
+template <typename T, int D>
+__device__ __forceinline__ T velocity(const Chunk<T>& g, const int* q) {
+  const Args<T>& e = g.e;
+  const int64_t p = q[0] * e.st[0] + q[1] * e.st[1] + q[2];
+  const T v = g.in[C_VX + D][p];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const int hi = ax == D ? e.n[ax] - 1 : e.n[ax];
+    if (q[ax] < 1 || q[ax] > hi) return v;
+  }
+  const int64_t sx = e.st[0], sy = e.st[1], sd = e.st[D];
+  const T* P = g.out[C_P];
+  const T* tyz = g.out[C_TE];
+  const T* txz = g.out[C_TE + 1];
+  const T* txy = g.out[C_TE + 2];
+  T rr;
+  if (D == 0) {
+    const T* txx = g.out[C_TC];
+    rr = (txx[p + sx] - txx[p]) * e.inv[0] + (txy[p] - txy[p - sy]) * e.inv[1] +
+         (txz[p] - txz[p - 1]) * e.inv[2] - (P[p + sx] - P[p]) * e.inv[0];
+  } else if (D == 1) {
+    const T* tyy = g.out[C_TC + 1];
+    rr = (txy[p] - txy[p - sx]) * e.inv[0] + (tyy[p + sy] - tyy[p]) * e.inv[1] +
+         (tyz[p] - tyz[p - 1]) * e.inv[2] - (P[p + sy] - P[p]) * e.inv[1];
+  } else {
+    const T* tzz = g.out[C_TC + 2];
+    rr = (txz[p] - txz[p - sx]) * e.inv[0] + (tyz[p] - tyz[p - sy]) * e.inv[1] +
+         (tzz[p + 1] - tzz[p]) * e.inv[2] - (P[p + 1] - P[p]) * e.inv[2];
+    if (g.fz) {
+      const T* Pa = g.in[C_P];
+      const T f0 = at(g.c[K_FZA], g.cv[K_FZA], p) + at(g.c[K_FZB], g.cv[K_FZB], p) * Pa[p];
+      const T f1 = at(g.c[K_FZA], g.cv[K_FZA], p + 1) +
+                   at(g.c[K_FZB], g.cv[K_FZB], p + 1) * Pa[p + 1];
+      rr = rr - T(0.5) * (f0 + f1);
+    }
+  }
+  return v + rr * (g.etadtau / (T(0.5) * (g.et[p] + g.et[p + sd])));
+}
+
+// The velocity update on the interior faces; a ghost slot takes the value
+// of the slot the free-slip mirrors copy into it (its tangential axes
+// clamped into 1..n).
+template <typename T>
+__global__ void __launch_bounds__(256) k_velocity(const Chunk<T> g) {
+  const Args<T>& e = g.e;
+  SLOT_OR_RETURN(e)
+  const int nx = e.n[0], ny = e.n[1], nz = e.n[2];
+  const int qx[3] = {s[0], mirror(s[1], ny), mirror(s[2], nz)};
+  const int qy[3] = {mirror(s[0], nx), s[1], mirror(s[2], nz)};
+  const int qz[3] = {mirror(s[0], nx), mirror(s[1], ny), s[2]};
+  g.out[C_VX][i] = velocity<T, 0>(g, qx);
+  g.out[C_VY][i] = velocity<T, 1>(g, qy);
+  g.out[C_VZ][i] = velocity<T, 2>(g, qz);
+}
+
+template <typename T>
+int launch_chunk(const void* const* ptrs, const double* vals, int nx, int ny, int nz, int nit,
+                 cudaStream_t stream) {
+  Chunk<T> g;
+  Args<T>& e = g.e;
+  set_grid(e, nx, ny, nz);
+  for (int k = 0; k < 3; ++k) e.inv[k] = T(vals[k]);
+  e.dt = T(vals[3]);
+  g.inv_dt = T(1.0 / vals[3]);
+  g.r_theta = T(vals[4] / vals[5]);
+  e.theta_dtau = T(vals[5]);
+  g.etadtau = T(vals[6]);
+  e.rel = T(vals[7]); e.one_minus_rel = T(1.0 - vals[7]);
+  g.rel_visc = T(vals[8]); g.one_minus_rel_visc = T(1.0 - vals[8]);
+  g.cut_lo = T(vals[9]); g.cut_hi = T(vals[10]);
+  set_plastic(e, vals + 11);
+  const double* cv = vals + 12 + N_PP;
+  const void* const* cp = ptrs + 3 * N_CARRY + 1;
+  for (int j = 0; j < N_CONST; ++j) {
+    g.c[j] = static_cast<const T*>(cp[j]);
+    g.cv[j] = T(cv[j]);
+  }
+  g.vm = T(cv[N_CONST]);
+  g.fz = cv[N_CONST + 1] > 0.5;
+  g.linear = cv[N_CONST + 2] > 0.5;
+  g.eps = sizeof(T) == 4 ? T(1.1920928955078125e-07) : T(2.220446049250313e-16);
+  g.et = static_cast<T*>(const_cast<void*>(ptrs[3 * N_CARRY]));
+  // the edge passes' constants in B6's form: G_e, and for every family the
+  // normal tau_o_c and the three tau_o_e
+  for (int k = 0; k < 3; ++k) {
+    e.G[k] = g.c[K_GE + k]; e.Gv[k] = g.cv[K_GE + k];
+    for (int j = 0; j < 3; ++j) {
+      e.to[k][j] = g.c[K_TOC + j]; e.tov[k][j] = g.cv[K_TOC + j];
+      e.to[k][3 + j] = g.c[K_TOE + j]; e.tov[k][3 + j] = g.cv[K_TOE + j];
+    }
+  }
+  const dim3 blk(32, 8, 1);
+  const dim3 grid((nz + 2 + 31) / 32, (ny + 2 + 7) / 8, nx + 2);
+  for (int it = 0; it < nit; ++it) {
+    const void* const* src = it == 0 ? ptrs : ptrs + N_CARRY * (1 + (it - 1) % 2);
+    const void* const* dst = ptrs + N_CARRY * (1 + it % 2);
+    for (int j = 0; j < N_CARRY; ++j) {
+      g.in[j] = static_cast<const T*>(src[j]);
+      g.out[j] = static_cast<T*>(const_cast<void*>(dst[j]));
+    }
+    e.Vx = g.in[C_VX]; e.Vy = g.in[C_VY]; e.Vz = g.in[C_VZ];
+    e.theta = g.out[C_TH];
+    e.eta = g.in[C_ETA];
+    for (int k = 0; k < 3; ++k) {
+      e.tc[k] = g.in[C_TC + k];
+      e.te[k] = g.in[C_TE + k];
+      e.le[k] = g.in[C_LE + k];
+      e.ote[k] = g.out[C_TE + k];
+      e.ole[k] = g.out[C_LE + k];
+    }
+    k_cells<T><<<grid, blk, 0, stream>>>(g);
+    k_stress<T><<<grid, blk, 0, stream>>>(g);
+    k_velocity<T><<<grid, blk, 0, stream>>>(g);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+}  // namespace
+
+// Plain C interface (loaded with ctypes).
+//
+// jr_vep3d_edges_*: the edge passes, B6 (`family` < 0) or family 0..2 (B9).
+// `ptrs`: 14 inputs (Vx, Vy, Vz, theta, eta, tau_c normals x3, tau_e x3,
+//   lambda_e x3), 6 outputs (tau_e x3, lambda_e x3; null for a family that
+//   is not run), G_e x3, then per family the six old-stress sources (null:
+//   the scalar in `vals`): for B9 the family's hoisted interpolants, for B6
+//   tau_o_c normals x3 and tau_o_e x3.
+// `vals`: 1/dx, 1/dy, 1/dz, dt, theta_dtau, lambda_relaxation, the nine
+//   plastic scalars, K, G_e x3, the 18 old-stress scalars.
+//
+// jr_vep3d_chunk_*: `nit` fused iterations (B8), three launches each.
+// `ptrs`: the 19 input carry canvases (CARRY order), two work sets of 19,
+//   the eta_tau scratch canvas, then the N_CONST constant sources (CONST
+//   order; null: the scalar in `vals`). Iteration j reads the input (j = 0)
+//   or work set (j - 1) % 2 and writes work set j % 2: the result is in
+//   work set (nit - 1) % 2.
+// `vals`: 1/dx, 1/dy, 1/dz, dt, r, theta_dtau, etadtau, lambda_relaxation,
+//   viscosity_relaxation, the viscosity cut-off (lo, hi), the nine plastic
+//   scalars, K, the N_CONST constant values, the power-law exponent minus
+//   one, and the flags "has a body force" and "linear creep".
+//
+// All canvases are contiguous (nx+2, ny+2, nz+2). Both launch on `stream`
+// without synchronising and return the launch error, or 0.
+extern "C" int jr_vep3d_edges_f32(const void* const* ptrs, const double* vals, int nx,
+                                  int ny, int nz, int family, void* stream) {
+  return launch_edges<float>(ptrs, vals, nx, ny, nz, family, (cudaStream_t)stream);
+}
+
+extern "C" int jr_vep3d_edges_f64(const void* const* ptrs, const double* vals, int nx,
+                                  int ny, int nz, int family, void* stream) {
+  return launch_edges<double>(ptrs, vals, nx, ny, nz, family, (cudaStream_t)stream);
+}
+
+extern "C" int jr_vep3d_chunk_f32(const void* const* ptrs, const double* vals, int nx,
+                                  int ny, int nz, int nit, void* stream) {
+  return launch_chunk<float>(ptrs, vals, nx, ny, nz, nit, (cudaStream_t)stream);
+}
+
+extern "C" int jr_vep3d_chunk_f64(const void* const* ptrs, const double* vals, int nx,
+                                  int ny, int nz, int nit, void* stream) {
+  return launch_chunk<double>(ptrs, vals, nx, ny, nz, nit, (cudaStream_t)stream);
+}
+
+extern "C" const char* jr_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

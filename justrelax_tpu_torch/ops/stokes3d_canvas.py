@@ -108,6 +108,20 @@ def _sm1(A, ax):
     return torch.roll(A, -1, dims=ax)
 
 
+def _sp1(A, ax):
+    """``A`` shifted by +1 along ``ax`` (``A[k-1]`` at ``k``, wrapping)."""
+    return torch.roll(A, 1, dims=ax)
+
+
+def _band(shape, axis, lo, hi, device=None):
+    """Boolean mask of ``shape`` that holds where the index along ``axis``
+    lies in [lo, hi], broadcastable (size 1 on the other axes)."""
+    i = torch.arange(shape[axis], device=device)
+    view = [1] * len(shape)
+    view[axis] = shape[axis]
+    return ((i >= lo) & (i <= hi)).reshape(view)
+
+
 def _edge_avg(C, ax0, ax1):
     """Cell canvas -> edge-collocated 4-point average (values land at the
     (ax0, ax1)-decremented canvas slots)."""

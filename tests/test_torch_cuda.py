@@ -8,6 +8,7 @@ and an nvcc toolchain; elsewhere they skip. Run them on the card with
 the card need not have.)
 """
 
+import dataclasses
 import itertools
 import math
 
@@ -18,6 +19,10 @@ import torch
 from chip_smoke import (
     TH_CASES,
     TOL_F32_1024,
+    TOL_VEP3D_CALL,
+    TOL_VEP3D_NOUT50,
+    VEP3D_CASES,
+    VEP3D_CHUNK_CASES,
     TOL_NOUT1,
     TOL_NOUT50,
     TOL_TH_NOUT1,
@@ -27,27 +32,43 @@ from chip_smoke import (
     VE3D_CASES,
     VE_CASES,
     chunk_case,
+    edge_args,
+    as_f64,
     f32_gaps,
+    flat_vep_carry,
+    fused_chunk,
+    hybrid_chunk,
     pallas_thermal_setup,
     rel_diffs,
+    rel_diffs_edges,
     rel_diffs_th,
     rel_diffs_ve,
     rel_diffs_ve3d,
+    rel_diffs_vep3d,
     thermal_case,
     ve3d_case,
     ve_case,
+    vep3d_case,
 )
 from justrelax_tpu_torch.core.coeffs import PTThermalCoeffs
 from justrelax_tpu_torch.core.grid import Geometry
 from justrelax_tpu_torch.core.state import ThermalState
-from justrelax_tpu_torch.models import shearband, solcx, solvi3d
+from justrelax_tpu_torch.models import shearband, shearband3d, solcx, solvi3d
 from justrelax_tpu_torch.ops import hopper_stokes as hs
 from justrelax_tpu_torch.ops import hopper_stokes3d as h3
+from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv
 from justrelax_tpu_torch.ops import hopper_thermal as ht
+from justrelax_tpu_torch.ops import hopper_vep3d_edges as he
 from justrelax_tpu_torch.ops.bc import Faces, TemperatureBoundaryConditions, thermal_bcs
 from justrelax_tpu_torch.ops.stokes3d_canvas import ve3d_canvas_coefficients
+from justrelax_tpu_torch.ops.stokes3d_vep_canvas import (
+    VEP3DCanvasCarry,
+    edge_masks,
+    vep3d_canvas_consts,
+)
 from justrelax_tpu_torch.rheology import materials as pm
+from justrelax_tpu_torch.rheology.phases import phase_ratios_from_field
 from justrelax_tpu_torch.solvers.thermal import heatdiffusion_PT
 
 pytestmark = pytest.mark.cuda
@@ -390,3 +411,250 @@ def test_thermal_kernel_every_face_combination(cuda, nx, ny):
             worst = max(worst, d)
             assert d <= TOL_TH_NOUT1, (combo, nout, d)
     assert worst <= TOL_TH_NOUT1
+
+
+# ---- the 3D VEP edge kernel (B6, and B9 per family) -------------------------
+def _edge_call(case, dtype, dev, split, fn):
+    carry, co6, co9, _, inv_di, kw = vep3d_case(case, dtype, dev)
+    args, ekw = edge_args(carry, co9 if split else co6, inv_di, kw)
+    tau, lam = fn(*args, split=split, **ekw)
+    return carry, (*tau, *lam)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["B6", "B9"])
+@pytest.mark.parametrize("case", VEP3D_CASES)
+def test_vep3d_edges_match_plain_f64(cuda, case, split):
+    """One call against the plain version (≤ 1e-12 of each field's max), the
+    launch counted on its route, and the slots a family does not own
+    bit-equal to the input."""
+    counter = "split_launches" if split else "launches"
+    before = getattr(he.vep3d_edges, counter)
+    carry, out = _edge_call(case, torch.float64, cuda, split, he.vep3d_edges)
+    assert getattr(he.vep3d_edges, counter) == before + (3 if split else 1)
+    _, ref = _edge_call(case, torch.float64, cuda, split, he.vep3d_edges_reference)
+    worst = max(rel_diffs_edges(out, ref).values())
+    assert worst <= TOL_VEP3D_CALL, (case, split, worst)
+    _, Me = edge_masks(tuple(carry.P.shape), cuda)
+    for k, (o, b) in enumerate(zip(out, (*carry.tau_e, *carry.lam_e))):
+        off = ~Me[k % 3].expand(o.shape)
+        assert torch.equal(o[off], b[off]), (case, k)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["B6", "B9"])
+@pytest.mark.parametrize("case", VEP3D_CASES)
+def test_vep3d_edges_match_plain_f32(cuda, case, split):
+    """f32: within 1e-4 of the plain version, or twice the plain version's
+    own f32 error against f64."""
+    _, out = _edge_call(case, torch.float32, cuda, split, he.vep3d_edges)
+    _, ref = _edge_call(case, torch.float32, cuda, split, he.vep3d_edges_reference)
+    _, ref64 = _edge_call(case, torch.float64, cuda, split, he.vep3d_edges_reference)
+    gap = max(rel_diffs_edges(out, ref).values())
+    p_vs_64 = max(rel_diffs_edges(tuple(x.double() for x in ref), ref64).values())
+    assert gap <= max(TOL_F32_1024, 2.0 * p_vs_64), (case, split, gap, p_vs_64)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["B6", "B9"])
+@pytest.mark.parametrize("case", ["blocked_plastic", "noncubic_near_yield",
+                                  "shearband3d_kb_inf"])
+def test_vep3d_hybrid_chunk_matches_plain(cuda, case, split):
+    """The hybrid iteration through the kernel against the same iteration
+    with the plain edge passes: 1 iteration to rounding, 50 within the
+    yield-flip gate, the plastic branch active."""
+    carry, co6, co9, material, inv_di, kw = vep3d_case(case, torch.float64, cuda)
+    co = co9 if split else co6
+    for nit, tol in ((1, TOL_VEP3D_CALL), (50, TOL_VEP3D_NOUT50)):
+        out = hybrid_chunk(carry, co, material, inv_di, kw, nit, split)
+        ref = hybrid_chunk(carry, co, material, inv_di, kw, nit, split, plain=True)
+        worst = max(rel_diffs_vep3d(out, ref).values())
+        assert worst <= tol, (case, split, nit, worst)
+    assert max(float(x.max()) for x in ref.lam_e) > 0.0
+
+
+@pytest.mark.parametrize("ni", [(5, 4, 3), (3, 7, 4), (4, 3, 9)])
+def test_vep3d_edges_random_carries_noncubic(cuda, ni):
+    """Random canvases everywhere, the ghost and padding slots included, on
+    small non-cubic grids with unequal spacings, near yield with dilatancy
+    and a tension cap: B6 and B9 against the plain version, f64, so that a
+    swapped axis, a clamp off by one or a read of a slot the plain version
+    never reads shows."""
+    gen = torch.Generator(device="cpu").manual_seed(sum(ni))
+    nx, ny, nz = ni
+    canvas = (nx + 2, ny + 2, nz + 2)
+
+    def rand(shape=canvas, scale=0.3):
+        return (scale * torch.randn(shape, generator=gen, dtype=torch.float64)).to(cuda)
+
+    common = dict(Kb=6.0, is_plastic=1.0, C=0.35, friction_angle=30.0, dilation_angle=10.0,
+                  eta_reg=1e-2, tension_pT=-0.6)
+    mat = pm.MaterialStack.make([pm.Material(G=1.0, eta0=1.0, **common),
+                                 pm.Material(G=0.6, eta0=0.2, **common)],
+                                dtype=torch.float64, device=cuda)
+    pr = phase_ratios_from_field((torch.rand(ni, generator=gen) < 0.4).long().to(cuda), 2)
+    z = torch.zeros(ni, dtype=torch.float64, device=cuda)
+    ckw = dict(tau_o_c6=tuple(rand(ni) for _ in range(6)),
+               tau_o_e3=(rand((nx, ny + 1, nz + 1)), rand((nx + 1, ny, nz + 1)),
+                         rand((nx + 1, ny + 1, nz))),
+               EII_pl=z, P0=z, Q=z, phase_ratios_center=pr.center,
+               phase_ratios_edges=(pr.edge_yz, pr.edge_xz, pr.edge_xy),
+               scalar_plastic=True, scalar_K=True)
+    dyn = ((rand(scale=1.0), rand(scale=1.0), rand(scale=1.0)), rand(scale=0.2), rand().exp(),
+           (rand(), rand(), rand()), (rand(), rand(), rand()),
+           (rand(scale=0.05).abs(), rand(scale=0.05).abs(), rand(scale=0.05).abs()))
+    kw = dict(dt=0.2, theta_dtau=0.7, lambda_relaxation=0.2)
+    inv_di = (1.0 / 0.3, 1.0 / 0.2, 1.0 / 0.45)
+    for split in (False, True):
+        co = vep3d_canvas_consts(mat, hoist_tau_o=split, **ckw)
+        out = he.vep3d_edges(*dyn, co, inv_di, split=split, **kw)
+        ref = he.vep3d_edges_reference(*dyn, co, inv_di, split=split, **kw)
+        worst = max(rel_diffs_edges((*out[0], *out[1]), (*ref[0], *ref[1])).values())
+        assert worst <= TOL_VEP3D_CALL, (ni, split, worst)
+
+
+def test_vep3d_edges_rejects_bad_inputs(cuda):
+    carry, co6, _, _, inv_di, kw = vep3d_case("blocked_plastic", torch.float64, cuda)
+    args, ekw = edge_args(carry, co6, inv_di, kw)
+    V, theta = args[0], args[1]
+    for bad in ((V[0].float(), V[1], V[2]), (V[0].transpose(0, 2).contiguous().transpose(0, 2),
+                                             V[1], V[2])):
+        with pytest.raises(ValueError):
+            he.vep3d_edges(bad, *args[1:], **ekw)
+    with pytest.raises(ValueError):  # B9 needs the hoisted interpolants
+        he.vep3d_edges(*args, split=True, **ekw)
+    with pytest.raises(ValueError):
+        he.vep3d_edges(V, theta[:-1].contiguous(), *args[2:], **ekw)
+
+
+def test_solve_vep_3d_routes_on_the_card(cuda):
+    """ShearBand3D at 8³, a fixed 200 iterations: the default route (B6),
+    "edges_split" (B9), "blocked" (B8) and "canvas" against the serial path
+    on the card; B6 launched on the default route, B9 and B8 on their own;
+    equal iteration counts, fields within 1e-9 of their max."""
+    kw = dict(n=8, nt=1, dtype=torch.float64, device=cuda, iter_max=200, nout=100)
+    he.vep3d_edges.launches = he.vep3d_edges.split_launches = 0
+    hc.stokes3d_vep_chunk.launches = 0
+    a, ia, _, _ = shearband3d.run(**kw)
+    assert he.vep3d_edges.launches > 0 and he.vep3d_edges.split_launches == 0
+    b, ib, _, _ = shearband3d.run(use_kernel="edges_split", **kw)
+    assert he.vep3d_edges.split_launches > 0 and hc.stokes3d_vep_chunk.launches == 0
+    e, ie, _, _ = shearband3d.run(use_kernel="blocked", **kw)
+    assert hc.stokes3d_vep_chunk.launches > 0
+    c, ic, _, _ = shearband3d.run(use_kernel="canvas", **kw)
+    d, id_, _, _ = shearband3d.run(use_kernel=False, **kw)
+    assert ia.iters == ib.iters == ic.iters == id_.iters == ie.iters
+    for s in (a, b, c, e):
+        for x, y in ((s.V.Vx, d.V.Vx), (s.P, d.P), (s.tau.II, d.tau.II), (s.tau.xz, d.tau.xz)):
+            assert float((x - y).abs().max()) <= 1e-9 * max(float(y.abs().max()), 1.0)
+
+
+def test_solve_vep_3d_refuses_on_the_card(cuda):
+    """On the card the default route and "blocked" (B8) raise for a material
+    the kernels do not take."""
+    from justrelax_tpu_torch.solvers.stokes3d_vep import solve_vep_3d
+
+    geometry, st, material, (pr_c, pr_e), bc, pt, dt = shearband3d._setup(6, torch.float64, cuda)
+    soft = pm.MaterialStack(params=dataclasses.replace(
+        material.params, soft_C_active=torch.ones(2, dtype=torch.float64, device=cuda)))
+    with pytest.raises(ValueError, match="canvas"):
+        solve_vep_3d(st, pt, geometry, bc, soft, pr_c, pr_e, dt, iter_max=10, nout=5)
+    with pytest.raises(ValueError, match="canvas"):
+        solve_vep_3d(st, pt, geometry, bc, soft, pr_c, pr_e, dt, use_kernel="blocked")
+
+
+@pytest.mark.slow
+def test_shearband3d_golden_f64(cuda):
+    """tests/test_shearband3d.py's goldens through the default route (B6)."""
+    he.vep3d_edges.launches = 0
+    st, info, tau, _ = shearband3d.run(n=12, nt=14, dtype=torch.float64)
+    assert he.vep3d_edges.launches > 0
+    assert abs(tau[-1] - 1.625106) <= 1e-4
+    assert abs(float(st.EII_pl.max()) - 0.3258544082022995) <= 1e-5 * 0.3258544082022995
+
+
+# ---- the fused 3D VEP chunk (B8) -------------------------------------------
+@pytest.mark.parametrize("case", VEP3D_CHUNK_CASES)
+def test_vep3d_chunk_matches_plain_f64(cuda, case):
+    """B8 against its plain version: 1 iteration to rounding, 50 within the
+    yield-flip gate; the input carry is not written."""
+    carry, co, _, _, inv_di, kw = vep3d_case(case, torch.float64, cuda)
+    before = [t.clone() for t in flat_vep_carry(carry)]
+    for nit, tol in ((1, TOL_VEP3D_CALL), (50, TOL_VEP3D_NOUT50)):
+        out = fused_chunk(carry, co, inv_di, kw, nit)
+        ref = fused_chunk(carry, co, inv_di, kw, nit, plain=True)
+        worst = max(rel_diffs_vep3d(out, ref).values())
+        assert worst <= tol, (case, nit, worst)
+    assert all(torch.equal(a, b) for a, b in zip(before, flat_vep_carry(carry)))
+    if case != "blocked_elastic":
+        assert float(ref.lam.max()) > 0.0 and max(float(x.max()) for x in ref.lam_e) > 0.0
+
+
+@pytest.mark.parametrize("case", VEP3D_CHUNK_CASES)
+def test_vep3d_chunk_matches_plain_f32(cuda, case):
+    """f32, 50 iterations: within 1e-4, or twice the plain version's own f32
+    error against f64."""
+    c32, co32, _, _, inv_di, kw32 = vep3d_case(case, torch.float32, cuda)
+    c64, co64, _, _, _, kw64 = vep3d_case(case, torch.float64, cuda)
+    out = fused_chunk(c32, co32, inv_di, kw32, 50)
+    ref = fused_chunk(c32, co32, inv_di, kw32, 50, plain=True)
+    ref64 = fused_chunk(c64, co64, inv_di, kw64, 50, plain=True)
+    gap = max(rel_diffs_vep3d(out, ref).values())
+    p32 = max(rel_diffs_vep3d(as_f64(ref), ref64).values())
+    assert gap <= max(TOL_F32_1024, 2.0 * p32), (case, gap, p32)
+
+
+@pytest.mark.parametrize("ni", [(5, 4, 3), (3, 7, 4), (4, 3, 9)])
+def test_vep3d_chunk_random_carries_noncubic(cuda, ni):
+    """Random canvases everywhere, the ghost and padding slots included, on
+    small non-cubic grids with unequal spacings, near yield with dilatancy,
+    a tension cap, buoyancy and a power-law creep table: B8 against the plain
+    chunk for 0 to 3 iterations (both work sets of the kernel), f64, so that
+    a swapped axis, a clamp off by one or a ghost the mirrors miss shows."""
+    gen = torch.Generator(device="cpu").manual_seed(7 * sum(ni))
+    nx, ny, nz = ni
+    canvas = (nx + 2, ny + 2, nz + 2)
+
+    def rand(shape=canvas, scale=0.3):
+        return (scale * torch.randn(shape, generator=gen, dtype=torch.float64)).to(cuda)
+
+    common = dict(Kb=6.0, is_plastic=1.0, C=0.35, friction_angle=30.0, dilation_angle=10.0,
+                  eta_reg=1e-2, tension_pT=-0.6, alpha=0.1, T0=0.5, beta=0.01,
+                  gravity=1.0, disl_A=0.5, disl_n=3.0)
+    mat = pm.MaterialStack.make([pm.Material(G=1.0, eta0=1.0, rho0=1.0, **common),
+                                 pm.Material(G=0.6, eta0=0.2, rho0=2.0, **common)],
+                                dtype=torch.float64, device=cuda)
+    pr = phase_ratios_from_field((torch.rand(ni, generator=gen) < 0.4).long().to(cuda), 2)
+    z = torch.zeros(ni, dtype=torch.float64, device=cuda)
+    co = vep3d_canvas_consts(
+        mat, tuple(rand(ni) for _ in range(6)),
+        (rand((nx, ny + 1, nz + 1)), rand((nx + 1, ny, nz + 1)), rand((nx + 1, ny + 1, nz))),
+        z, rand(ni, scale=0.15), z, pr.center, (pr.edge_yz, pr.edge_xz, pr.edge_xy),
+        T=0.5 + rand(ni, scale=0.1), hoist_tau_o=False, scalar_plastic=True, scalar_K=True)
+    carry = VEP3DCanvasCarry(
+        V=(rand(scale=1.0), rand(scale=1.0), rand(scale=1.0)), P=rand(scale=0.2),
+        theta=rand(scale=0.2), tau_c=tuple(rand() for _ in range(6)),
+        tau_e=tuple(rand() for _ in range(3)), eta=rand().exp(), lam=rand(scale=0.05).abs(),
+        lam_e=tuple(rand(scale=0.05).abs() for _ in range(3)))
+    kw = dict(dt=0.2, r=0.6, theta_dtau=0.7, etadtau=0.05, lambda_relaxation=0.2,
+              viscosity_relaxation=0.3, viscosity_cutoff=(0.2, 5.0))
+    inv_di = (1.0 / 0.3, 1.0 / 0.2, 1.0 / 0.45)
+    hc.stokes3d_vep_chunk.launches = 0
+    assert hc.stokes3d_vep_chunk(carry, co, inv_di, 0, **kw) is carry
+    for nit in (1, 2, 3):
+        out = fused_chunk(carry, co, inv_di, kw, nit)
+        ref = fused_chunk(carry, co, inv_di, kw, nit, plain=True)
+        worst = max(rel_diffs_vep3d(out, ref).values())
+        assert worst <= TOL_VEP3D_CALL, (ni, nit, worst)
+    assert hc.stokes3d_vep_chunk.launches == 3 * (1 + 2 + 3)
+
+
+def test_vep3d_chunk_rejects_bad_inputs(cuda):
+    carry, co, _, _, inv_di, kw = vep3d_case("blocked_plastic", torch.float64, cuda)
+    bad_dtype = carry._replace(P=carry.P.float())
+    bad_layout = carry._replace(P=carry.P.transpose(0, 2).contiguous().transpose(0, 2))
+    bad_shape = carry._replace(P=carry.P[:-1].contiguous())
+    for bad in (bad_dtype, bad_layout, bad_shape):
+        with pytest.raises(ValueError):
+            hc.stokes3d_vep_chunk(bad, co, inv_di, 1, **kw)
+    with pytest.raises(ValueError):   # plastic parameters as canvases
+        hc.stokes3d_vep_chunk(carry, co._replace(params=co.params._replace(
+            ppc=type(co.params.ppc)(*(torch.full_like(carry.P, float(v))
+                                      for v in co.params.ppc)))), inv_di, 1, **kw)

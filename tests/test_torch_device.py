@@ -17,6 +17,7 @@ from justrelax_tpu_torch.models import (
     diffusion2d,
     elastic_buildup,
     shearband,
+    shearband3d,
     solcx,
     solkz,
     solvi3d,
@@ -26,6 +27,7 @@ from justrelax_tpu_torch.ops import hopper_stokes as hs
 from justrelax_tpu_torch.ops import hopper_stokes3d as h3
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv
 from justrelax_tpu_torch.ops import hopper_thermal as ht
+from justrelax_tpu_torch.ops import hopper_vep3d_edges as he
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack
 
 torch.set_num_threads(1)
@@ -65,9 +67,14 @@ def test_resolve_device():
     lambda: solvi3d.run(nx=8, ny=8, nz=8, iter_max=10, nout=5),
     lambda: burstedde.run(nx=8, ny=8, nz=8, iter_max=10, nout=5),
     lambda: taylor_green.run(n=8, iter_max=10, nout=5),
+    lambda: shearband3d.run(n=6, nt=1, iter_max=10, nout=5),
+    lambda: shearband3d.run_multi(n=6, nt=1, iter_max=10, nout=5),
+    lambda: convert.phase_ratios_from_dict({"center": [[[0.0, 1.0]]], "vertex": [0.0],
+                                            "face_x": [0.0], "face_y": [0.0]}),
 ], ids=["StokesState", "MaterialStack", "convert", "shearband", "softening", "dpcap",
         "solcx", "solkz", "elastic_buildup", "ThermalState", "diffusion2d", "blankenbach",
-        "StokesState3d", "solvi3d", "burstedde", "taylor_green"])
+        "StokesState3d", "solvi3d", "burstedde", "taylor_green", "shearband3d",
+        "shearband3d_multi", "phase_ratios"])
 def test_entry_points_raise_without_a_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
@@ -80,6 +87,13 @@ def test_use_kernel_resolution():
         assert resolve_use_kernel(v, cpu) == v
     with pytest.raises(ValueError, match="use_kernel"):
         resolve_use_kernel("edges", cpu)
+    # each solver passes the values it admits
+    routes = (False, True, "edges", "edges_split", "canvas", "blocked")
+    for v in routes:
+        assert resolve_use_kernel(v, cpu, allowed=routes) == v
+    assert resolve_use_kernel(None, cpu, allowed=routes) is False
+    with pytest.raises(ValueError, match="'edges_split'"):
+        resolve_use_kernel("fused", cpu, allowed=routes)
 
 
 def test_default_path_on_cpu_is_plain():
@@ -133,3 +147,15 @@ def test_default_3d_path_on_cpu_is_plain():
     assert h3.stokes3d_chunk.launches == 0
     assert not torch.equal(c.R.RP, a.R.RP)  # post-update residuals
     assert float((c.V.Vx - a.V.Vx).abs().max()) <= 1e-12 * float(a.V.Vx.abs().max())
+
+
+def test_default_3d_vep_path_on_cpu_is_plain():
+    """shearband3d with no use_kernel on CPU tensors runs the serial path:
+    no edge-kernel launch, and the same result as ``use_kernel=False``."""
+    he.vep3d_edges.launches = he.vep3d_edges.split_launches = 0
+    kw = dict(n=6, nt=1, iter_max=20, nout=10, device="cpu")
+    a, ia, ta, _ = shearband3d.run(**kw)
+    b, ib, tb, _ = shearband3d.run(use_kernel=False, **kw)
+    assert he.vep3d_edges.launches == he.vep3d_edges.split_launches == 0
+    assert ia.iters == ib.iters and ta == tb
+    assert torch.equal(a.V.Vx, b.V.Vx) and torch.equal(a.tau.xz, b.tau.xz)
