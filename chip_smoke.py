@@ -6,12 +6,13 @@
 Run from the root of a checkout. Phases, each printing JSON lines:
 
 0. device   : the card's name and power limit (nvidia-smi).
-1. build    : nvcc builds the five Hopper kernel libraries from
+1. build    : nvcc builds the six Hopper kernel libraries from
               justrelax_tpu_torch/csrc, one nvcc per source, side by side
               (lines "build" for stokes_vep.cu, "build_ve" for stokes_ve.cu,
               "build_thermal" for thermal.cu, "build_ve3d" for
-              stokes3d_ve.cu and "build_vep3d" for stokes3d_vep.cu, the 3D
-              VEP edge passes and the fused 3D VEP chunk).
+              stokes3d_ve.cu, "build_vep3d" for stokes3d_vep.cu, the 3D
+              VEP edge passes and the fused 3D VEP chunk, and
+              "build_window_copy" for window_copy.cu).
 2. parity   : the VEP chunk kernel against its plain PyTorch version on the
               card, f64, n=64, nout 1 and 50, in four configurations.
 3. golden   : shearband.run(n=32, nt=10, f64) through the kernel against the
@@ -21,7 +22,11 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               200 iterations kernel vs plain from that step's initial state
               and from a state with old stresses near yield.
 5. timing   : per-iteration time of kernel and plain version at 1024^2 f32
-              from both states, by CUDA events.
+              from both states, by CUDA events, beside the bound from the
+              words those inputs need (vep_chunk_words) and bench_kernels'
+              39; then the split of phase 4's wall time (the chunk calls,
+              timed by CUDA events around them; the chunk-final plain
+              iterations; the rest).
 6. parity_ve: the VE chunk kernel against its plain version, f64, n=64,
               nout 1 and 500, in three configurations (SolCx viscous limit,
               VE compressible, elastic build-up).
@@ -33,7 +38,9 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               launch count read around it; then 200 iterations kernel vs
               plain from its initial state.
 9. timing_ve: per-iteration time of the VE kernel and its plain version at
-              1024^2 f32, by CUDA events.
+              1024^2 f32, by CUDA events, beside the bound from the words
+              its inputs need (ve_chunk_words) and bench_kernels' 23; then
+              the split of phase 8's wall time.
 10. parity_thermal: the thermal chunk kernel against its plain version, f64,
               n=64, nout 1 and 500, in three configurations (the set-up of
               tests/test_pallas_thermal.py with H and adiabatic; constant
@@ -111,10 +118,20 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               f64.
 24. timing_vep3d_chunk: B8 per iteration in phase 21's set-up, beside the
               hybrid and the plain canvas iteration.
+25. window_copy: R, the 2D dynamic-window copy: the port's repro script
+              (justrelax_tpu_torch/scripts/repro_2d_dma.py) in its three
+              modes through the kernel, with the launch count read around
+              it; the kernel against its plain version, bit for bit, in each
+              mode; the kernel, the plain version and the one indexing call
+              that computes the same copy, timed by CUDA events.
+26. launches_per_iteration: the CUDA launches each kernel makes per PT
+              iteration, counted by torch.profiler.
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
-the run's own inputs (ve3d_words for the 3D VE kernel, vep3d_edges_words
-for the edge kernel, vep3d_chunk_words for the fused 3D VEP chunk).
+the run's own inputs (hopper_stokes_vep.vep_chunk_words and
+hopper_stokes.ve_chunk_words for the 2D chunks, ve3d_words for the 3D VE
+kernel, vep3d_edges_words for the edge kernel, vep3d_chunk_words for the
+fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
@@ -123,7 +140,9 @@ printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import itertools
 import json
 import math
 import os
@@ -161,6 +180,7 @@ from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_thermal as ht  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_vep3d_edges as he  # noqa: E402
+from justrelax_tpu_torch.ops import hopper_window_copy as hw  # noqa: E402
 from justrelax_tpu_torch.ops.bc import (  # noqa: E402
     Faces,
     TemperatureBoundaryConditions,
@@ -168,6 +188,8 @@ from justrelax_tpu_torch.ops.bc import (  # noqa: E402
     flow_bcs,
     thermal_bcs,
 )
+from justrelax_tpu_torch.solvers import stokes2d as solver_ve  # noqa: E402
+from justrelax_tpu_torch.solvers import stokes2d_vep as solver_vep  # noqa: E402
 from justrelax_tpu_torch.solvers.stokes3d import kernel_chunk_inputs  # noqa: E402
 from justrelax_tpu_torch.solvers.thermal import heatdiffusion_PT  # noqa: E402
 from justrelax_tpu_torch.ops.stencil import av_vertex_to_center, expand_edges, maxloc  # noqa: E402
@@ -183,6 +205,7 @@ from justrelax_tpu_torch.rheology.phases import phase_ratios_from_field  # noqa:
 from justrelax_tpu_torch.solvers.stokes3d_vep import canvas_chunk_inputs, solve_vep_3d  # noqa: E402
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack  # noqa: E402
 from justrelax_tpu_torch.rheology.viscosity import phase_viscosity  # noqa: E402
+from justrelax_tpu_torch.scripts import repro_2d_dma  # noqa: E402
 
 FIELDS = ("Vx", "Vy", "theta", "P", "txx", "tyy", "txy_c", "txy_v", "eta",
           "eta_v", "lam", "lam_v")
@@ -423,6 +446,96 @@ def ve_case(name, n, dtype, dev):
     return args, phys
 
 
+# ---- random states on any grid, for the tiled 2D chunk kernels -------------
+FACE_NAMES = ("left", "right", "bot", "top")
+FACE_MODES = tuple(itertools.product(("free_slip", "no_slip"), repeat=4))
+
+
+def vep_random_case(ni, modes, dtype, dev, vary=True, seed=0):
+    """Inputs of one ``stokes_vep_chunk`` call on an ``(nx, ny)`` grid from
+    a numpy seed: (args, kwargs). The state is random, ghosts included, with
+    stresses around the yield stress; ``modes`` gives the faces (left,
+    right, bot, top), each "free_slip" or "no_slip". ``vary`` draws a second
+    phase with other moduli, plastic parameters (a tension cap among them)
+    and creep, and random old stresses and plastic strain, so every slot
+    family varies; otherwise both phases are one material and the old
+    stresses are uniform, so nearly every slot is a scalar."""
+    nx, ny = ni
+    rng = np.random.default_rng(seed)
+    kw = dict(dtype=dtype, device=dev)
+    geometry = Geometry(ni, (1.0, ny / nx))
+    xci, xvi = geometry.xci, geometry.xvi
+    origin, radius = (0.5, 0.5 * ny / nx), 0.3 * min(1.0, ny / nx)
+    pr_c = torch.as_tensor(_circle_phase_ratios(xci[0], xci[1], origin, radius), **kw)
+    pr_v = torch.as_tensor(_circle_phase_ratios(xvi[0], xvi[1], origin, radius), **kw)
+    C = 1.6 / math.cos(math.radians(30.0))
+    base = dict(rho0=0.0, Kb=4.0, eta0=1.0, G=1.0, is_plastic=1.0, C=C,
+                friction_angle=30.0, eta_reg=8e-3)
+    other = (dict(base, G=0.5, Kb=3.0, eta0=2.0, C=0.8 * C, friction_angle=25.0,
+                  dilation_angle=5.0, eta_reg=1e-2, tension_pT=-0.5) if vary else base)
+    material = MaterialStack.make([Material(**base), Material(**other)], **kw)
+    c, v = (nx, ny), (nx + 1, ny + 1)
+
+    def r(shape, scale, mean=0.0):
+        return torch.as_tensor(mean + scale * rng.standard_normal(shape), **kw)
+
+    Vx, Vy = r((nx + 1, ny + 2), 1.0), r((nx + 2, ny + 1), 1.0)
+    tau = (r(c, 0.3, 1.6), r(c, 0.3, -1.6), r(c, 0.3, 1.0), r(v, 0.3, 1.0))
+    zc, zv = torch.zeros(c, **kw), torch.zeros(v, **kw)
+    tau_o = ((r(c, 0.3, 1.6), r(c, 0.3, -1.6), r(c, 0.3, 1.0), r(v, 0.3, 1.0)) if vary
+             else (zc + 1.6, zc - 1.6, zc + 1.0, zv + 1.0))
+    eta = torch.exp(r(c, 0.2))
+    eta_v = torch.exp(r(v, 0.2))
+    lam, lam_v = r(c, 0.01).abs(), r(v, 0.01).abs()
+    P = r(c, 0.3)
+    EII = r(c, 1e-3).abs() if vary else zc + 1e-3
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=0.75 / math.sqrt(2.1))
+    bc = VelocityBoundaryConditions(
+        free_slip=Faces(**{f: m == "free_slip" for f, m in zip(FACE_NAMES, modes)}),
+        no_slip=Faces(**{f: m == "no_slip" for f, m in zip(FACE_NAMES, modes)}))
+    args = (Vx, Vy, P, P, *tau, eta, eta_v, lam, lam_v,
+            P, zc, *tau_o, EII, material, pr_c, pr_v, None,
+            0.25, 1.0 / geometry.di[0], 1.0 / geometry.di[1], pt.r, pt.theta_dtau,
+            pt.etadtau, 0.2, 0.5, (1e-3, 1e3))
+    return args, dict(flow_bc=bc)
+
+
+def ve_random_case(ni, dtype, dev, vary=True, seed=0):
+    """Inputs of one ``stokes_chunk`` call on an ``(nx, ny)`` grid from a
+    numpy seed: (args, physics), a random state with ghosts. ``vary`` draws
+    every input at random (G, K, P0, Q, the old stresses, ρg) with an η_τ
+    that is not maxloc(η), so the kernel reads it; otherwise η is uniform,
+    η_τ = maxloc(η) and the physics is the viscous limit (G = K = ∞), so
+    every slot is a scalar or derived."""
+    nx, ny = ni
+    rng = np.random.default_rng(seed)
+    kw = dict(dtype=dtype, device=dev)
+    c, v = (nx, ny), (nx + 1, ny + 1)
+
+    def r(shape, scale, mean=0.0):
+        return torch.as_tensor(mean + scale * rng.standard_normal(shape), **kw)
+
+    geometry = Geometry(ni, (1.0, ny / nx))
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=1.0 / math.sqrt(2.1))
+    carry = (r((nx + 1, ny + 2), 1.0), r((nx + 2, ny + 1), 1.0),
+             r(c, 0.1), r(c, 0.1), r(c, 0.1), r(v, 0.1))
+    if vary:
+        eta = torch.exp(r(c, 0.5))
+        eta_tau = maxloc(eta, 1) * 1.25
+        rho_g = (r(c, 0.3), r(c, 0.2, 1.0))
+        phys = dict(G=torch.exp(r(c, 0.1, 1.0)), K=torch.exp(r(c, 0.1, 2.0)),
+                    P0=r(c, 0.1), Q=r(c, 0.05),
+                    tau_o=(r(c, 0.1), r(c, 0.1), r(v, 0.1)), dt=0.5)
+    else:
+        eta = torch.full(c, 2.0, **kw)
+        eta_tau = maxloc(eta, 1)
+        rho_g = (torch.zeros(c, **kw), torch.ones(c, **kw))
+        phys = {}
+    args = carry + (eta, eta_tau, *rho_g, 1.0 / geometry.di[0], 1.0 / geometry.di[1],
+                    pt.r, pt.theta_dtau, pt.etadtau)
+    return args, phys
+
+
 # ---- the three configurations of the 3D VE parity phase --------------------
 def ve3d_numpy(name, ni):
     """numpy inputs of one 3D chunk call at ``ni`` cells, from a seed:
@@ -579,6 +692,35 @@ def cuda_time_ms(fn, repeats=5):
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def timed_calls(module, name):
+    """``module.name`` wrapped so that CUDA events bracket each call on the
+    current stream (the wrapper's set-up, its host reads and its kernel
+    launches); yields the list of (start, end) events."""
+    fn = getattr(module, name)
+    pairs = []
+
+    def shim(*args, **kwargs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kwargs)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    setattr(module, name, shim)
+    try:
+        yield pairs
+    finally:
+        setattr(module, name, fn)
+
+
+def events_s(pairs):
+    """Seconds between each (start, end) event pair, summed."""
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) * 1e-3
+
+
 def chunk_inputs_from_state(st, material, pr_c, pr_v, geometry, pt, dt):
     """Chunk inputs at the start of a solve from ``st`` (solve_vep's entry)."""
     z = torch.zeros_like
@@ -613,12 +755,13 @@ def main():
         path = _cuda_build.build_library(source)
         return path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=5) as pool:
-        builds = list(pool.map(build, (hv.SOURCE, hs.SOURCE, ht.SOURCE, h3.SOURCE, he.SOURCE)))
-    for mod in (hv, hs, ht, h3, he):
+    mods = (hv, hs, ht, h3, he, hw)
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        builds = list(pool.map(build, [mod.SOURCE for mod in mods]))
+    for mod in mods:
         mod._library()
     for phase, (lib_path, build_s) in zip(("build", "build_ve", "build_thermal", "build_ve3d",
-                                           "build_vep3d"), builds):
+                                           "build_vep3d", "build_window_copy"), builds):
         log = lib_path.with_suffix(".log")
         ptxas = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
                  if "registers" in ln or "spill" in ln]
@@ -664,11 +807,13 @@ def main():
     hv.stokes_vep_chunk.launches = hs.stokes_chunk.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st, info, _, _, tII = shearband.run(
-        n=n, nt=1, dtype=torch.float32, use_kernel=True, device=dev,
-        iter_max=40_000, nout=1_000)
+    with timed_calls(solver_vep, "stokes_vep_chunk") as calls:
+        st, info, _, _, tII = shearband.run(
+            n=n, nt=1, dtype=torch.float32, use_kernel=True, device=dev,
+            iter_max=40_000, nout=1_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    chunk_calls_s = events_s(calls)
     main_launches = hv.stokes_vep_chunk.launches
     finite = all(bool(torch.isfinite(t).all()) for t in (
         st.V.Vx, st.V.Vy, st.P, st.tau.xx, st.tau.yy, st.tau.xy, st.tau.II,
@@ -708,8 +853,9 @@ def main():
     nk, npl = 500, 20
     kind = "PCIe" if "PCIe" in name else "SXM"
     bytes_iter = WORDS_VEP * n * n * 4
-    times = {}
+    times, words = {}, {}
     for label, (args, kw) in states.items():
+        words[label] = hv.vep_chunk_words(*args, **kw)
         tk1 = cuda_time_ms(lambda: hv.stokes_vep_chunk(*args, nout=nk, **kw)) / nk
         tp1 = cuda_time_ms(lambda: hv.stokes_vep_chunk_reference(*args, nout=npl, **kw)) / npl
         tp2 = cuda_time_ms(lambda: hv.stokes_vep_chunk_reference(*args, nout=npl, **kw)) / npl
@@ -717,12 +863,24 @@ def main():
         t_k, t_p = min(tk1, tk2), min(tp1, tp2)
         t_eff = bytes_iter / (t_k * 1e-3)
         times[label] = (t_k, t_p)
+        bound = bound_ms(words[label], n * n, 4, kind)
         emit("timing", state=label, n=n, dtype="float32", kernel_ms_per_iter=[tk1, tk2],
-             plain_ms_per_iter=[tp1, tp2], T_eff_GBs=t_eff / 1e9,
-             hbm_peak_GBs=HBM_PEAK[kind] / 1e9, hbm_share=t_eff / HBM_PEAK[kind],
-             plain_over_kernel=t_p / t_k, nvidia_smi=smi)
+             plain_ms_per_iter=[tp1, tp2], words=words[label], bound_ms=bound,
+             bound_share=bound / t_k, bound_ms_39_words=bound_ms(WORDS_VEP, n * n, 4, kind),
+             T_eff_39_words_GBs=t_eff / 1e9, hbm_peak_GBs=HBM_PEAK[kind] / 1e9,
+             hbm_share_39_words=t_eff / HBM_PEAK[kind], plain_over_kernel=t_p / t_k,
+             nvidia_smi=smi)
     hv.stokes_vep_chunk.launches = saved  # comparison launches do not count
     t_k, t_p = times["initial"]
+    # the step's wall time: the chunk calls (nout - 1 kernel iterations each
+    # and the wrapper's invariant stacks), measured by CUDA events around
+    # them; the chunk-final iteration of each chunk on the plain path, from
+    # the plain version's time above; the rest (the model's set-up,
+    # residuals, host reads)
+    plain_s = main_launches * t_p * 1e-3
+    emit("main_path_split", n=n, wall_s=wall, iters=int(info.iters), chunks=main_launches,
+         chunk_calls_s=chunk_calls_s, kernel_iterations_s=(int(info.iters) - main_launches) * t_k
+         * 1e-3, chunk_final_plain_s=plain_s, rest_s=wall - chunk_calls_s - plain_s)
     vep_line = {
         "name": "stokes_vep_chunk",
         "route": "cuda",
@@ -735,9 +893,12 @@ def main():
         "max_rel_diff_f32_1024": worst32,
         "ms": t_k,
         "plain_ms": t_p,
-        "bound_ms": bound_ms(WORDS_VEP, n * n, 4, kind),
+        "bound_ms": bound_ms(words["initial"], n * n, 4, kind),
         "bound_by": "bytes",
         "library_ms": None,
+        "words": words["initial"],
+        "bound_ms_39_words": bound_ms(WORDS_VEP, n * n, 4, kind),
+        "near_yield_ms": times["near_yield"][0],
     }
 
     ve_line = run_ve(dev, smi, kind)
@@ -745,8 +906,12 @@ def main():
     ve3d_line = run_ve3d(dev, smi, kind)
     b6_line, b9_line, bench, tau_edges = run_vep3d(dev, smi, kind)
     b8_line = run_vep3d_chunk(dev, smi, kind, bench, tau_edges)
-    print(json.dumps({"kernels": [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line,
-                                  b8_line]}), flush=True)
+    r_line = run_window_copy(dev, smi, kind)
+    lines = [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line, b8_line, r_line]
+    per_iter = launches_per_iteration(dev)
+    for line in lines:
+        line["launches_per_iteration"] = per_iter[line["name"]]
+    print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
@@ -810,9 +975,12 @@ def run_ve(dev, smi, kind):
     hs.stokes_chunk.launches = hv.stokes_vep_chunk.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, st, info, _ = solcx.run(nx=n, ny=n, dtype=torch.float32, iter_max=20_000, nout=1_000)
+    with timed_calls(solver_ve, "stokes_chunk") as calls:
+        _, st, info, _ = solcx.run(nx=n, ny=n, dtype=torch.float32, iter_max=20_000,
+                                   nout=1_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    chunk_calls_s = events_s(calls)
     main_launches = hs.stokes_chunk.launches
     check(st.P.device.type == "cuda", "main path VE: the default device is not the card")
     finite = all(bool(torch.isfinite(t).all()) for t in (
@@ -847,12 +1015,19 @@ def run_ve(dev, smi, kind):
     hs.stokes_chunk.launches = saved  # comparison launches do not count
     t_k, t_p = min(tk1, tk2), min(tp1, tp2)
     t_eff = WORDS_VE * n * n * 4 / (t_k * 1e-3)
-    bound = bound_ms(WORDS_VE, n * n, 4, kind)
+    words = hs.ve_chunk_words(*args, **kw)
+    bound = bound_ms(words, n * n, 4, kind)
     emit("timing_ve", n=n, dtype="float32", kernel_ms_per_iter=[tk1, tk2],
-         plain_ms_per_iter=[tp1, tp2], T_eff_GBs=t_eff / 1e9,
-         hbm_peak_GBs=HBM_PEAK[kind] / 1e9, hbm_share=t_eff / HBM_PEAK[kind],
-         bound_ms=bound, bound_share=bound / t_k, plain_over_kernel=t_p / t_k,
-         nvidia_smi=smi)
+         plain_ms_per_iter=[tp1, tp2], words=words, bound_ms=bound, bound_share=bound / t_k,
+         bound_ms_23_words=bound_ms(WORDS_VE, n * n, 4, kind), T_eff_23_words_GBs=t_eff / 1e9,
+         hbm_peak_GBs=HBM_PEAK[kind] / 1e9, hbm_share_23_words=t_eff / HBM_PEAK[kind],
+         plain_over_kernel=t_p / t_k, nvidia_smi=smi)
+    # the solve's wall time: the chunk calls (every iteration in the kernel,
+    # and the wrapper's invariant stacks), measured by CUDA events around
+    # them; the rest (the model's set-up, residuals, host reads)
+    emit("main_path_ve_split", n=n, wall_s=wall, iters=int(info.iters), chunks=main_launches,
+         chunk_calls_s=chunk_calls_s, kernel_iterations_s=int(info.iters) * t_k * 1e-3,
+         rest_s=wall - chunk_calls_s)
     return {
         "name": "stokes_chunk",
         "route": "cuda",
@@ -868,6 +1043,8 @@ def run_ve(dev, smi, kind):
         "bound_ms": bound,
         "bound_by": "bytes",
         "library_ms": None,
+        "words": words,
+        "bound_ms_23_words": bound_ms(WORDS_VE, n * n, 4, kind),
     }
 
 
@@ -1816,14 +1993,27 @@ def counts():
             "stokes3d_chunk": h3.stokes3d_chunk.launches,
             "vep3d_edges": he.vep3d_edges.launches,
             "vep3d_edges_split": he.vep3d_edges.split_launches,
-            "stokes3d_vep_chunk": hc.stokes3d_vep_chunk.launches}
+            "stokes3d_vep_chunk": hc.stokes3d_vep_chunk.launches,
+            "window_copy": hw.window_copy.launches}
 
 
 def reset_counts():
     hv.stokes_vep_chunk.launches = hs.stokes_chunk.launches = 0
     ht.thermal_chunk.launches = h3.stokes3d_chunk.launches = 0
     he.vep3d_edges.launches = he.vep3d_edges.split_launches = 0
-    hc.stokes3d_vep_chunk.launches = 0
+    hc.stokes3d_vep_chunk.launches = hw.window_copy.launches = 0
+
+
+def restore_counts(saved):
+    """Set every launch counter back to ``counts()``'s ``saved``."""
+    hv.stokes_vep_chunk.launches = saved["stokes_vep_chunk"]
+    hs.stokes_chunk.launches = saved["stokes_chunk"]
+    ht.thermal_chunk.launches = saved["thermal_chunk"]
+    h3.stokes3d_chunk.launches = saved["stokes3d_chunk"]
+    he.vep3d_edges.launches = saved["vep3d_edges"]
+    he.vep3d_edges.split_launches = saved["vep3d_edges_split"]
+    hc.stokes3d_vep_chunk.launches = saved["stokes3d_vep_chunk"]
+    hw.window_copy.launches = saved["window_copy"]
 
 
 def as_f64(c: VEP3DCanvasCarry):
@@ -1995,6 +2185,120 @@ def run_vep3d_chunk(dev, smi, kind, bench, tau_edges):
         "bench_bound_ms": bound,
         "bench_words": words,
     }
+
+
+def run_window_copy(dev, smi, kind):
+    """Phase 25, R: the 2D dynamic-window copy; returns its entry of the
+    kernels line."""
+    # ---- 25. the port's repro script in each mode, through the kernel
+    reset_counts()
+    t0 = time.perf_counter()
+    sums = {}
+    for mode in hw.MODES:
+        out = repro_2d_dma.main([mode])
+        check(bool(np.isfinite(out).all()), f"window_copy {mode}: non-finite values")
+        sums[mode] = float(out.sum())
+    main_launches = hw.window_copy.launches
+    emit("main_path_window_copy", sums=sums, launches=main_launches,
+         seconds=time.perf_counter() - t0)
+    check(main_launches == 3 * len(hw.MODES), "window_copy: the kernel was not launched")
+
+    # kernel against plain, bit for bit, on the script's input and a random
+    # one; the kernel, the plain version and the one indexing call timed
+    N, X, Y, Z = repro_2d_dma.N, repro_2d_dma.X, repro_2d_dma.Y, repro_2d_dma.Z
+    geom = dict(W=repro_2d_dma.W, Wy=repro_2d_dma.Wy, R=repro_2d_dma.R, Ry=repro_2d_dma.Ry)
+    ramp = (torch.arange(N * X * Y * Z, dtype=torch.float32, device=dev)
+            .reshape(N, X, Y, Z) / 1e6)
+    noise = torch.as_tensor(np.random.default_rng(17).standard_normal((N, X, Y, Z)),
+                            dtype=torch.float32, device=dev)
+    worst_abs, per_mode = 0.0, {}
+    for mode in hw.MODES:
+        for src in (ramp, noise):
+            out = hw.window_copy(src, mode, **geom)
+            ref = hw.window_copy_reference(src, mode, **geom)
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"window_copy {mode}: kernel differs from plain")
+            worst_abs = max(worst_abs, float((out - ref).abs().max()))
+        xi, yi = hw.window_indices(X, Y, mode, **geom, device=dev)
+        reps = 100
+
+        def loop(fn):
+            return lambda: [fn() for _ in range(reps)]
+
+        tk = cuda_time_ms(loop(lambda: hw.window_copy(ramp, mode, **geom))) / reps
+        tp = cuda_time_ms(loop(lambda: hw.window_copy_reference(ramp, mode, **geom))) / reps
+        tl = cuda_time_ms(loop(lambda: ramp[0][xi[:, None], yi[None, :]])) / reps
+        per_mode[mode] = dict(ms=tk, plain_ms=tp, library_ms=tl)
+    hw.window_copy.launches = main_launches  # comparison launches do not count
+    # each output word written once and read once from the source
+    bound = 2 * X * Y * Z * 4 / HBM_PEAK[kind] * 1e3
+    emit("window_copy", max_abs_err=worst_abs, bound_ms=bound, per_mode=per_mode,
+         nvidia_smi=smi)
+    return {
+        "name": "window_copy",
+        "route": "cuda",
+        "source": "justrelax_tpu_torch/csrc/window_copy.cu",
+        "replaces": "scripts/repro_2d_dma.py:55 (R kern, defined at :27)",
+        "launches": main_launches,
+        "max_abs_err": worst_abs,
+        "ms": per_mode["2d"]["ms"],
+        "plain_ms": per_mode["2d"]["plain_ms"],
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": per_mode["2d"]["library_ms"],
+        "per_mode": per_mode,
+    }
+
+
+def kernel_launches(fn):
+    """How many kernels of the port's CUDA sources ``fn()`` launches, from
+    ``torch.profiler``; ``None`` if the profiler recorded no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    if sum(e.count for e in events) == 0:
+        return None
+    return sum(e.count for e in events if "(anonymous namespace)::k_" in e.key)
+
+
+def launches_per_iteration(dev):
+    """Phase 26: the CUDA launches each kernel makes per PT iteration (per
+    call for B6/B9 inside a hybrid iteration, and for R), counted by the
+    profiler over a few iterations of small inputs. Launch counters are
+    restored."""
+    nit = 4
+    saved = counts()
+    f32 = torch.float32
+    vep_args, vep_kw = chunk_case("shearband", 64, f32, dev)
+    ve_args, ve_kw = ve_case("solcx", 64, f32, dev)
+    th_args, th_kw = thermal_case("pallas_setup", 64, f32, dev)
+    carry3, co3, inv3, fs3, _ = ve3d_case("viscous", (32, 32, 32), f32, dev)
+    c, co6, co9, mat, inv_di, kw = vep3d_case("blocked_plastic", f32, dev)
+    src = torch.zeros((4, 64, 64, 128), dtype=f32, device=dev)
+    runs = {
+        "stokes_vep_chunk": (lambda: hv.stokes_vep_chunk(*vep_args, nout=nit, **vep_kw), nit),
+        "stokes_chunk": (lambda: hs.stokes_chunk(*ve_args, nout=nit, **ve_kw), nit),
+        "thermal_chunk": (lambda: ht.thermal_chunk(*th_args, nout=nit, **th_kw), nit),
+        "stokes3d_chunk": (lambda: h3.stokes3d_chunk(carry3, co3, inv3, nit, free_slip=fs3), nit),
+        "vep3d_edges": (lambda: hybrid_chunk(c, co6, mat, inv_di, kw, nit, False), nit),
+        "vep3d_edges_split": (lambda: hybrid_chunk(c, co9, mat, inv_di, kw, nit, True), nit),
+        "stokes3d_vep_chunk": (lambda: fused_chunk(c, co6, inv_di, kw, nit), nit),
+        "window_copy": (lambda: hw.window_copy(src), 1),
+    }
+    out = {}
+    for name, (fn, per) in runs.items():
+        n = kernel_launches(fn)
+        out[name] = None if n is None else n / per
+    restore_counts(saved)
+    emit("launches_per_iteration", **out)
+    for name in ("stokes_vep_chunk", "stokes_chunk"):
+        check(out[name] in (None, 1.0), f"{name}: {out[name]} launches per iteration")
+    return out
 
 
 if __name__ == "__main__":

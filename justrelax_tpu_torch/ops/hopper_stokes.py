@@ -10,8 +10,9 @@ velocity update → free-slip ghosts.
 - ``stokes_chunk`` is the wrapper. On CUDA tensors it launches the kernel of
   ``csrc/stokes_ve.cu`` (built with ``nvcc`` at first use by
   ``ops/_cuda_build.py`` and loaded with ``ctypes``) or raises; on CPU
-  tensors it runs the plain version. ``stokes_chunk.launches`` counts kernel
-  launches (one per chunk).
+  tensors it runs the plain version. ``stokes_chunk.launches`` counts its
+  calls that launch the kernel (one launch per PT iteration, ``nout`` per
+  call; two alternating work sets, so the input carry is never written).
 - ``stokes_chunk_reference`` is the plain version: the array-path iteration
   ``nout`` times.
 - ``_ve_prepare`` builds the chunk-invariant cell and vertex stacks once per
@@ -19,6 +20,10 @@ velocity update → free-slip ghosts.
   path computes every iteration from its inputs (1/(K dt), 1/(G dt), Q/dt and
   the vertex averages of η and G), so the kernel keeps the array path's
   operation order rather than B1's coefficient form (c1, c2, c3, a, b, d).
+  The kernel gets them packed (``ops/slots.py``: uniform slots as scalars),
+  and derives ``eta_v`` and ``eta_tau`` from ``eta`` where that gives the
+  stack's own values. ``ve_chunk_words`` counts the words per cell an
+  iteration must move on given inputs.
 
 The TPU kernels' VMEM residency switch (``VMEM_BUDGET``,
 ``vmem_bytes_needed``, ``choose_blocking``) has no counterpart: on the card
@@ -35,12 +40,14 @@ import torch
 
 from justrelax_tpu_torch.ops._cuda_build import CSRC, load_library
 from justrelax_tpu_torch.ops.bc import Faces, VelocityBoundaryConditions
-from justrelax_tpu_torch.ops.stencil import av_a
+from justrelax_tpu_torch.ops.slots import derive_slots, pack_slots
+from justrelax_tpu_torch.ops.stencil import av_a, maxloc
 from justrelax_tpu_torch.ops.stokes import ve_iteration
 
 __all__ = [
     "ve_chunk_unsupported",
     "ve_chunk_supported",
+    "ve_chunk_words",
     "stokes_chunk",
     "stokes_chunk_reference",
 ]
@@ -125,6 +132,38 @@ def _ve_prepare(eta, eta_tau, rho_gx, rho_gy, G, K, P0, Q, tau_o, dt, dtype):
             stack(verts, VERTEX_SLOTS, (nx + 1, ny + 1)))
 
 
+def _invariant_slots(P, txy, eta, eta_tau, rho_gx, rho_gy, G, K, P0, Q, tau_o, dt):
+    """``_ve_prepare``'s stacks in the dtype of ``P``, packed (``ops/slots.py``:
+    uniform slots as scalars), with ``eta_tau`` and ``eta_v`` marked
+    ``DERIVED`` where the kernel computes them from ``eta`` bit for bit: the
+    ``eta_v`` slot is always ``av_a(eta)`` on the interior vertices (the
+    only ones read), and ``eta_tau`` is derived when it equals
+    ``maxloc(eta, 1)``. Both are checked on the stacks with one host read."""
+    G, K, P0, Q, tau_o, dt = _ve_inputs(P, txy, G, K, P0, Q, tau_o, dt)
+    cinv, vinv = _ve_prepare(eta, eta_tau, rho_gx, rho_gy, G, K, P0, Q, tau_o, dt, P.dtype)
+    e, et, ev = cinv[CELL_SLOTS.index("eta")], cinv[CELL_SLOTS.index("eta_tau")], vinv[0]
+    same_et, same_ev = torch.stack([
+        (et == maxloc(e, 1)).all(), (ev[1:-1, 1:-1] == av_a(e)).all()]).tolist()
+    pc, pv = pack_slots(cinv), pack_slots(vinv)
+    pc = derive_slots(pc, [CELL_SLOTS.index("eta_tau")] if same_et else [])
+    pv = derive_slots(pv, [VERTEX_SLOTS.index("eta_v")] if same_ev else [])
+    return pc, pv
+
+
+def ve_chunk_words(
+    Vx, Vy, P, txx, tyy, txy, eta, eta_tau, rho_gx, rho_gy,
+    inv_dx, inv_dy, r, theta_dtau, etadtau, nout: int = 100,
+    free_slip: bool = True, G=None, K=None, P0=None, Q=None, tau_o=None,
+    dt=None,
+):
+    """Words per cell that one iteration of :func:`stokes_chunk` must move on
+    these inputs (its arguments): the 6 unknowns read and written, and each
+    invariant slot that varies and that the kernel does not derive from η
+    (``eta_tau``, ``eta_v``). bench_kernels.py::ve2d counts 23."""
+    pc, pv = _invariant_slots(P, txy, eta, eta_tau, rho_gx, rho_gy, G, K, P0, Q, tau_o, dt)
+    return 12 + pc.stack.shape[0] + pv.stack.shape[0]
+
+
 def stokes_chunk_reference(
     Vx, Vy, P, txx, tyy, txy, eta, eta_tau, rho_gx, rho_gy,
     inv_dx, inv_dy, r, theta_dtau, etadtau, nout: int = 100,
@@ -169,26 +208,43 @@ def stokes_chunk(
     if P.device.type != "cuda":
         raise ValueError(f"stokes_chunk: unsupported device {P.device}")
 
+    with torch.cuda.device(P.device):
+        out = _launch(_library(), torch.cuda.current_stream().cuda_stream, args, nout,
+                      free_slip, G, K, P0, Q, tau_o, dt)
+    stokes_chunk.launches += 1
+    return out
+
+
+def _launch(lib, stream, args, nout, free_slip, G, K, P0, Q, tau_o, dt):
+    """Check the chunk's arguments, pack its slots and run the C function of
+    ``lib`` (bound by ``_bind``) on ``stream``; returns the six carried
+    fields. Raises on what the kernel does not take and on a launch error."""
+    (Vx, Vy, P, txx, tyy, txy, eta, eta_tau, rho_gx, rho_gy,
+     inv_dx, inv_dy, r, theta_dtau, etadtau) = args
+    carry = args[:6]
     nx, ny = P.shape
     dtype = P.dtype
     _check_carry(carry, nx, ny)
-    G, K, P0, Q, tau_o, dt = _ve_inputs(P, txy, G, K, P0, Q, tau_o, dt)
-    cinv, vinv = _ve_prepare(eta, eta_tau, rho_gx, rho_gy, G, K, P0, Q, tau_o, dt, dtype)
+    pc, pv = _invariant_slots(P, txy, eta, eta_tau, rho_gx, rho_gy, G, K, P0, Q, tau_o, dt)
 
-    outs = [t.clone() for t in carry]
+    work = [[torch.empty_like(t) for t in carry] for _ in range(2)]
     scal = (ctypes.c_double * 5)(inv_dx, inv_dy, r / theta_dtau, theta_dtau, etadtau)
-    lib = _library()
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * 6)(*[t.data_ptr() for t in ts])
+
     fn = lib.jr_stokes_ve_chunk_f32 if dtype == torch.float32 else lib.jr_stokes_ve_chunk_f64
-    with torch.cuda.device(P.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn((ctypes.c_void_p * 6)(*[t.data_ptr() for t in outs]),
-                 cinv.data_ptr(), vinv.data_ptr(), nx, ny, int(nout), scal,
-                 int(bool(free_slip)), stream)
+    err = fn(ptrs(carry), ptrs(work[0]), ptrs(work[1]),
+             pc.stack.data_ptr(), pv.stack.data_ptr(),
+             (ctypes.c_int * len(CELL_SLOTS))(*pc.index),
+             (ctypes.c_double * len(CELL_SLOTS))(*pc.values),
+             (ctypes.c_int * len(VERTEX_SLOTS))(*pv.index),
+             (ctypes.c_double * len(VERTEX_SLOTS))(*pv.values),
+             nx, ny, int(nout), scal, int(bool(free_slip)), stream)
     if err != 0:
         raise RuntimeError(
             f"stokes_chunk: CUDA error {err}: {lib.jr_cuda_error_string(err).decode()}")
-    stokes_chunk.launches += 1
-    return tuple(outs)
+    return tuple(work[(int(nout) - 1) % 2])
 
 
 stokes_chunk.launches = 0
@@ -214,11 +270,16 @@ def _check_carry(carry, nx, ny):
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = load_library(SOURCE)
+    return _bind(load_library(SOURCE))
+
+
+def _bind(lib):
+    """``lib`` with the C functions of ``csrc/stokes_ve.cu`` typed."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     for name in ("jr_stokes_ve_chunk_f32", "jr_stokes_ve_chunk_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(vp), vp, vp, i, i, i,
-                       ctypes.POINTER(ctypes.c_double), i, vp]
+        ip, dp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_double)
+        fn.argtypes = [ctypes.POINTER(vp)] * 3 + [vp, vp, ip, dp, ip, dp, i, i, i, dp,
+                                                  i, vp]
         fn.restype = i
     return lib

@@ -13,17 +13,21 @@ no-slip BCs.
   kernel of ``csrc/stokes_vep.cu`` (built with ``nvcc`` at first use by
   ``ops/_cuda_build.py`` and loaded with ``ctypes``) or raises; on
   CPU tensors it runs the plain version. ``stokes_vep_chunk.launches``
-  counts kernel launches (one per chunk).
+  counts its calls that launch the kernel (one launch per PT iteration,
+  ``nout`` per call).
 - ``stokes_vep_chunk_reference`` is the plain version: the solver's
   array-path iteration (``ops/stokes_vep.py::vep_iteration``) ``nout``
   times.
 - ``_vep_prepare`` builds the chunk-invariant cell and vertex stacks once per
-  chunk, on the device, in plain PyTorch.
+  chunk, on the device, in plain PyTorch; the kernel gets them packed, the
+  uniform slots as scalars (``ops/slots.py``). ``vep_chunk_words`` counts
+  the words per cell an iteration must move on given inputs.
 
 The arrays keep the solver's staggered shapes (Vx (nx+1, ny+2), Vy
 (nx+2, ny+1), cells (nx, ny), vertices (nx+1, ny+1)); the kernel works on
 them directly, with clamped indices in place of the TPU kernel's ghost
-rings.
+rings, and alternates two work sets of them, so the input carry is never
+written.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 from justrelax_tpu_torch.ops._cuda_build import CSRC, load_library
 from justrelax_tpu_torch.ops.bc import Faces, VelocityBoundaryConditions
+from justrelax_tpu_torch.ops.slots import pack_slots
 from justrelax_tpu_torch.ops.stencil import av_a, expand_edges
 from justrelax_tpu_torch.ops.stokes_vep import (
     VEPCarry,
@@ -60,6 +65,7 @@ from justrelax_tpu_torch.rheology.viscosity import (
 __all__ = [
     "vep_chunk_bc_modes",
     "vep_chunk_supported",
+    "vep_chunk_words",
     "stokes_vep_chunk",
     "stokes_vep_chunk_reference",
 ]
@@ -192,6 +198,37 @@ def _vep_prepare(theta, P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
             stack(verts, VINV_SLOTS, (nx + 1, ny + 1)))
 
 
+def _invariant_slots(theta, P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
+                     material, phase_ratios_center, phase_ratios_vertex, T, T_v,
+                     dt, visc_m):
+    """``_vep_prepare``'s cell and vertex stacks, packed: the uniform slots
+    go in as scalars (``ops/slots.py``)."""
+    cinv, vinv = _vep_prepare(theta, P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
+                              material, phase_ratios_center, phase_ratios_vertex,
+                              T, T_v, dt, visc_m, theta.dtype)
+    return pack_slots(cinv), pack_slots(vinv)
+
+
+def vep_chunk_words(
+    Vx, Vy, theta, P_c, txx, tyy, txy_c, txy_v, eta, eta_v, lam, lam_v,
+    P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
+    material, phase_ratios_center, phase_ratios_vertex, T,
+    dt, inv_dx, inv_dy, r, theta_dtau, etadtau,
+    rel_lambda, viscosity_relaxation, viscosity_cutoff,
+    nout: int = 100, has_cap=None, flow_bc=None, T_v=None, visc_m="auto",
+):
+    """Words per cell that one iteration of :func:`stokes_vep_chunk` must
+    move on these inputs (its arguments): the 11 carried fields it reads
+    (P is write-only), the 12 it writes, and each invariant slot that does
+    not hold one value everywhere (the kernel takes the others as scalars).
+    bench_kernels.py::vep2d counts 39, every slot a canvas."""
+    _, visc_m = _resolve_static(material, has_cap, visc_m, like=theta)
+    pc, pv = _invariant_slots(theta, P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
+                              material, phase_ratios_center, phase_ratios_vertex,
+                              T, T_v, dt, visc_m)
+    return 23 + pc.stack.shape[0] + pv.stack.shape[0]
+
+
 def _default_bc():
     return VelocityBoundaryConditions(
         free_slip=Faces(left=True, right=True, top=True, bot=True))
@@ -254,6 +291,23 @@ def stokes_vep_chunk(
     if theta.device.type != "cuda":
         raise ValueError(f"stokes_vep_chunk: unsupported device {theta.device}")
 
+    with torch.cuda.device(theta.device):
+        out = _launch(_library(), torch.cuda.current_stream().cuda_stream, args, nout,
+                      has_cap, flow_bc, T_v, visc_m)
+    stokes_vep_chunk.launches += 1
+    return out
+
+
+def _launch(lib, stream, args, nout, has_cap, flow_bc, T_v, visc_m):
+    """Check the chunk's arguments, pack its slots and run the C function of
+    ``lib`` (bound by ``_bind``) on ``stream``; returns the 12 carried
+    fields. Raises on what the kernel does not take and on a launch error."""
+    (Vx, Vy, theta, P_c, txx, tyy, txy_c, txy_v, eta, eta_v, lam, lam_v,
+     P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
+     material, phase_ratios_center, phase_ratios_vertex, T,
+     dt, inv_dx, inv_dy, r, theta_dtau, etadtau,
+     rel_lambda, viscosity_relaxation, viscosity_cutoff) = args
+    carry = args[:12]
     nx, ny = theta.shape
     dtype = theta.dtype
     _check_carry(carry, nx, ny)
@@ -261,16 +315,11 @@ def stokes_vep_chunk(
     if bc_modes is None:
         raise ValueError("each face must be exactly one of free-slip / no-slip")
     has_cap, visc_m = _resolve_static(material, has_cap, visc_m, like=theta)
-    cinv, vinv = _vep_prepare(theta, P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
-                              material, phase_ratios_center,
-                              phase_ratios_vertex, T, T_v, dt, visc_m, dtype)
+    pc, pv = _invariant_slots(theta, P0, Q, txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl,
+                              material, phase_ratios_center, phase_ratios_vertex,
+                              T, T_v, dt, visc_m)
 
-    outs = [torch.empty_like(t) for t in carry]
-    for o, t in zip(outs, carry):
-        o.copy_(t)
-    kw = dict(dtype=dtype, device=theta.device)
-    scratch = [torch.empty((nx, ny), **kw) for _ in range(3)]  # ητ, εxx, εyy
-    scratch.append(torch.empty((nx + 1, ny + 1), **kw))  # εxy
+    work = [[torch.empty_like(t) for t in carry] for _ in range(2)]
     lo, hi = viscosity_cutoff
     scal = (ctypes.c_double * 12)(
         inv_dx, inv_dy, etadtau, r / theta_dtau, theta_dtau,
@@ -280,22 +329,26 @@ def stokes_vep_chunk(
     )
     bc_bits = sum(_BC_BITS[f] for f, m in zip(("left", "right", "bot", "top"), bc_modes)
                   if m == "no_slip")
-    lib = _library()
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * 12)(*[t.data_ptr() for t in ts])
+
     fn = lib.jr_stokes_vep_chunk_f32 if dtype == torch.float32 else lib.jr_stokes_vep_chunk_f64
-    with torch.cuda.device(theta.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            (ctypes.c_void_p * 12)(*[t.data_ptr() for t in outs]),
-            (ctypes.c_void_p * 4)(*[t.data_ptr() for t in scratch]),
-            cinv.data_ptr(), vinv.data_ptr(), nx, ny, int(nout), scal,
-            0 if visc_m is None else 1, int(has_cap), bc_bits, stream,
-        )
+    err = fn(
+        ptrs(carry), ptrs(work[0]), ptrs(work[1]),
+        pc.stack.data_ptr(), pv.stack.data_ptr(),
+        (ctypes.c_int * len(CINV_SLOTS))(*pc.index),
+        (ctypes.c_double * len(CINV_SLOTS))(*pc.values),
+        (ctypes.c_int * len(VINV_SLOTS))(*pv.index),
+        (ctypes.c_double * len(VINV_SLOTS))(*pv.values),
+        nx, ny, int(nout), scal, 0 if visc_m is None else 1, int(has_cap),
+        bc_bits, stream,
+    )
     if err != 0:
         raise RuntimeError(
             f"stokes_vep_chunk: CUDA error {err}: "
             f"{lib.jr_cuda_error_string(err).decode()}")
-    stokes_vep_chunk.launches += 1
-    return tuple(outs)
+    return tuple(work[(int(nout) - 1) % 2])
 
 
 stokes_vep_chunk.launches = 0
@@ -321,11 +374,16 @@ def _check_carry(carry, nx, ny):
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = load_library(SOURCE)
+    return _bind(load_library(SOURCE))
+
+
+def _bind(lib):
+    """``lib`` with the C functions of ``csrc/stokes_vep.cu`` typed."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     for name in ("jr_stokes_vep_chunk_f32", "jr_stokes_vep_chunk_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp), vp, vp, i, i, i,
-                       ctypes.POINTER(ctypes.c_double), i, i, i, vp]
+        ip, dp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_double)
+        fn.argtypes = [ctypes.POINTER(vp)] * 3 + [vp, vp, ip, dp, ip, dp, i, i, i, dp,
+                                                  i, i, i, vp]
         fn.restype = i
     return lib

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    FACE_MODES,
     TH_CASES,
     TOL_F32_1024,
     TOL_VEP3D_CALL,
@@ -48,7 +49,9 @@ from chip_smoke import (
     thermal_case,
     ve3d_case,
     ve_case,
+    ve_random_case,
     vep3d_case,
+    vep_random_case,
 )
 from justrelax_tpu_torch.core.coeffs import PTThermalCoeffs
 from justrelax_tpu_torch.core.grid import Geometry
@@ -60,6 +63,7 @@ from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv
 from justrelax_tpu_torch.ops import hopper_thermal as ht
 from justrelax_tpu_torch.ops import hopper_vep3d_edges as he
+from justrelax_tpu_torch.ops import hopper_window_copy as hw
 from justrelax_tpu_torch.ops.bc import Faces, TemperatureBoundaryConditions, thermal_bcs
 from justrelax_tpu_torch.ops.stokes3d_canvas import ve3d_canvas_coefficients
 from justrelax_tpu_torch.ops.stokes3d_vep_canvas import (
@@ -658,3 +662,103 @@ def test_vep3d_chunk_rejects_bad_inputs(cuda):
         hc.stokes3d_vep_chunk(carry, co._replace(params=co.params._replace(
             ppc=type(co.params.ppc)(*(torch.full_like(carry.P, float(v))
                                       for v in co.params.ppc)))), inv_di, 1, **kw)
+
+
+RAGGED = [(2, 2), (3, 5), (33, 31), (70, 45)]
+
+
+def _vep_against_plain(args, kw, nouts=((1, TOL_NOUT1), (50, TOL_NOUT50))):
+    before = [t.clone() for t in args[:12]]
+    for nout, tol in nouts:
+        out = hv.stokes_vep_chunk(*args, nout=nout, **kw)
+        ref = hv.stokes_vep_chunk_reference(*args, nout=nout, **kw)
+        worst = max(rel_diffs(out, ref).values())
+        assert worst <= tol, (nout, worst, rel_diffs(out, ref))
+    assert all(torch.equal(a, b) for a, b in zip(before, args[:12]))  # input not written
+
+
+@pytest.mark.parametrize("vary", [True, False])
+@pytest.mark.parametrize("ni", RAGGED)
+def test_vep_kernel_ragged_tiles_f64(cuda, ni, vary):
+    """Grids that the tiles do not divide, from a random state with ghosts;
+    ``vary``: every slot family varies (a tension cap among them), or nearly
+    every slot is a scalar."""
+    modes = ("free_slip", "no_slip", "no_slip", "free_slip")
+    args, kw = vep_random_case(ni, modes, torch.float64, cuda, vary=vary, seed=ni[0])
+    _vep_against_plain(args, kw)
+
+
+@pytest.mark.parametrize("vary", [True, False])
+@pytest.mark.parametrize("ni", RAGGED)
+def test_vep_kernel_ragged_tiles_f32(cuda, ni, vary):
+    modes = ("no_slip", "free_slip", "free_slip", "no_slip")
+    args, kw = vep_random_case(ni, modes, torch.float32, cuda, vary=vary, seed=ni[1])
+    for nout in (1, 50):
+        _, gap, _, p_vs_64, _ = f32_gaps(
+            hv.stokes_vep_chunk, hv.stokes_vep_chunk_reference, rel_diffs, args, kw, nout)
+        assert gap <= max(TOL_F32_1024, 2.0 * p_vs_64), (ni, nout, gap, p_vs_64)
+
+
+@pytest.mark.parametrize("modes", FACE_MODES, ids=["-".join(m[:2] for m in ms)
+                                                   for ms in FACE_MODES])
+def test_vep_kernel_every_face_combination(cuda, modes):
+    """Each of the 16 free-slip/no-slip face combinations from a random
+    start, ghosts and corners included, on a grid of several ragged tiles."""
+    args, kw = vep_random_case((21, 70), modes, torch.float64, cuda, seed=5)
+    _vep_against_plain(args, kw, ((1, TOL_NOUT1), (20, TOL_NOUT50)))
+
+
+@pytest.mark.parametrize("vary", [True, False])
+@pytest.mark.parametrize("ni", RAGGED)
+def test_ve_kernel_ragged_tiles(cuda, ni, vary):
+    """Ragged grids from a random state with ghosts, with and without the
+    free-slip ghosts; ``vary``: every slot varies and η_τ is read, or every
+    slot is a scalar or derived from η."""
+    args, kw = ve_random_case(ni, torch.float64, cuda, vary=vary, seed=ni[0])
+    before = [t.clone() for t in args[:6]]
+    for free_slip in (True, False):
+        for nout, tol in ((1, TOL_VE_NOUT1), (100, 1e-10)):
+            out = hs.stokes_chunk(*args, nout=nout, free_slip=free_slip, **kw)
+            ref = hs.stokes_chunk_reference(*args, nout=nout, free_slip=free_slip, **kw)
+            worst = max(rel_diffs_ve(out, ref).values())
+            assert worst <= tol, (free_slip, nout, worst)
+    assert all(torch.equal(a, b) for a, b in zip(before, args[:6]))
+    for nout in (1, 100):
+        a32 = tuple(a.float() if torch.is_tensor(a) else a for a in args)
+        k32 = {k: (tuple(x.float() for x in v) if isinstance(v, tuple) else
+                   v.float() if torch.is_tensor(v) else v) for k, v in kw.items()}
+        _, gap, _, p_vs_64, _ = f32_gaps(
+            hs.stokes_chunk, hs.stokes_chunk_reference, rel_diffs_ve, a32, k32, nout)
+        assert gap <= max(TOL_F32_1024, 2.0 * p_vs_64), (ni, nout, gap, p_vs_64)
+
+
+@pytest.mark.parametrize("mode", hw.MODES)
+def test_window_copy_matches_plain(cuda, mode):
+    src = torch.as_tensor(np.random.default_rng(3).standard_normal((4, 64, 64, 128)),
+                          dtype=torch.float32, device=cuda)
+    before = hw.window_copy.launches
+    out = hw.window_copy(src, mode)
+    assert hw.window_copy.launches == before + 1
+    assert torch.equal(out, hw.window_copy_reference(src, mode))
+    small = src[:2, :24, :30, :8].contiguous()
+    params = dict(W=12, Wy=10, R=8, Ry=6)
+    assert torch.equal(hw.window_copy(small, mode, **params),
+                       hw.window_copy_reference(small, mode, **params))
+
+
+def test_window_copy_rejects_bad_inputs(cuda):
+    src = torch.zeros((4, 64, 64, 128), device=cuda)
+    for bad in (src.double(), src.transpose(1, 2), src[..., :126]):
+        with pytest.raises(ValueError):
+            hw.window_copy(bad)
+
+
+def test_window_copy_script_on_the_card(cuda, capsys):
+    from justrelax_tpu_torch.scripts import repro_2d_dma
+
+    out = repro_2d_dma.main(["2d"])
+    text = capsys.readouterr().out.splitlines()
+    assert text[-1] == "PASS" and all("finite=True" in ln for ln in text[1:4])
+    # the card divides arange by 1e6 through a reciprocal, so the input, and
+    # with it the sum, differs from the CPU's 128244.781 in the last bits
+    assert abs(float(out.sum()) - 128244.781) <= 0.05
