@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (justrelax_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Run from the root of a checkout. Phases, each printing JSON lines:
 
@@ -61,7 +61,12 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               at 32^3 with and without the free-slip ghosts, the general form
               with dt = inf at 32^3 (its uniform canvases passed as scalars),
               and the viscous_consts route against the plain chunk on the
-              viscous coefficients.
+              viscous coefficients; then the dt = inf, general and
+              no-free-slip forms on grids that do not fill B7's (y, z) tile,
+              span two z tiles or split x into ranges (VE3D_RAGGED). The
+              kernel derives what it computes bit for bit from eta and
+              eta_tau (pack_coeffs' derive_from); the input carry is not
+              written.
 15. golden_ve3d: SolVi 3D at 16^3 f64 through the default entry point (B7;
               norm_Rx < 1e-8 within 5 000 iterations, the plain path's count
               beside it) and Burstedde at 16^3 f64 on the plain path (Vx
@@ -70,9 +75,10 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               bench_kernels.py's ve3d) through the default entry point,
               10 000 iterations, with the launch count read around it; the
               kernel's and the plain version's time per iteration on the
-              solve's own first-chunk inputs, by CUDA events, and the split
-              of its wall time (set-up, kernel, the rest); then 200
-              iterations kernel vs plain from those inputs in f32 and f64.
+              solve's own first-chunk inputs, by CUDA events (and the parent
+              commit's kernel with --parent DIR), and the split of its wall
+              time (set-up, kernel, the rest); then 200 iterations kernel vs
+              plain from those inputs in f32 and f64.
 17. timing_ve3d: per-iteration time of the 3D kernel and its plain version
               at 126^3 and 254^3 f32 (bench_kernels.py's ve3d set-up), by
               CUDA events.
@@ -107,15 +113,16 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               plain version (the canvas chunk), f64 for 1 and 50 iterations
               and f32 for 50, in the four configurations of phase 18 and a
               fifth with buoyancy and a power-law creep table; the input
-              carry is not written; then ShearBand3D's set-up at 126^3 near
-              yield, f64, 1 and 50 iterations, lambda and lambda_e > 0, and
-              B8's time per iteration there.
+              carry is not written; ShearBand3D's set-up at 37^3 (slots that
+              do not fill the stress pass's tiles); then its set-up at 126^3
+              near yield, f64, 1 and 50 iterations, lambda and lambda_e > 0,
+              and B8's time per iteration there.
 23. main_path_vep3d_blocked: the ShearBand3D 126^3 f32 step of phase 20 on
               the "blocked" route (B8), with the launch counts read around
               it, its tauII max against the default route's; B8 and its
-              plain version timed per iteration on the solve's first-chunk
-              inputs; 50 iterations kernel vs plain from them, f32 against
-              f64.
+              plain version (and the parent commit's kernel with --parent
+              DIR) timed per iteration on the solve's first-chunk inputs; 50
+              iterations kernel vs plain from them, f32 against f64.
 24. timing_vep3d_chunk: B8 per iteration in phase 21's set-up, beside the
               hybrid and the plain canvas iteration.
 25. window_copy: R, the 2D dynamic-window copy: the port's repro script
@@ -135,7 +142,10 @@ fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
-printing any result.
+printing any result. With --parent DIR (a parent commit's
+justrelax_tpu_torch/ops and csrc, e.g. from git archive) the redesigned
+kernels' lines also give the parent's time on the same inputs (parent_ms);
+without it parent_ms is null.
 """
 
 from __future__ import annotations
@@ -146,6 +156,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -224,6 +235,9 @@ TOL_VE_NOUT500 = 1e-10
 WORDS_VEP, WORDS_VE = 39, 23
 VE3D_FIELDS = ("Vx", "Vy", "Vz", "P", "txx", "tyy", "tzz", "tyz", "txz", "txy")
 VE3D_CASES = ("ve_general", "viscous", "viscous_no_free_slip", "ve_dt_inf")
+# grids that do not fill B7's (y, z) tile, one that spans two z tiles, and
+# one x extent that the wrapper splits into ranges
+VE3D_RAGGED = ((5, 4, 3), (11, 8, 6), (4, 10, 35), (3, 5, 70), (130, 9, 37))
 TOL_VE3D_NOUT1 = 1e-13  # rounding only (differences as rel_diffs_ve3d defines them)
 TOL_VE3D_NOUT200 = 1e-10
 TH_FIELDS = ("T", "qx", "qy")
@@ -669,6 +683,32 @@ def thermal_1024_setup(n, dtype):
     return thermal.replace(T=T, Told=T), pt, bc, geometry, K, rc, dt
 
 
+# a parent commit's tree (its justrelax_tpu_torch/ops and csrc), from
+# --parent DIR: its kernels are timed beside this tree's on the same inputs
+PARENT = None
+
+
+def load_parent(name, parent=None):
+    """The parent tree's ``ops/<name>.py`` as a module of its own, its
+    ``SOURCE`` pointed at the parent's kernel source; ``None`` without a
+    parent tree."""
+    import importlib.util
+    from pathlib import Path
+
+    parent = parent or PARENT
+    if parent is None:
+        return None
+    path = Path(parent) / "justrelax_tpu_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if hasattr(mod, "SOURCE"):
+        mod.SOURCE = Path(parent) / "justrelax_tpu_torch" / "csrc" / mod.SOURCE.name
+    if hasattr(mod, "he"):  # the fused chunk builds its library through the edge module
+        mod.he = load_parent("hopper_vep3d_edges", parent)
+    return mod
+
+
 def bound_ms(words, n_cells, itemsize, kind):
     """Least time per PT iteration: the accounting's words per cell over
     the HBM peak (the operations, a few dozen per cell, take far less at
@@ -763,8 +803,13 @@ def main():
     for phase, (lib_path, build_s) in zip(("build", "build_ve", "build_thermal", "build_ve3d",
                                            "build_vep3d", "build_window_copy"), builds):
         log = lib_path.with_suffix(".log")
-        ptxas = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
-                 if "registers" in ln or "spill" in ln]
+        ptxas = []
+        for ln in log.read_text().splitlines() if log.exists() else []:
+            kernel = re.search(r"\d(k_[a-z_]+)I([fd])", ln) if "Compiling" in ln else None
+            if kernel:  # the kernel and its type (f: float, d: double)
+                ptxas.append("{}<{}>".format(*kernel.groups()))
+            elif "registers" in ln or "spill" in ln:
+                ptxas.append(ln.strip())
         emit(phase, seconds=build_s, library=os.path.relpath(lib_path, ROOT), ptxas=ptxas)
 
     # ---- 2. kernel against plain, f64, n=64
@@ -1225,7 +1270,9 @@ def ve3d_bench_inputs(n, dtype, dev):
                                   fx=z, fy=z, fz=fz)
     X = n + 2
     carry = tuple(torch.zeros((X, X, X), **kw) for _ in range(10))
-    return (carry, h3.pack_coeffs(co), tuple(1.0 / d for d in geometry.di),
+    packed = h3.pack_coeffs(co, derive_from=(eta, eta_tau, (pt.r / pt.theta_dtau,
+                                                            pt.theta_dtau, pt.etadtau)))
+    return (carry, packed, tuple(1.0 / d for d in geometry.di),
             ve3d_words(eta, eta_tau, (z, z, fz)))
 
 
@@ -1244,11 +1291,16 @@ def run_ve3d(dev, smi, kind):
     the kernels line."""
     # ---- 14. 3D VE kernel against plain, f64
     worst_rel, worst_abs = 0.0, 0.0
-    routes = [(case, case) for case in VE3D_CASES] + [("viscous_consts", "viscous")]
-    for label, case in routes:
-        ni = (22, 9, 7) if case == "ve_general" else (32, 32, 32)
+    routes = ([(case, case, (22, 9, 7) if case == "ve_general" else (32, 32, 32))
+               for case in VE3D_CASES] + [("viscous_consts", "viscous", (32, 32, 32))]
+              + [(case, case, ni) for ni in VE3D_RAGGED
+                 for case in ("ve_dt_inf", "ve_general", "viscous_no_free_slip")])
+    for label, case, ni in routes:
         carry, co, inv_di, free_slip, (consts, scalars) = ve3d_case(case, ni, torch.float64,
                                                                     dev)
+        # the coefficients the kernel derives from eta and eta_tau
+        packed = h3.pack_coeffs(co, derive_from=(consts[0], consts[1], scalars))
+        before = [t.clone() for t in carry]
         for nout, tol in ((1, TOL_VE3D_NOUT1), (200, TOL_VE3D_NOUT200)):
             # the viscous_consts route against the plain chunk on co (G = None)
             ref = h3.stokes3d_chunk_reference(carry, co, inv_di, nout, free_slip=free_slip)
@@ -1256,18 +1308,21 @@ def run_ve3d(dev, smi, kind):
                 out = h3.stokes3d_chunk(carry, None, inv_di, nout, viscous_consts=consts,
                                         pt_scalars=scalars)
             else:
-                out = h3.stokes3d_chunk(carry, co, inv_di, nout, free_slip=free_slip)
+                out = h3.stokes3d_chunk(carry, packed, inv_di, nout, free_slip=free_slip)
             torch.cuda.synchronize()
             d = rel_diffs_ve3d(out, ref)
             worst = max(d.values())
             worst_rel, worst_abs = max(worst_rel, worst), max(worst_abs, abs_diff(out, ref))
             moved = min(float((o - a).abs().max()) for o, a in zip(out[:3], carry[:3]))
             emit("parity_ve3d", case=label, ni=list(ni), nout=nout, max_rel_diff=worst, tol=tol,
-                 V_moved=moved, per_field=d)
+                 V_moved=moved, derived=list(packed.derived.names) if packed.derived else [],
+                 per_field=d)
             check(worst <= tol, f"{label} nout={nout}: {worst} > {tol}")
             check(moved > 0.0, f"{label} nout={nout}: the kernel left V unchanged")
             if not free_slip:
                 check(torch.equal(out[0][:, 0], carry[0][:, 0]), f"{label}: ghosts moved")
+        check(all(torch.equal(a, b) for a, b in zip(before, carry)),
+              f"{label} {ni}: the input carry was written")
 
     # ---- 15. goldens through the default entry points, f64, 16^3
     h3.stokes3d_chunk.launches = 0
@@ -1339,7 +1394,20 @@ def run_ve3d(dev, smi, kind):
     t_main, tp_main = min(tk), min(tp)
     bound_main = bound_ms(words, n ** 3, 4, kind)
     kernel_s = t_main * 1e-3 * int(info.iters)
+    # the parent commit's kernel on the same inputs (chip_smoke.py --parent DIR)
+    parent = load_parent("hopper_stokes3d")
+    t_parent = None
+    if parent is not None:
+        old = parent.pack_coeffs(co.co)
+        nk = 200
+        t_parent = [cuda_time_ms(lambda: parent.stokes3d_chunk(carry, old, inv_di, nk)) / nk,
+                    cuda_time_ms(lambda: h3.stokes3d_chunk(carry, co, inv_di, nk)) / nk,
+                    cuda_time_ms(lambda: parent.stokes3d_chunk(carry, old, inv_di, nk)) / nk]
+        emit("parent_ve3d", n=n, parent_ms_per_iter=t_parent[::2], kernel_ms_per_iter=t_parent[1],
+             nvidia_smi=smi)
     emit("main_path_ve3d_split", n=n, n_canvas=int(co.stack.shape[0]), words=words,
+         streamed_words=h3.streamed_words(co),
+         derived=list(co.derived.names) if co.derived else [],
          kernel_ms_per_iter=tk, plain_ms_per_iter=tp,
          T_eff_GBs=words * n ** 3 * 4 / (t_main * 1e-3) / 1e9, bound_ms=bound_main,
          bound_share=bound_main / t_main, setup_s=setup_s, kernel_s=kernel_s,
@@ -1369,13 +1437,13 @@ def run_ve3d(dev, smi, kind):
     # ---- 17. timing, bench_kernels.py::ve3d at 126^3 and 254^3 f32
     timing = {}
     for n, nk, npl in ((126, 200, 10), (254, 100, 3)):
-        carry, co, inv_di, words = ve3d_bench_inputs(n, torch.float32, dev)
+        carry, co, inv_di, words_b = ve3d_bench_inputs(n, torch.float32, dev)
         tk, tp = time_ve3d(carry, co, inv_di, nk, npl)
         t_k, t_p = min(tk), min(tp)
-        t_eff = words * n ** 3 * 4 / (t_k * 1e-3)
-        bound = bound_ms(words, n ** 3, 4, kind)
+        t_eff = words_b * n ** 3 * 4 / (t_k * 1e-3)
+        bound = bound_ms(words_b, n ** 3, 4, kind)
         timing[n] = (t_k, t_p, bound)
-        emit("timing_ve3d", n=n, dtype="float32", n_canvas=int(co.stack.shape[0]), words=words,
+        emit("timing_ve3d", n=n, dtype="float32", n_canvas=int(co.stack.shape[0]), words=words_b,
              kernel_ms_per_iter=tk, plain_ms_per_iter=tp, T_eff_GBs=t_eff / 1e9,
              T_eff_35_word_convention_GBs=35 * n ** 3 * 4 / (t_k * 1e-3) / 1e9,
              hbm_peak_GBs=HBM_PEAK[kind] / 1e9, hbm_share=t_eff / HBM_PEAK[kind],
@@ -1398,6 +1466,8 @@ def run_ve3d(dev, smi, kind):
         "bound_ms": bound_main,
         "bound_by": "bytes",
         "library_ms": None,
+        "parent_ms": None if t_parent is None else min(t_parent[::2]),
+        "words": words,
         "ve3d_ms_126": timing[126][0],
         "ve3d_plain_ms_126": timing[126][1],
         "ve3d_bound_ms_126": timing[126][2],
@@ -1586,6 +1656,19 @@ def fused_chunk(carry, co, inv_di, kw, nit, plain=False):
     plain version."""
     fn = hc.stokes3d_vep_chunk_reference if plain else hc.stokes3d_vep_chunk
     return fn(carry, co, inv_di, nit, **kw)
+
+
+def vep3d_chunk_states(n, dtype, dev):
+    """B8's inputs on its main path at n³: the first chunk of the ShearBand3D
+    step on "blocked" (as solve_vep_3d builds it) and ShearBand3D's set-up
+    near yield: {label: (carry, packed consts, inv_di, chunk keywords)}."""
+    geometry, st0, material, (pr_c, pr_e), _, pt, dt = shearband3d._setup(n, dtype, dev)
+    carry, _, packed = canvas_chunk_inputs(st0, material, pr_c, pr_e, route="blocked")
+    kw = dict(dt=dt, r=pt.r, theta_dtau=pt.theta_dtau, etadtau=pt.etadtau,
+              lambda_relaxation=0.2, viscosity_relaxation=1.0)
+    near, co_near, _, _, inv_near, kw_near = vep3d_case("shearband3d_kb_inf", dtype, dev, n=n)
+    return {"first_chunk": (carry, packed, tuple(1.0 / d for d in geometry.di), kw),
+            "near_yield": (near, hc.pack_chunk_consts(co_near), inv_near, kw_near)}
 
 
 def vep3d_chunk_words(packed):
@@ -2061,6 +2144,20 @@ def run_vep3d_chunk(dev, smi, kind, bench, tau_edges):
         check(gap <= tol32, f"B8 {case} f32 nout=50: {gap} > {tol32}")
         del inputs
 
+    # a grid whose slots do not fill the stress pass's tiles in y or z, f64
+    carry, co, _, _, inv_r, kw_r = vep3d_case("shearband3d_kb_inf", torch.float64, dev, n=37)
+    before = [t.clone() for t in flat_vep_carry(carry)]
+    for nit, tol in ((1, TOL_VEP3D_CALL), (50, TOL_VEP3D_NOUT50)):
+        d = max(rel_diffs_vep3d(fused_chunk(carry, co, inv_r, kw_r, nit),
+                                fused_chunk(carry, co, inv_r, kw_r, nit, plain=True)).values())
+        emit("parity_vep3d_chunk", case="shearband3d_kb_inf", n=37, nout=nit,
+             max_rel_diff=d, tol=tol)
+        check(d <= tol, f"B8 n=37 nout={nit}: {d} > {tol}")
+        worst_rel = max(worst_rel, d)
+    check(all(torch.equal(a, b) for a, b in zip(before, flat_vep_carry(carry))),
+          "B8 n=37: the input carry was written")
+    del carry, co
+
     # near yield at 126^3, f64: one and 50 iterations, the yield branch active
     n = 126
     near = {d: vep3d_case("shearband3d_kb_inf", d, dev, n=n)
@@ -2127,6 +2224,18 @@ def run_vep3d_chunk(dev, smi, kind, bench, tau_edges):
     words = vep3d_chunk_words(packed)
     bound_main = bound_ms(words, n ** 3, 4, kind)
     t_k = min(tk)
+    # the parent commit's kernel on the same inputs (chip_smoke.py --parent DIR)
+    parent = load_parent("hopper_stokes3d_vep")
+    t_parent = None
+    if parent is not None:
+        old = parent.pack_chunk_consts(packed.co)
+        t_parent = [cuda_time_ms(lambda: parent.stokes3d_vep_chunk(carry, old, inv_di, nk,
+                                                                   **kw)) / nk,
+                    cuda_time_ms(lambda: fused_chunk(carry, packed, inv_di, kw, nk)) / nk,
+                    cuda_time_ms(lambda: parent.stokes3d_vep_chunk(carry, old, inv_di, nk,
+                                                                   **kw)) / nk]
+        emit("parent_vep3d_chunk", n=n, parent_ms_per_iter=t_parent[::2],
+             kernel_ms_per_iter=t_parent[1], nvidia_smi=smi)
     emit("main_path_vep3d_blocked_timing", n=n, words=words, kernel_ms_per_iter=tk,
          plain_ms_per_iter=tp, T_eff_GBs=words * n ** 3 * 4 / (t_k * 1e-3) / 1e9,
          bound_ms=bound_main, bound_share=bound_main / t_k, bound_ms_71_words=bound_ms(
@@ -2178,6 +2287,7 @@ def run_vep3d_chunk(dev, smi, kind, bench, tau_edges):
         "bound_by": "bytes",
         "library_ms": None,
         "per": "iteration (3 launches)",
+        "parent_ms": None if t_parent is None else min(t_parent[::2]),
         "words": words_main,
         **near_ms,
         "bench_ms": t_b,
@@ -2302,4 +2412,6 @@ def launches_per_iteration(dev):
 
 
 if __name__ == "__main__":
+    if "--parent" in sys.argv:
+        PARENT = sys.argv[sys.argv.index("--parent") + 1]
     main()

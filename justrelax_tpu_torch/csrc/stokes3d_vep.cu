@@ -38,9 +38,9 @@
 //                      reads m's outermost face), along m's normal axis the
 //                      pair clamp(q, 1, n), clamp(q+1, 1, n), along the
 //                      shared axis the index min(p, n-1).
-// Strain rates are re-derived from V at each point read (radius 2), as the
-// TPU kernels do, so no strain-rate canvas goes through device memory. Only
-// the three normal components of tau_c reach the edge passes.
+// B6 and B9 re-derive strain rates from V at each point read (radius 2), as
+// the TPU kernels do, so no strain-rate canvas goes through device memory.
+// Only the three normal components of tau_c reach the edge passes.
 //
 // The chunk (B8) runs each iteration in three launches, from the carry A to
 // the carry B (the wrapper alternates two work sets, so the input carry is
@@ -50,7 +50,11 @@
 //              iterate theta at the cells;
 //   k_stress   the center return mapping (tau_c x6, lambda, the corrected
 //              P), the viscosity continuation eta, and the three edge
-//              passes (k_edges' body, B6's form) on the new theta;
+//              passes (k_edges' body, B6's form) on the new theta. A block
+//              takes an 8 x 32 tile of slots of one x plane: it computes the
+//              strain rates (and 1/eta at the cells) of the tile and a halo
+//              of one slot on three x planes into shared memory, each point
+//              once, and the passes read them there;
 //   k_velocity the damped velocity update on the interior faces; a ghost
 //              slot's thread computes the value of the slot the free-slip
 //              mirrors copy into it (the tangential axes clamped to 1..n),
@@ -64,17 +68,18 @@
 // K = infinity drops the volume term by a test, not a product (inf * 0 =
 // NaN). The tension cap follows rheology/plasticity.py: pT = 0 means no cap.
 //
-// What bounds them on this card: device-memory traffic. The edge passes
-// read at least 14 words per slot (V x3, theta, eta, tau_c normals x3, tau_e
-// x3, lambda_e x3) and write 6, plus each non-uniform constant (G_e x3, and
-// tau_o: 6 canvases re-derived in B6, 18 hoisted in B9); one chunk
-// iteration reads the 19 carry canvases and writes 19, plus its non-uniform
-// constants. A few hundred flops per slot and family against the card's
-// 67 TFLOP/s (f32) leave them far from the compute bound. Neighbours are
-// read from device memory through the caches (the 4-point interpolation
-// trees overlap between neighbouring threads); shared-memory tiles with a
-// radius-2 halo are left for later work.
-
+// What bounds them on this card. The edge passes (B6, B9) read at least 14
+// words per slot (V x3, theta, eta, tau_c normals x3, tau_e x3, lambda_e x3)
+// and write 6, plus each non-uniform constant (G_e x3, and tau_o: 6 canvases
+// re-derived in B6, 18 hoisted in B9); one chunk iteration reads the 19
+// carry canvases and writes 19, plus its non-uniform constants. B8's stress
+// pass is bound by its arithmetic, not by that traffic: on the card it took
+// as long with every field it reads staged in shared memory as through the
+// caches, and each IEEE division left out moved it (PERF.md §6). So it
+// computes each strain rate and 1/eta once per point, and the branches of
+// the return mapping leave out what they do not use: the multiplier and the
+// plastic correction where a point does not yield, the tension cap's
+// divisions and roots where there is none (each value unchanged).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -165,34 +170,53 @@ __device__ __forceinline__ T shear_strain(const Args<T>& g, int m, int64_t p) {
   return T(0.5) * ((g.Vx[p + sy] - g.Vx[p]) * g.inv[1] + (g.Vy[p + sx] - g.Vy[p]) * g.inv[0]);
 }
 
-// the four canvas slots the center -> edge K average reads, in avg4 order
-template <typename T, int K>
-__device__ __forceinline__ void center_points(const Args<T>& g, const int* s, int64_t* q) {
+// Where the edge passes read the fields they interpolate: device memory
+// (B6, B9; strain rates re-derived from V at each point read), or the staged
+// window of the fused chunk (B8; strain rates computed once per point). A
+// view maps canvas coordinates to its own index and reads through it.
+template <typename T> struct GlobalView {
+  using Index = int64_t;
+  const Args<T>& g;
+  __device__ int64_t at(const int* c) const { return lin(g, c); }
+  __device__ T theta(int64_t p) const { return g.theta[p]; }
+  __device__ T inv_eta(int64_t p) const { return T(1) / g.eta[p]; }
+  __device__ T tc(int j, int64_t p) const { return g.tc[j][p]; }
+  __device__ T te(int m, int64_t p) const { return g.te[m][p]; }
+  __device__ void normal(int64_t p, T* e) const { normal_strain(g, p, e); }
+  __device__ T shear(int m, int64_t p) const { return shear_strain(g, m, p); }
+};
+
+// the canvas coordinates of the four cells the center -> edge K average
+// reads, in avg4 order
+template <int K>
+__device__ __forceinline__ void center_points(const int* n, const int* s, int (*c)[3]) {
   constexpr int A0 = K == 0 ? 1 : 0;   // lower edge axis
   constexpr int A1 = K == 2 ? 1 : 2;   // upper edge axis
-  const int u0 = clampi(s[A0], 1, g.n[A0]), u1 = clampi(s[A0] + 1, 1, g.n[A0]);
-  const int w0 = clampi(s[A1], 1, g.n[A1]), w1 = clampi(s[A1] + 1, 1, g.n[A1]);
-  int c[3] = {s[0], s[1], s[2]};
-  c[A0] = u0; c[A1] = w0; q[0] = lin(g, c);
-  c[A0] = u1;             q[1] = lin(g, c);
-  c[A0] = u0; c[A1] = w1; q[2] = lin(g, c);
-  c[A0] = u1;             q[3] = lin(g, c);
+  const int u0 = clampi(s[A0], 1, n[A0]), u1 = clampi(s[A0] + 1, 1, n[A0]);
+  const int w0 = clampi(s[A1], 1, n[A1]), w1 = clampi(s[A1] + 1, 1, n[A1]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    c[j][0] = s[0]; c[j][1] = s[1]; c[j][2] = s[2];
+    c[j][A0] = (j & 1) ? u1 : u0;
+    c[j][A1] = (j & 2) ? w1 : w0;
+  }
 }
 
-// the four slots of family M that the M -> K move reads, in avg4 order
-template <typename T, int K, int M>
-__device__ __forceinline__ void other_points(const Args<T>& g, const int* s, int64_t* q) {
+// the coordinates of the four slots of family M that the M -> K move
+// reads, in avg4 order
+template <int K, int M>
+__device__ __forceinline__ void other_points(const int* n, const int* s, int (*c)[3]) {
   constexpr int SO = K;              // K's normal axis: M's own staggered axis
   constexpr int DO = M;              // M's normal axis: K's own staggered axis
   constexpr int SH = 3 - K - M;      // the shared staggered axis
-  const int jl = s[SO] - 1, jh = min(s[SO], g.n[SO] - 1);
-  const int q0 = clampi(s[DO], 1, g.n[DO]), q1 = clampi(s[DO] + 1, 1, g.n[DO]);
-  int c[3];
-  c[SH] = min(s[SH], g.n[SH] - 1);
-  c[SO] = jl; c[DO] = q0; q[0] = lin(g, c);
-  c[SO] = jh;             q[1] = lin(g, c);
-  c[SO] = jl; c[DO] = q1; q[2] = lin(g, c);
-  c[SO] = jh;             q[3] = lin(g, c);
+  const int jl = s[SO] - 1, jh = min(s[SO], n[SO] - 1);
+  const int q0 = clampi(s[DO], 1, n[DO]), q1 = clampi(s[DO] + 1, 1, n[DO]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    c[j][SH] = min(s[SH], n[SH] - 1);
+    c[j][SO] = (j & 1) ? jh : jl;
+    c[j][DO] = (j & 2) ? q1 : q0;
+  }
 }
 
 template <typename T>
@@ -203,15 +227,22 @@ __device__ __forceinline__ T avg_at(const T* A, T v, const int64_t* q) {
 
 // Family M's shear stress, strain rate and (unless hoisted) old stress
 // moved onto edge K at slot s, into slot 3 + M of the six-component tuples.
-template <typename T, int K, int M, bool HOIST>
-__device__ __forceinline__ void other_family(const Args<T>& g, const int* s, T* t6, T* e6,
-                                             T* o6) {
-  int64_t q[4];
-  other_points<T, K, M>(g, s, q);
-  t6[3 + M] = avg4(g.te[M][q[0]], g.te[M][q[1]], g.te[M][q[2]], g.te[M][q[3]]);
-  e6[3 + M] = avg4(shear_strain(g, M, q[0]), shear_strain(g, M, q[1]),
-                   shear_strain(g, M, q[2]), shear_strain(g, M, q[3]));
-  if (!HOIST) o6[3 + M] = avg_at(g.to[K][3 + M], g.tov[K][3 + M], q);
+template <typename T, int K, int M, bool HOIST, class V>
+__device__ __forceinline__ void other_family(const Args<T>& g, const V& v, const int* s,
+                                             T* t6, T* e6, T* o6) {
+  int c[4][3];
+  other_points<K, M>(g.n, s, c);
+  typename V::Index w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = v.at(c[j]);
+  t6[3 + M] = avg4(v.te(M, w[0]), v.te(M, w[1]), v.te(M, w[2]), v.te(M, w[3]));
+  e6[3 + M] = avg4(v.shear(M, w[0]), v.shear(M, w[1]), v.shear(M, w[2]), v.shear(M, w[3]));
+  if (!HOIST) {
+    int64_t q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q[j] = lin(g, c[j]);
+    o6[3 + M] = avg_at(g.to[K][3 + M], g.tov[K][3 + M], q);
+  }
 }
 
 // The Drucker-Prager cone with the optional tension cap (pT = 0: none) at
@@ -221,11 +252,23 @@ __device__ __forceinline__ void other_family(const Args<T>& g, const int* s, T* 
 template <typename T>
 __device__ __forceinline__ void drucker_prager(const Args<T>& g, T Pv, T tII, T& F, T& dQdP,
                                                T& volume) {
+  const T cone = g.C_cosphi + Pv * g.sinphi;
+  if (g.pT == T(0) && Pv - Pv == T(0)) {
+    // no cap and a finite Pv: ratio = 0 and root = 1 below, so the cap is
+    // C cos(phi) under tension and dF/dP on it (C Pv) / inf = 0 (C Pv)
+    const T cap = Pv < T(0) ? g.C_cosphi : T(INFINITY);
+    F = tII - tmin(cone, cap);
+    const T dFdP_cap = T(0) * (g.C_cosphi * Pv);
+    const bool on_cap = cap < cone;
+    const T dFdP = on_cap ? dFdP_cap : -g.sinphi;
+    dQdP = on_cap ? dFdP_cap : -g.sinpsi;
+    volume = is_inf(g.K) ? T(0) : g.K * g.dt * dFdP * dQdP;
+    return;
+  }
   const T pT = g.pT == T(0) ? T(-INFINITY) : g.pT;
   const T ratio = clamp01(Pv / pT);
   const T cap = Pv < T(0) ? g.C_cosphi * xsqrt(clamp_lo(T(1) - ratio * ratio, T(0)))
                           : T(INFINITY);
-  const T cone = g.C_cosphi + Pv * g.sinphi;
   F = tII - tmin(cone, cap);
   const T root = xsqrt(clamp_lo(T(1) - ratio * ratio, T(1e-12)));
   const T dFdP_cap = g.C_cosphi * Pv / (is_inf(pT) ? T(INFINITY) : pT * pT) / root;
@@ -242,14 +285,23 @@ __device__ __forceinline__ T inv_II(const T* t) {
                t[4] * t[4] + t[5] * t[5]);
 }
 
-// One family's return mapping at an owned slot s (linear index i).
-template <typename T, int K, bool HOIST>
-__device__ void family(const Args<T>& g, const int* s, int64_t i, T& t_new, T& lam_new) {
+// One family's return mapping at an owned slot s (canvas index i, view
+// index vi).
+template <typename T, int K, bool HOIST, class V>
+__device__ void family(const Args<T>& g, const V& v, const int* s, int64_t i,
+                       typename V::Index vi, T& t_new, T& lam_new) {
+  int cc[4][3];
+  center_points<K>(g.n, s, cc);
   int64_t qc[4];
-  center_points<T, K>(g, s, qc);
-  const T Pv = avg4(g.theta[qc[0]], g.theta[qc[1]], g.theta[qc[2]], g.theta[qc[3]]);
-  const T eta_e = T(1) / avg4(T(1) / g.eta[qc[0]], T(1) / g.eta[qc[1]],
-                              T(1) / g.eta[qc[2]], T(1) / g.eta[qc[3]]);
+  typename V::Index wc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    qc[j] = lin(g, cc[j]);
+    wc[j] = v.at(cc[j]);
+  }
+  const T Pv = avg4(v.theta(wc[0]), v.theta(wc[1]), v.theta(wc[2]), v.theta(wc[3]));
+  const T eta_e = T(1) / avg4(v.inv_eta(wc[0]), v.inv_eta(wc[1]), v.inv_eta(wc[2]),
+                              v.inv_eta(wc[3]));
   const T Ge = at(g.G[K], g.Gv[K], i);
   const T Gedt = T(1) / (Ge * g.dt);
   const T dtau = T(1) / (g.theta_dtau + eta_e * Gedt + T(1));
@@ -258,10 +310,10 @@ __device__ void family(const Args<T>& g, const int* s, int64_t i, T& t_new, T& l
   {
     T e4[4][3];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) normal_strain(g, qc[c], e4[c]);
+    for (int c = 0; c < 4; ++c) v.normal(wc[c], e4[c]);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      t6[j] = avg4(g.tc[j][qc[0]], g.tc[j][qc[1]], g.tc[j][qc[2]], g.tc[j][qc[3]]);
+      t6[j] = avg4(v.tc(j, wc[0]), v.tc(j, wc[1]), v.tc(j, wc[2]), v.tc(j, wc[3]));
       e6[j] = avg4(e4[0][j], e4[1][j], e4[2][j], e4[3][j]);
     }
   }
@@ -270,12 +322,12 @@ __device__ void family(const Args<T>& g, const int* s, int64_t i, T& t_new, T& l
     for (int j = 0; j < 3; ++j) o6[j] = avg_at(g.to[K][j], g.tov[K][j], qc);
   }
   // the family's own shear lives here
-  t6[3 + K] = g.te[K][i];
-  e6[3 + K] = shear_strain(g, K, i);
+  t6[3 + K] = v.te(K, vi);
+  e6[3 + K] = v.shear(K, vi);
   if (!HOIST) o6[3 + K] = at(g.to[K][3 + K], g.tov[K][3 + K], i);
   // the two other families interpolate over
-  other_family<T, K, (K + 1) % 3, HOIST>(g, s, t6, e6, o6);
-  other_family<T, K, (K + 2) % 3, HOIST>(g, s, t6, e6, o6);
+  other_family<T, K, (K + 1) % 3, HOIST>(g, v, s, t6, e6, o6);
+  other_family<T, K, (K + 2) % 3, HOIST>(g, v, s, t6, e6, o6);
   if (HOIST) {
 #pragma unroll
     for (int j = 0; j < 6; ++j) o6[j] = at(g.to[K][j], g.tov[K][j], i);
@@ -294,14 +346,18 @@ __device__ void family(const Args<T>& g, const int* s, int64_t i, T& t_new, T& l
   drucker_prager(g, Pv, tII, F, dQdP, volume);
   const bool yld = g.is_pl && tII != T(0) && F > T(0);
 
-  const T lam_old = g.le[K][i];
-  const T lam = g.one_minus_rel * lam_old +
-                g.rel * (clamp_lo(F, T(0)) / (eta_e * dtau + g.eta_reg + volume));
-  lam_new = yld ? lam : lam_old;
-  const T dQdt = g.pl_frac * T(0.5) * (tr[3 + K] / (tII == T(0) ? T(1) : tII));
-  const T e_pl = yld ? lam_new * dQdt : T(0);
+  // the multiplier and the plastic correction, where the slot yields
+  lam_new = g.le[K][i];
   const T d_own = d6[3 + K];
-  t_new = t6[3 + K] + (yld ? d_own - T(2) * eta_e * e_pl * dtau : d_own);
+  if (yld) {
+    lam_new = g.one_minus_rel * lam_new +
+              g.rel * (clamp_lo(F, T(0)) / (eta_e * dtau + g.eta_reg + volume));
+    const T dQdt = g.pl_frac * T(0.5) * (tr[3 + K] / (tII == T(0) ? T(1) : tII));
+    const T e_pl = lam_new * dQdt;
+    t_new = t6[3 + K] + (d_own - T(2) * eta_e * e_pl * dtau);
+  } else {
+    t_new = t6[3 + K] + d_own;
+  }
 }
 
 template <typename T, int K>
@@ -314,10 +370,13 @@ __device__ __forceinline__ bool owned(const Args<T>& g, const int* s) {
   return true;
 }
 
-template <typename T, int K, bool HOIST>
-__device__ __forceinline__ void run_family(const Args<T>& g, const int* s, int64_t i) {
-  T t = g.te[K][i], l = g.le[K][i];
-  if (owned<T, K>(g, s)) family<T, K, HOIST>(g, s, i, t, l);
+// Family K at slot s: the new tau_e and lambda_e where K owns the slot, the
+// input's values elsewhere
+template <typename T, int K, bool HOIST, class V>
+__device__ __forceinline__ void run_family(const Args<T>& g, const V& v, const int* s,
+                                           int64_t i, typename V::Index vi) {
+  T t = v.te(K, vi), l = g.le[K][i];
+  if (owned<T, K>(g, s)) family<T, K, HOIST>(g, v, s, i, vi, t, l);
   g.ote[K][i] = t;
   g.ole[K][i] = l;
 }
@@ -333,9 +392,10 @@ __global__ void __launch_bounds__(256) k_edges(const Args<T> g) {
   if (b > g.n[1] + 1 || c > g.n[2] + 1) return;
   const int s[3] = {a, b, c};
   const int64_t i = a * g.st[0] + b * g.st[1] + c;
-  if (FAM < 0 || FAM == 0) run_family<T, 0, HOIST>(g, s, i);
-  if (FAM < 0 || FAM == 1) run_family<T, 1, HOIST>(g, s, i);
-  if (FAM < 0 || FAM == 2) run_family<T, 2, HOIST>(g, s, i);
+  const GlobalView<T> v{g};
+  if (FAM < 0 || FAM == 0) run_family<T, 0, HOIST>(g, v, s, i, i);
+  if (FAM < 0 || FAM == 1) run_family<T, 1, HOIST>(g, v, s, i, i);
+  if (FAM < 0 || FAM == 2) run_family<T, 2, HOIST>(g, v, s, i, i);
 }
 
 // The plastic scalars (the order of ops/hopper_vep3d_edges.py _PP_FIELDS)
@@ -380,11 +440,12 @@ int launch_edges(const void* const* ptrs, const double* vals, int nx, int ny, in
 
   const dim3 blk(32, 8, 1);
   const dim3 grid((nz + 2 + 31) / 32, (ny + 2 + 7) / 8, nx + 2);
-  if (family < 0) k_edges<T, -1><<<grid, blk, 0, stream>>>(g);
-  else if (family == 0) k_edges<T, 0><<<grid, blk, 0, stream>>>(g);
-  else if (family == 1) k_edges<T, 1><<<grid, blk, 0, stream>>>(g);
-  else if (family == 2) k_edges<T, 2><<<grid, blk, 0, stream>>>(g);
-  else return (int)cudaErrorInvalidValue;
+  void (*kern)(const Args<T>) = family < 0 ? k_edges<T, -1>
+                                : family == 0 ? k_edges<T, 0>
+                                : family == 1 ? k_edges<T, 1>
+                                : family == 2 ? k_edges<T, 2> : nullptr;
+  if (!kern) return (int)cudaErrorInvalidValue;
+  kern<<<grid, blk, 0, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -467,21 +528,56 @@ __global__ void __launch_bounds__(256) k_cells(const Chunk<T> g) {
   g.out[C_TH][i] = th;
 }
 
-// The center return mapping at cell slot s: tau_c x6, lambda and the
-// corrected pressure, then the viscosity continuation, in place.
-template <typename T>
-__device__ void center(const Chunk<T>& g, int64_t i, T* tc, T& lam, T& P, T& eta) {
+// The stress pass's view: theta, tau_c and tau_e from device memory
+// (through the caches); the strain rates and 1/eta from shared memory,
+// where the block computed them once per point of its window (the three
+// normal components and 1/eta at the cells, the three shear components at
+// the edges) on x planes a-1..a+1 of a (SY + 2) x (SZ + 2) window around
+// its tile of slots.
+constexpr int SY = 8, SZ = 32;                        // a block's tile of slots
+constexpr int WY = SY + 2, WZ = SZ + 2, NW = WY * WZ;  // its strain window
+enum StrainField { F_EN = 0, F_ES = 3, F_IETA = 6, N_STRAIN = 7 };
+
+template <typename T> struct StrainView {
+  struct Index {
+    int64_t g;  // canvas index
+    int s;      // strain window index
+  };
+  const Args<T>& g;
+  const T* s;            // [N_STRAIN][3 planes][NW]
+  int a_lo, b_lo, c_lo;  // the window's origin
+  __device__ Index at(const int* c) const {
+    return {lin(g, c), ((c[0] - a_lo) * WY + (c[1] - b_lo)) * WZ + (c[2] - c_lo)};
+  }
+  __device__ T theta(Index p) const { return g.theta[p.g]; }
+  __device__ T inv_eta(Index p) const { return s[F_IETA * 3 * NW + p.s]; }
+  __device__ T tc(int j, Index p) const { return g.tc[j][p.g]; }
+  __device__ T te(int m, Index p) const { return g.te[m][p.g]; }
+  __device__ void normal(Index p, T* e) const {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) e[j] = s[(F_EN + j) * 3 * NW + p.s];
+  }
+  __device__ T shear(int m, Index p) const { return s[(F_ES + m) * 3 * NW + p.s]; }
+};
+
+// The center return mapping at cell slot s (canvas index i, view index vi):
+// tau_c x6, lambda and the corrected pressure, then the viscosity
+// continuation, in place.
+template <typename T, class V>
+__device__ void center(const Chunk<T>& g, const V& v, const int* s, int64_t i,
+                       typename V::Index vi,
+                       T* tc, T& lam, T& P, T& eta) {
   const Args<T>& e = g.e;
-  const int64_t sx = e.st[0], sy = e.st[1];
   T e6[6];
-  normal_strain(e, i, e6);
+  v.normal(vi, e6);
   // the shear strain rates, averaged from the four edges around the cell
-  e6[3] = avg4(shear_strain(e, 0, i - 1 - sy), shear_strain(e, 0, i - 1),
-               shear_strain(e, 0, i - sy), shear_strain(e, 0, i));
-  e6[4] = avg4(shear_strain(e, 1, i - 1 - sx), shear_strain(e, 1, i - 1),
-               shear_strain(e, 1, i - sx), shear_strain(e, 1, i));
-  e6[5] = avg4(shear_strain(e, 2, i - sy - sx), shear_strain(e, 2, i - sy),
-               shear_strain(e, 2, i - sx), shear_strain(e, 2, i));
+  auto sh = [&](int m, int da, int db, int dc) {
+    const int c[3] = {s[0] + da, s[1] + db, s[2] + dc};
+    return v.shear(m, v.at(c));
+  };
+  e6[3] = avg4(sh(0, 0, -1, -1), sh(0, 0, 0, -1), sh(0, 0, -1, 0), sh(0, 0, 0, 0));
+  e6[4] = avg4(sh(1, -1, 0, -1), sh(1, 0, 0, -1), sh(1, -1, 0, 0), sh(1, 0, 0, 0));
+  e6[5] = avg4(sh(2, -1, -1, 0), sh(2, 0, -1, 0), sh(2, -1, 0, 0), sh(2, 0, 0, 0));
   const T Gdt = T(1) / (at(g.c[K_GC], g.cv[K_GC], i) * e.dt);
   const T dtau = T(1) / (e.theta_dtau + eta * Gdt + T(1));
   T tr[6];
@@ -491,23 +587,24 @@ __device__ void center(const Chunk<T>& g, int64_t i, T* tc, T& lam, T& P, T& eta
     tr[j] = tc[j] + dtau * (T(2) * eta * e6[j] - (tc[j] - to) * eta * Gdt - tc[j]);
   }
   const T tII = inv_II(tr);
-  const T Pr = e.theta[i];
+  const T Pr = v.theta(vi);
   T F, dQdP, volume;
   drucker_prager(e, Pr, tII, F, dQdP, volume);
   const bool yld = e.is_pl && tII != T(0) && F > T(0);
-  T lam_new = e.one_minus_rel * lam +
-              e.rel * (clamp_lo(F, T(0)) / (eta * dtau + e.eta_reg + volume));
-  lam_new = yld ? lam_new : lam;
-  const T scale = e.pl_frac * T(0.5);
-  const T corr = T(2) * eta * dtau;
-  const T div = tII == T(0) ? T(1) : tII;
+  // the multiplier and the plastic correction, where the cell yields
+  if (yld) {
+    lam = e.one_minus_rel * lam +
+          e.rel * (clamp_lo(F, T(0)) / (eta * dtau + e.eta_reg + volume));
+    const T scale = e.pl_frac * T(0.5);
+    const T corr = T(2) * eta * dtau;
+    const T div = tII == T(0) ? T(1) : tII;
 #pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    const T epl = yld ? lam_new * scale * (tr[j] / div) : T(0);
-    tc[j] = yld ? tr[j] - corr * epl : tr[j];
+    for (int j = 0; j < 6; ++j) tc[j] = tr[j] - corr * (lam * scale * (tr[j] / div));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) tc[j] = tr[j];
   }
-  lam = lam_new;
-  P = Pr - (is_inf(e.K) ? T(0) : e.K * e.dt * lam_new * dQdP);
+  P = Pr - (is_inf(e.K) ? T(0) : e.K * e.dt * lam * dQdP);
 
   // viscosity continuation on the new tau_c: the creep target (a constant
   // for a linear table, else 1/eta = A + B tauII^m), relaxed and cut off
@@ -525,25 +622,61 @@ __device__ void center(const Chunk<T>& g, int64_t i, T* tc, T& lam, T& P, T& eta
   eta = tmin(tmax(eta_n, g.cut_lo), g.cut_hi);
 }
 
-// The center pass and the viscosity at the cells, and the three edge passes
-// on their owned slots; every other slot keeps its value.
+// The stress pass: the center pass and the viscosity at the cells, and
+// the three edge passes on their owned slots; every other slot keeps its
+// value. A block takes an SY x SZ tile of slots of one x plane a: it first
+// computes the strain rates of its window on planes a-1..a+1 into shared
+// memory (each point once, from V through the caches), then one thread per
+// slot runs the passes, reading the strain rates from there.
 template <typename T>
-__global__ void __launch_bounds__(256) k_stress(const Chunk<T> g) {
+__global__ void __launch_bounds__(SY * SZ) k_stress(const Chunk<T> g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);  // [N_STRAIN][3 planes][NW]
   const Args<T>& e = g.e;
-  SLOT_OR_RETURN(e)
+  const int nx = e.n[0], ny = e.n[1], nz = e.n[2];
+  const int64_t sx = e.st[0], sy = e.st[1];
+  const int a = blockIdx.z, b0 = blockIdx.y * SY, c0 = blockIdx.x * SZ;
+  const StrainView<T> v{e, sm, a - 1, b0 - 1, c0 - 1};
+
+  // ---- the strain rates of the window, where the passes read them
+  for (int q = threadIdx.y * SZ + threadIdx.x; q < 3 * NW; q += SY * SZ) {
+    const int pl = q / NW, r = q - pl * NW, wb = r / WZ, wc = r - wb * WZ;
+    const int p = a - 1 + pl, b = b0 - 1 + wb, c = c0 - 1 + wc;
+    if (p < 0 || p > nx + 1 || b < 0 || b > ny + 1 || c < 0 || c > nz + 1) continue;
+    const int64_t i = p * sx + b * sy + c;
+    T* out = sm + q;
+    if (p >= 1 && p <= nx && b >= 1 && b <= ny && c >= 1 && c <= nz) {
+      T en[3];
+      normal_strain(e, i, en);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) out[(F_EN + j) * 3 * NW] = en[j];
+      out[F_IETA * 3 * NW] = T(1) / e.eta[i];
+    }
+    if (b <= ny && c <= nz) out[F_ES * 3 * NW] = shear_strain(e, 0, i);
+    if (p <= nx && c <= nz) out[(F_ES + 1) * 3 * NW] = shear_strain(e, 1, i);
+    if (p <= nx && b <= ny) out[(F_ES + 2) * 3 * NW] = shear_strain(e, 2, i);
+  }
+  __syncthreads();
+
+  // ---- the passes, one thread per slot
+  const int b = b0 + threadIdx.y, c = c0 + threadIdx.x;
+  if (b > ny + 1 || c > nz + 1) return;
+  const int s[3] = {a, b, c};
+  const int64_t i = a * sx + b * sy + c;
+  const typename StrainView<T>::Index vi = v.at(s);
   T tc[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) tc[j] = g.in[C_TC + j][i];
   T lam = g.in[C_LAM][i], P = g.in[C_P][i], eta = g.in[C_ETA][i];
-  if (is_cell(e, s)) center(g, i, tc, lam, P, eta);
+  if (is_cell(e, s)) center(g, v, s, i, vi, tc, lam, P, eta);
 #pragma unroll
   for (int j = 0; j < 6; ++j) g.out[C_TC + j][i] = tc[j];
   g.out[C_LAM][i] = lam;
   g.out[C_P][i] = P;
   g.out[C_ETA][i] = eta;
-  run_family<T, 0, false>(e, s, i);
-  run_family<T, 1, false>(e, s, i);
-  run_family<T, 2, false>(e, s, i);
+  run_family<T, 0, false>(e, v, s, i, vi);
+  run_family<T, 1, false>(e, v, s, i, vi);
+  run_family<T, 2, false>(e, v, s, i, vi);
 }
 
 // Index of the interior slot the free-slip mirrors copy into a ghost slot
@@ -646,6 +779,15 @@ int launch_chunk(const void* const* ptrs, const double* vals, int nx, int ny, in
   }
   const dim3 blk(32, 8, 1);
   const dim3 grid((nz + 2 + 31) / 32, (ny + 2 + 7) / 8, nx + 2);
+  const dim3 sblk(SZ, SY, 1);
+  const dim3 sgrid((nz + 2 + SZ - 1) / SZ, (ny + 2 + SY - 1) / SY, nx + 2);
+  auto kc = k_cells<T>;
+  auto ks = k_stress<T>;
+  auto kv = k_velocity<T>;
+  const size_t smem = N_STRAIN * 3 * NW * sizeof(T);  // f64: above the 48 KB default
+  cudaError_t err = cudaFuncSetAttribute(ks, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
   for (int it = 0; it < nit; ++it) {
     const void* const* src = it == 0 ? ptrs : ptrs + N_CARRY * (1 + (it - 1) % 2);
     const void* const* dst = ptrs + N_CARRY * (1 + it % 2);
@@ -663,10 +805,10 @@ int launch_chunk(const void* const* ptrs, const double* vals, int nx, int ny, in
       e.ote[k] = g.out[C_TE + k];
       e.ole[k] = g.out[C_LE + k];
     }
-    k_cells<T><<<grid, blk, 0, stream>>>(g);
-    k_stress<T><<<grid, blk, 0, stream>>>(g);
-    k_velocity<T><<<grid, blk, 0, stream>>>(g);
-    const cudaError_t err = cudaGetLastError();
+    kc<<<grid, blk, 0, stream>>>(g);
+    ks<<<sgrid, sblk, smem, stream>>>(g);
+    kv<<<grid, blk, 0, stream>>>(g);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

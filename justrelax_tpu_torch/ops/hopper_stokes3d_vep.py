@@ -10,10 +10,13 @@ vep3d_blocked_supported`` and a phase-uniform Kb), the τ_o edge
 interpolants re-derived in the kernel.
 
 - ``stokes3d_vep_chunk`` is the wrapper. On CUDA tensors it launches
-  ``k_cells``, ``k_stress`` and ``k_velocity`` of ``csrc/stokes3d_vep.cu``
-  (the library the edge kernel's wrapper builds and loads): three launches
-  per iteration, counted by ``stokes3d_vep_chunk.launches``. It raises on a
-  launch error; on CPU tensors it runs the plain version.
+  ``k_cells``, ``k_stress`` (the stress pass, its strain rates computed once
+  per point into shared memory) and ``k_velocity`` of
+  ``csrc/stokes3d_vep.cu`` (the library the edge kernel's wrapper builds and
+  loads): three launches per iteration, counted by
+  ``stokes3d_vep_chunk.launches``. It raises on a launch error; on CPU
+  tensors it runs the plain version. ``_launch`` does the work on a given
+  library and stream (the tests run it on a CPU build of the source).
 - ``stokes3d_vep_chunk_reference`` is the plain version: the canvas chunk
   ``vep3d_chunk_canvas`` with its edge passes in PyTorch.
 - ``pack_chunk_consts`` turns the consts into what the kernel reads, once
@@ -134,6 +137,18 @@ def stokes3d_vep_chunk(c: VEP3DCanvasCarry, co, inv_di, nout, *, dt, r, theta_dt
     nit = int(nout)
     if nit <= 0:
         return c
+    with torch.cuda.device(P.device):
+        out = _launch(he._library(), torch.cuda.current_stream().cuda_stream, c, co, inv_di,
+                      nit, kw)
+    stokes3d_vep_chunk.launches += 3 * nit
+    return out
+
+
+def _launch(lib, stream, c, co, inv_di, nit, kw):
+    """Check the carry ``c``, pack the consts and run ``nit`` iterations of
+    the C function of ``lib`` (``hopper_vep3d_edges._bind``) on ``stream``;
+    returns the new carry. Raises on a launch error."""
+    P = c.P
     flat = (*c.V, c.P, c.theta, *c.tau_c, *c.tau_e, c.eta, c.lam, *c.lam_e)
     he._check(flat, "carry", who="stokes3d_vep_chunk")
     packed = pack_chunk_consts(co)
@@ -144,22 +159,19 @@ def stokes3d_vep_chunk(c: VEP3DCanvasCarry, co, inv_di, nout, *, dt, r, theta_dt
     eta_tau = torch.zeros_like(P)
     ptrs = [t.data_ptr() for t in (*flat, *work[0], *work[1], eta_tau)] + \
         [None if t is None else t.data_ptr() for t in packed.canvases]
-    vals = [*(float(v) for v in inv_di), float(dt), float(r), float(theta_dtau),
-            float(etadtau), float(lambda_relaxation), float(viscosity_relaxation),
-            float(viscosity_cutoff[0]), float(viscosity_cutoff[1]), *packed.scalars,
-            *packed.values, packed.visc_m, float(packed.has_fz), float(packed.linear)]
-    lib = he._library()
+    vals = [*(float(v) for v in inv_di), float(kw["dt"]), float(kw["r"]),
+            float(kw["theta_dtau"]), float(kw["etadtau"]), float(kw["lambda_relaxation"]),
+            float(kw["viscosity_relaxation"]), float(kw["viscosity_cutoff"][0]),
+            float(kw["viscosity_cutoff"][1]), *packed.scalars, *packed.values,
+            packed.visc_m, float(packed.has_fz), float(packed.linear)]
     fn = lib.jr_vep3d_chunk_f32 if P.dtype == torch.float32 else lib.jr_vep3d_chunk_f64
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_vals = (ctypes.c_double * len(vals))(*vals)
     X, Y, Z = P.shape
-    with torch.cuda.device(P.device):
-        err = fn(c_ptrs, c_vals, X - 2, Y - 2, Z - 2, nit,
-                 torch.cuda.current_stream().cuda_stream)
+    err = fn(c_ptrs, c_vals, X - 2, Y - 2, Z - 2, nit, stream)
     if err != 0:
         raise RuntimeError(f"stokes3d_vep_chunk: CUDA error {err}: "
                            f"{lib.jr_cuda_error_string(err).decode()}")
-    stokes3d_vep_chunk.launches += 3 * nit
     o = work[(nit - 1) % 2]
     return VEP3DCanvasCarry(V=tuple(o[:3]), P=o[3], theta=o[4], tau_c=tuple(o[5:11]),
                             tau_e=tuple(o[11:14]), eta=o[14], lam=o[15], lam_e=tuple(o[16:19]))

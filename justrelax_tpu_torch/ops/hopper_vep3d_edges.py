@@ -248,8 +248,24 @@ def vep3d_edges(V, theta, eta, tau_c_normals3, tau_e3, lam_e3, co, inv_di, *,
                                      lambda_relaxation=lambda_relaxation, split=split)
     if theta.device.type != "cuda":
         raise ValueError(f"vep3d_edges: unsupported device {theta.device}")
-    dyn = (*V, theta, eta, *tau_c_normals3, *tau_e3, *lam_e3)
+    with torch.cuda.device(theta.device):
+        out = _launch(_library(), torch.cuda.current_stream().cuda_stream,
+                      (*V, theta, eta, *tau_c_normals3, *tau_e3, *lam_e3), co, inv_di, dt,
+                      theta_dtau, lambda_relaxation, split)
+    if split:
+        vep3d_edges.split_launches += 3
+    else:
+        vep3d_edges.launches += 1
+    return out
+
+
+def _launch(lib, stream, dyn, co, inv_di, dt, theta_dtau, lambda_relaxation, split):
+    """Check the edge passes' inputs ``dyn`` (V×3, θ, η, the normal τ_c×3,
+    τ_e×3, λ_e×3), pack the consts and run the C function of ``lib`` (bound
+    by ``_bind``) on ``stream``: one launch (B6) or one per family (B9).
+    Returns (τ_e×3, λ_e×3); raises on a launch error."""
     _check(dyn, "input")
+    theta = dyn[3]
     packed = pack_edge_consts(co, split)
     consts = [c for c in (*packed.G, *(t for fam in packed.tau_o for t in fam))
               if c is not None]
@@ -265,25 +281,18 @@ def vep3d_edges(V, theta, eta, tau_c_normals3, tau_e3, lam_e3, co, inv_di, *,
     vals = [*(float(v) for v in inv_di), float(dt), float(theta_dtau),
             float(lambda_relaxation), *packed.scalars, *packed.G_val,
             *(v for fam in packed.tau_o_val for v in fam)]
-    lib = _library()
     fn = lib.jr_vep3d_edges_f32 if theta.dtype == torch.float32 else lib.jr_vep3d_edges_f64
     c_vals = (ctypes.c_double * len(vals))(*vals)
-    with torch.cuda.device(theta.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for fam in ((0, 1, 2) if split else (-1,)):
-            outs = [None] * 6
-            for k in ((0, 1, 2) if fam < 0 else (fam,)):
-                outs[k], outs[3 + k] = out_tau[k].data_ptr(), out_lam[k].data_ptr()
-            ptrs = [t.data_ptr() for t in dyn] + outs + [ptr(g) for g in packed.G] + tau_o_ptrs
-            c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-            err = fn(c_ptrs, c_vals, X - 2, Y - 2, Z - 2, fam, stream)
-            if err != 0:
-                raise RuntimeError(f"vep3d_edges: CUDA error {err}: "
-                                   f"{lib.jr_cuda_error_string(err).decode()}")
-            if split:
-                vep3d_edges.split_launches += 1
-            else:
-                vep3d_edges.launches += 1
+    for fam in ((0, 1, 2) if split else (-1,)):
+        outs = [None] * 6
+        for k in ((0, 1, 2) if fam < 0 else (fam,)):
+            outs[k], outs[3 + k] = out_tau[k].data_ptr(), out_lam[k].data_ptr()
+        ptrs = [t.data_ptr() for t in dyn] + outs + [ptr(g) for g in packed.G] + tau_o_ptrs
+        c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        err = fn(c_ptrs, c_vals, X - 2, Y - 2, Z - 2, fam, stream)
+        if err != 0:
+            raise RuntimeError(f"vep3d_edges: CUDA error {err}: "
+                               f"{lib.jr_cuda_error_string(err).decode()}")
     return out_tau, out_lam
 
 
@@ -310,11 +319,15 @@ def _check(tensors, what, like=None, who="vep3d_edges"):
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = load_library(SOURCE)
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    return _bind(load_library(SOURCE))
+
+
+def _bind(lib):
+    """``lib`` with the C functions of ``csrc/stokes3d_vep.cu`` typed."""
+    vp, i, dp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_double)
     for name in ("jr_vep3d_edges_f32", "jr_vep3d_edges_f64", "jr_vep3d_chunk_f32",
                  "jr_vep3d_chunk_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_double), i, i, i, i, vp]
+        fn.argtypes = [ctypes.POINTER(vp), dp, i, i, i, i, vp]
         fn.restype = i
     return lib

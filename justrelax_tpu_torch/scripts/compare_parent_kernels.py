@@ -1,25 +1,35 @@
-"""Time the 2D chunk kernels of a parent tree against this tree's, in turns,
-on one card.
+"""Time the redesigned chunk kernels of a parent tree against this tree's, in
+turns, on one card.
 
-    python -m justrelax_tpu_torch.scripts.compare_parent_kernels PARENT_DIR
+    python -m justrelax_tpu_torch.scripts.compare_parent_kernels PARENT_DIR [--kernels b7,b8,edges]
 
 Run from the root of a checkout (it takes its inputs from ``chip_smoke.py``).
-``PARENT_DIR`` holds the parent's ``justrelax_tpu_torch/ops/hopper_stokes.py``
-and ``hopper_stokes_vep.py`` and their ``justrelax_tpu_torch/csrc/stokes_ve.cu``
-and ``stokes_vep.cu``, for example unpacked from ``git archive <commit>``.
-Each parent wrapper is loaded from there with its own kernel source (built
-like this tree's, into ``justrelax_tpu_torch/_build/``). Both versions run
-on the main paths' first-chunk inputs at 1024² f32 (the shear band's first
-step, the shear band near yield, SolCx), in turns parent, this tree, this
-tree, parent, by CUDA events; each line also holds the bound from the words
-those inputs need and the two versions' largest difference after 200
-iterations. Prints one JSON line per kernel and state.
+``PARENT_DIR`` holds the parent's ``justrelax_tpu_torch/ops/hopper_*.py``
+wrappers and their ``justrelax_tpu_torch/csrc/*.cu`` sources, for example
+unpacked from ``git archive <commit> justrelax_tpu_torch/ops
+justrelax_tpu_torch/csrc``. Each parent wrapper is loaded from there with its
+own kernel source (built like this tree's, into ``justrelax_tpu_torch/_build/``).
+Both versions run on the main paths' first-chunk inputs, in turns parent,
+this tree, this tree, parent, by CUDA events:
+
+- ``2d``: B2/B3 at 1024² f32 on the shear band's first step and near yield,
+  B1/B4 on SolCx (gap after 200 iterations);
+- ``b7``: B7 on the SolVi 126³ f32 solve's first chunk (gap after 200);
+- ``b8``: B8 on the ShearBand3D 126³ f32 step's first chunk on
+  ``"blocked"`` and on its set-up near yield (gap after 50);
+- ``edges``: B6 and B9, which share B8's return mapping, per call on the
+  step's first-chunk inputs on ``"edges"`` and ``"edges_split"`` (gap after
+  one call).
+
+Each line holds the bound from the words those inputs need and the largest
+difference of each version from the plain version after the stated number
+of iterations, relative to each field's max. Prints one JSON line per kernel
+and state.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import math
 import subprocess
@@ -28,21 +38,20 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
-from justrelax_tpu_torch.models import shearband, solcx
+from justrelax_tpu_torch.models import shearband, shearband3d, solcx
 from justrelax_tpu_torch.ops import hopper_stokes as hs
+from justrelax_tpu_torch.ops import hopper_stokes3d as h3
+from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv
+from justrelax_tpu_torch.ops import hopper_vep3d_edges as he
 from justrelax_tpu_torch.ops.stencil import maxloc
+from justrelax_tpu_torch.solvers.stokes3d_vep import canvas_chunk_inputs
 
 
 def load_parent(parent: Path, name: str):
     """The parent's ``ops/<name>.py`` as a module of its own, its ``SOURCE``
     pointed at the parent's kernel source."""
-    path = parent / "justrelax_tpu_torch" / "ops" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.SOURCE = parent / "justrelax_tpu_torch" / "csrc" / mod.SOURCE.name
-    return mod
+    return cs.load_parent(name, parent)
 
 
 def vep_states(n, dev):
@@ -68,20 +77,116 @@ def solcx_inputs(n, dev):
     return args, kw
 
 
-def in_turns(old, new, args, kw, nk):
-    """ms per iteration of ``old`` and ``new`` in turns old, new, new, old."""
+def in_turns(old, new, nk):
+    """ms per iteration of ``old(nout)`` and ``new(nout)`` in turns old,
+    new, new, old."""
     def t(fn):
-        return cs.cuda_time_ms(lambda: fn(*args, nout=nk, **kw)) / nk
+        return cs.cuda_time_ms(lambda: fn(nk)) / nk
 
     o1, n1, n2, o2 = t(old), t(new), t(new), t(old)
     return [o1, o2], [n1, n2]
 
 
+def runs_2d(parent, dev, n):
+    """(kernel, state, parent(nout), new(nout), plain(nout), rel, words,
+    cells, gap iterations, extra keys) of B2/B3 and B1/B4."""
+    old_vep, old_ve = load_parent(parent, "hopper_stokes_vep"), load_parent(parent,
+                                                                            "hopper_stokes")
+    out = []
+    for label, (args, kw) in vep_states(n, dev).items():
+        out.append(("B2/B3 stokes_vep_chunk", label,
+                    lambda k, a=args, w=kw: old_vep.stokes_vep_chunk(*a, nout=k, **w),
+                    lambda k, a=args, w=kw: hv.stokes_vep_chunk(*a, nout=k, **w),
+                    lambda k, a=args, w=kw: hv.stokes_vep_chunk_reference(*a, nout=k, **w),
+                    cs.rel_diffs, hv.vep_chunk_words(*args, **kw), n * n, 200,
+                    {"bench_words": cs.WORDS_VEP}))
+    args, kw = solcx_inputs(n, dev)
+    out.append(("B1/B4 stokes_chunk", "solcx",
+                lambda k: old_ve.stokes_chunk(*args, nout=k, **kw),
+                lambda k: hs.stokes_chunk(*args, nout=k, **kw),
+                lambda k: hs.stokes_chunk_reference(*args, nout=k, **kw),
+                cs.rel_diffs_ve, hs.ve_chunk_words(*args, **kw), n * n, 200,
+                {"bench_words": cs.WORDS_VE}))
+    return out
+
+
+def runs_b7(parent, dev, n=126):
+    """B7 on the SolVi n³ f32 solve's first-chunk inputs."""
+    old = load_parent(parent, "hopper_stokes3d")
+    (carry, packed, inv_di), (eta, rho_g, _) = cs.solvi3d_inputs(n, torch.float32, dev)
+    old_packed = old.pack_coeffs(packed.co)
+    words = cs.ve3d_words(eta, maxloc(eta, 1), rho_g)
+    return [("B7 stokes3d_chunk", "solvi3d",
+             lambda k: old.stokes3d_chunk(carry, old_packed, inv_di, k),
+             lambda k: h3.stokes3d_chunk(carry, packed, inv_di, k),
+             lambda k: h3.stokes3d_chunk_reference(carry, packed, inv_di, k),
+             cs.rel_diffs_ve3d, words, n ** 3, 200,
+             {"streamed_words": h3.streamed_words(packed)})]
+
+
+def runs_b8(parent, dev, n=126):
+    """B8 on the ShearBand3D n³ f32 step's first chunk on "blocked", and on
+    its set-up near yield."""
+    old = load_parent(parent, "hopper_stokes3d_vep")
+    out = []
+    for label, (carry, co, inv_di, kw) in cs.vep3d_chunk_states(n, torch.float32,
+                                                                 dev).items():
+        old_co = old.pack_chunk_consts(co.co)
+        out.append(("B8 stokes3d_vep_chunk", label,
+                    lambda k, c=carry, o=old_co, i=inv_di, w=kw: old.stokes3d_vep_chunk(
+                        c, o, i, k, **w),
+                    lambda k, c=carry, o=co, i=inv_di, w=kw: hc.stokes3d_vep_chunk(
+                        c, o, i, k, **w),
+                    lambda k, c=carry, o=co, i=inv_di, w=kw: hc.stokes3d_vep_chunk_reference(
+                        c, o, i, k, **w),
+                    cs.rel_diffs_vep3d, cs.vep3d_chunk_words(co), n ** 3, 50, {}))
+    return out
+
+
+def runs_edges(parent, dev, n=126):
+    """B6 and B9 (which share B8's return mapping) on the ShearBand3D n³ f32
+    step's first-chunk inputs on their routes, per call; a timed call of
+    ``nout`` runs that many calls."""
+    old = load_parent(parent, "hopper_vep3d_edges")
+    geometry, st0, material, (pr_c, pr_e), _, pt, dt = shearband3d._setup(n, torch.float32,
+                                                                          dev)
+    kw = dict(dt=dt, r=pt.r, theta_dtau=pt.theta_dtau, etadtau=pt.etadtau,
+              lambda_relaxation=0.2, viscosity_relaxation=1.0)
+    inv_di = tuple(1.0 / d for d in geometry.di)
+
+    def rel(a, b):
+        return cs.rel_diffs_edges((*a[0], *a[1]), (*b[0], *b[1]))
+
+    def calls(fn, args, ekw, split):
+        def run(k):
+            for _ in range(k):
+                out = fn(*args, split=split, **ekw)
+            return out
+        return run
+
+    out = []
+    for name, route, split in (("B6 vep3d_edges", "edges", False),
+                               ("B9 vep3d_edges_split", "edges_split", True)):
+        carry, _, packed = canvas_chunk_inputs(st0, material, pr_c, pr_e, route=route)
+        args, ekw = cs.edge_args(carry, packed, inv_di, kw)
+        old_args = args[:6] + (old.pack_edge_consts(packed.co, split),) + args[7:]
+        out.append((name, "first_chunk", calls(old.vep3d_edges, old_args, ekw, split),
+                    calls(he.vep3d_edges, args, ekw, split),
+                    calls(he.vep3d_edges_reference, args, ekw, split), rel,
+                    cs.vep3d_edges_words(packed), n ** 3, 1, {"per": "call"}))
+    return out
+
+
+RUNS = {"2d": runs_2d, "b7": runs_b7, "b8": runs_b8, "edges": runs_edges}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("parent", type=Path)
-    p.add_argument("--n", type=int, default=1024)
-    p.add_argument("--iters", type=int, default=500)
+    p.add_argument("--kernels", default="2d,b7,b8,edges",
+                   help="comma-separated: " + ", ".join(RUNS))
+    p.add_argument("--n", type=int, default=1024, help="the 2D grid")
+    p.add_argument("--iters", type=int, default=200, help="iterations per timed call")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_parent_kernels: no CUDA device")
@@ -90,32 +195,26 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     kind = "PCIe" if "PCIe" in torch.cuda.get_device_name(0) else "SXM"
-    old_vep, old_ve = load_parent(a.parent, "hopper_stokes_vep"), load_parent(a.parent,
-                                                                              "hopper_stokes")
-    n = a.n
-    runs = [("B2/B3 stokes_vep_chunk", label, old_vep.stokes_vep_chunk, hv.stokes_vep_chunk,
-             hv.stokes_vep_chunk_reference, cs.rel_diffs, args, kw,
-             hv.vep_chunk_words(*args, **kw), cs.WORDS_VEP)
-            for label, (args, kw) in vep_states(n, dev).items()]
-    args, kw = solcx_inputs(n, dev)
-    runs.append(("B1/B4 stokes_chunk", "solcx", old_ve.stokes_chunk, hs.stokes_chunk,
-                 hs.stokes_chunk_reference, cs.rel_diffs_ve, args, kw,
-                 hs.ve_chunk_words(*args, **kw), cs.WORDS_VE))
-    for name, label, old, new, plain, rel, args, kw, words, words_bench in runs:
-        o, nw = in_turns(old, new, args, kw, a.iters)
-        ref = plain(*args, nout=200, **kw)
-        gap_new = max(rel(new(*args, nout=200, **kw), ref).values())
-        gap_old = max(rel(old(*args, nout=200, **kw), ref).values())
-        bound = cs.bound_ms(words, n * n, 4, kind)
-        print(json.dumps({
-            "kernel": name, "state": label, "n": n, "dtype": "float32",
-            "parent_ms_per_iter": o, "new_ms_per_iter": nw,
-            "speedup": min(o) / min(nw), "words": words, "bound_ms": bound,
-            "parent_bound_share": bound / min(o), "new_bound_share": bound / min(nw),
-            "bench_words": words_bench,
-            "bound_ms_bench_words": cs.bound_ms(words_bench, n * n, 4, kind),
-            "parent_vs_plain_200": gap_old, "new_vs_plain_200": gap_new,
-            "nvidia_smi": smi}), flush=True)
+    for key in a.kernels.split(","):
+        args = (a.parent, dev, a.n) if key == "2d" else (a.parent, dev)
+        for name, label, old, new, plain, rel, words, cells, gap_it, extra in RUNS[key](*args):
+            o, nw = in_turns(old, new, a.iters)
+            ref = plain(gap_it)
+            gap_new = max(rel(new(gap_it), ref).values())
+            gap_old = max(rel(old(gap_it), ref).values())
+            gap_pair = max(rel(new(gap_it), old(gap_it)).values())
+            bound = cs.bound_ms(words, cells, 4, kind)
+            line = {
+                "kernel": name, "state": label, "cells": cells, "dtype": "float32",
+                "parent_ms_per_iter": o, "new_ms_per_iter": nw,
+                "speedup": min(o) / min(nw), "words": words, "bound_ms": bound,
+                "parent_bound_share": bound / min(o), "new_bound_share": bound / min(nw),
+                f"parent_vs_plain_{gap_it}": gap_old, f"new_vs_plain_{gap_it}": gap_new,
+                f"new_vs_parent_{gap_it}": gap_pair, "nvidia_smi": smi}
+            if "bench_words" in extra:
+                extra = dict(extra, bound_ms_bench_words=cs.bound_ms(
+                    extra["bench_words"], cells, 4, kind))
+            print(json.dumps({**line, **extra}), flush=True)
 
 
 if __name__ == "__main__":

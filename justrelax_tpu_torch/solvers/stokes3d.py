@@ -57,16 +57,20 @@ def kernel_chunk_inputs(stokes, pt_stokes, geometry, rho_g, G, K, dt):
     """What the kernel path of :func:`solve_ve_3d` hands its first chunk,
     from the state ``stokes``: (carry, packed coefficients, inv_di). The
     coefficients are built once per solve, with ψ from η as the array
-    path's ``compute_P`` takes it."""
+    path's ``compute_P`` takes it; the kernel derives from η and ητ those
+    it computes bit for bit (on SolVi, dt = ∞, all that vary)."""
     eta = stokes.viscosity.eta
+    eta_tau = maxloc(eta, window=1)
     fx, fy, fz = rho_g
+    r, theta_dtau, etadtau = pt_stokes.r, pt_stokes.theta_dtau, pt_stokes.etadtau
     co = ve3d_canvas_coefficients(
-        eta, maxloc(eta, window=1), pt_stokes.r, pt_stokes.theta_dtau, pt_stokes.etadtau,
+        eta, eta_tau, r, theta_dtau, etadtau,
         fx=fx, fy=fy, fz=fz, psi_eta=eta, G=G, K=K, P0=stokes.P0, Q=stokes.Q,
         tau_o=_tensor6(stokes.tau_o), dt=dt)
     V = stokes.V
     carry = pack_carry(V.Vx, V.Vy, V.Vz, stokes.P, *_tensor6(stokes.tau))
-    return carry, pack_coeffs(co), k3.spacing_families_3d(geometry)[0]
+    packed = pack_coeffs(co, derive_from=(eta, eta_tau, (r / theta_dtau, theta_dtau, etadtau)))
+    return carry, packed, k3.spacing_families_3d(geometry)[0]
 
 
 def solve_ve_3d(

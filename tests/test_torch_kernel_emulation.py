@@ -1,4 +1,4 @@
-"""The tiled 2D chunk kernels' CUDA sources run on the CPU under a host
+"""The tiled chunk kernels' CUDA sources run on the CPU under a host
 emulation (``tests/cuda_emu.h``: a block's threads as std::threads meeting at
 a barrier, shared memory starting as NaN), built with the host's C++
 compiler, against their plain PyTorch versions:
@@ -10,7 +10,16 @@ compiler, against their plain PyTorch versions:
 - ``csrc/stokes_ve.cu`` (B1/B4): the three configurations of
   ``chip_smoke.ve_case`` and ragged random states, with and without the
   free-slip ghosts;
-- ``csrc/window_copy.cu`` (R): the three modes, with ``cp.async`` as a copy.
+- ``csrc/window_copy.cu`` (R): the three modes, with ``cp.async`` as a copy;
+- ``csrc/stokes3d_ve.cu`` (B7): ragged grids that do not fill the (y, z)
+  tile, in the viscous form, the general form with dt = ∞ (its varying
+  coefficients derived from η and ητ) and with a finite dt (streamed, but
+  for the face coefficients), on the ``viscous_consts`` route, with and
+  without the free-slip ghosts, and with the x extent split over blocks;
+- ``csrc/stokes3d_vep.cu``: B8 (the fused 3D VEP chunk, its stress pass
+  tiled) in the five configurations of ``chip_smoke.py``'s phase 22 at
+  8³–11³, and B6 and B9 (the edge passes, which share its edge code) in
+  the four of phase 18.
 
 Each call goes through the wrapper's own ``_launch`` (argument checks, slot
 packing, work sets). This checks the kernels' index arithmetic, halos, tile
@@ -21,6 +30,7 @@ to 1e-13 here. Skips where no C++20 compiler exists.
 """
 
 import ctypes
+import math
 import re
 import shutil
 import subprocess
@@ -32,14 +42,26 @@ import torch
 
 from chip_smoke import (
     FACE_MODES,
+    VEP3D_CASES,
+    VEP3D_CHUNK_CASES,
     chunk_case,
+    edge_args,
+    flat_vep_carry,
     rel_diffs,
     rel_diffs_ve,
+    rel_diffs_edges,
+    rel_diffs_ve3d,
+    rel_diffs_vep3d,
+    ve3d_case,
     ve_case,
     ve_random_case,
+    vep3d_case,
     vep_random_case,
 )
 from justrelax_tpu_torch.ops import hopper_stokes as hs
+from justrelax_tpu_torch.ops import hopper_stokes3d as h3
+from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc
+from justrelax_tpu_torch.ops import hopper_vep3d_edges as he
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv
 from justrelax_tpu_torch.ops import hopper_window_copy as hw
 
@@ -59,7 +81,8 @@ def _emulated(source: Path, out: Path, bind):
     # cp.async: a plain copy; commit and wait have nothing to do
     for name, body in (("cp_async16", "std::memcpy(smem, gmem, 16);"),
                        ("cp_async_elem", "*smem = *gmem;"),
-                       ("cp_async_commit", ""), ("cp_async_wait_all", "")):
+                       ("cp_async_commit", ""), ("cp_async_wait_all", ""),
+                       ("cp_async_wait_group", "")):
         text = re.sub(r"__device__ __forceinline__ void " + name + r"\((.*?)\) \{.*?\n\}",
                       "inline void " + name + r"(\1) { " + body + " }", text, flags=re.S)
     assert "asm volatile" not in text
@@ -79,7 +102,7 @@ def libs(tmp_path_factory):
         pytest.skip("needs a C++20 compiler on the host")
     d = tmp_path_factory.mktemp("emulated")
     return {mod: _emulated(mod.SOURCE, d / f"lib{mod.SOURCE.stem}.so", mod._bind)
-            for mod in (hv, hs, hw)}
+            for mod in (hv, hs, hw, h3, he)}
 
 
 def _vep(libs, args, kw, nout):
@@ -155,3 +178,82 @@ def test_window_copy_kernel(libs, mode, shape, params):
     src = torch.as_tensor(np.random.default_rng(7).standard_normal(shape), dtype=torch.float32)
     out = hw._launch(libs[hw], None, src, mode, *params)
     assert torch.equal(out, hw.window_copy_reference(src, mode, *params))
+
+
+def _guarded(t):
+    """``t`` copied into the middle of a NaN buffer two x planes longer at
+    each end: a kernel that reads past the canvas reads NaN."""
+    pad = 2 * t[0].numel()
+    buf = torch.full((t.numel() + 2 * pad,), math.nan, dtype=t.dtype)
+    buf[pad:pad + t.numel()] = t.reshape(-1)
+    return buf[pad:pad + t.numel()].view(t.shape)
+
+
+def _ve3d(libs, carry, co, inv_di, nout, free_slip, derive_from, x_planes=None):
+    carry = tuple(_guarded(t) for t in carry)
+    before = [t.clone() for t in carry]
+    out = h3._launch(libs[h3], None, carry, co, inv_di, nout, free_slip, derive_from,
+                     x_planes)
+    assert all(torch.equal(a, b) for a, b in zip(before, carry))  # input not written
+    return out
+
+
+RAGGED_3D = [(5, 4, 3), (11, 8, 6), (22, 9, 7), (4, 10, 35), (3, 5, 70)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["viscous", "ve_dt_inf", "ve_general", "viscous_consts",
+                                  "viscous_no_free_slip"])
+@pytest.mark.parametrize("ni", RAGGED_3D)
+def test_ve3d_kernel_ragged_tiles(libs, ni, case, dtype):
+    """B7 against its plain version after 1 and 3 iterations, the second with
+    the x extent split into ranges of 2 planes; the slot table derives what
+    it should (all 8 varying canvases where dt = ∞, the face coefficients
+    with a finite dt)."""
+    form = "viscous" if case == "viscous_consts" else case
+    carry, co, inv_di, free_slip, (consts, scalars) = ve3d_case(form, ni, dtype, "cpu")
+    derive_from = (consts[0], consts[1], scalars)
+    if case == "viscous_consts":
+        co, derive_from = h3._coefficients(None, consts, scalars)
+    packed = h3.pack_coeffs(co, dtype, derive_from)
+    names = packed.derived.names
+    want = h3.DERIVABLE[5:] if case == "ve_general" else h3.DERIVABLE
+    assert names == want, names
+    for nout, x_planes in ((1, None), (3, 2)):
+        out = _ve3d(libs, carry, packed, inv_di, nout, free_slip, None, x_planes)
+        ref = h3.stokes3d_chunk_reference(carry, co, inv_di, nout, free_slip=free_slip)
+        worst = max(rel_diffs_ve3d(out, ref).values())
+        assert worst <= TOL[dtype], (nout, worst)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", VEP3D_CHUNK_CASES)
+def test_vep3d_chunk_kernel(libs, case, dtype):
+    """B8 against its plain version after 1 and 3 iterations; the input
+    carry is not written."""
+    n = {"blocked_plastic": 8, "blocked_elastic": 9}.get(case, 10)
+    carry, co, _, _, inv_di, kw = vep3d_case(case, dtype, "cpu", n=n)
+    kw = dict(kw, viscosity_cutoff=kw.get("viscosity_cutoff", (-math.inf, math.inf)))
+    carry = carry._replace(**{
+        k: tuple(map(_guarded, v)) if isinstance(v, tuple) else _guarded(v)
+        for k, v in carry._asdict().items()})
+    before = [t.clone() for t in flat_vep_carry(carry)]
+    for nit in (1, 3):
+        out = hc._launch(libs[he], None, carry, co, inv_di, nit, kw)
+        ref = hc.stokes3d_vep_chunk_reference(carry, co, inv_di, nit, **kw)
+        worst = max(rel_diffs_vep3d(out, ref).values())
+        assert worst <= TOL[dtype], (nit, worst)
+    assert all(torch.equal(a, b) for a, b in zip(before, flat_vep_carry(carry)))
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("case", VEP3D_CASES)
+def test_vep3d_edges_kernel(libs, case, split):
+    """B6 (B9 with ``split``) against their plain version, f64, one call."""
+    carry, co6, co9, _, inv_di, kw = vep3d_case(case, torch.float64, "cpu", n=8)
+    args, ekw = edge_args(carry, co9 if split else co6, inv_di, kw)
+    V, theta, eta, tcn, te, le, co, inv = args
+    out = he._launch(libs[he], None, (*V, theta, eta, *tcn, *te, *le), co, inv, ekw["dt"],
+                     ekw["theta_dtau"], ekw["lambda_relaxation"], split)
+    ref = he.vep3d_edges_reference(*args, split=split, **ekw)
+    assert max(rel_diffs_edges((*out[0], *out[1]), (*ref[0], *ref[1])).values()) <= TOL[torch.float64]
