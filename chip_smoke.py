@@ -82,14 +82,18 @@ Run from the root of a checkout. Phases, each printing JSON lines:
 17. timing_ve3d: per-iteration time of the 3D kernel and its plain version
               at 126^3 and 254^3 f32 (bench_kernels.py's ve3d set-up), by
               CUDA events.
-18. parity_vep3d: the 3D VEP edge kernel (B6, and B9 per family) against
-              its plain version, f64 and f32: one call, then hybrid chunks of
-              1 and 50 iterations, in four configurations (the set-up of
-              tests/test_pallas_vep3d_blocked.py at 10^3, plastic on and
-              off; a non-cubic (11, 8, 6) grid with random state near yield,
-              dilatancy and a tension cap; ShearBand3D at 10^3 with Kb = inf
-              and old stresses near yield); the slots a family does not own
-              come back bit-equal.
+18. parity_vep3d: the 3D VEP edge kernel (B6, and B9 on the hoisted
+              interpolants) against its plain version, f64 and f32: one
+              call, then hybrid chunks of 1 and 50 iterations, in four
+              configurations (the set-up of tests/test_pallas_vep3d_blocked.py
+              at 10^3, plastic on and off; a non-cubic (11, 8, 6) grid with
+              random state near yield, dilatancy and a tension cap;
+              ShearBand3D at 10^3 with Kb = inf and old stresses near
+              yield); then one call on ragged grids (VEP3D_EDGE_RAGGED) that
+              leave the kernel's (y, z) tile unfilled, span two tiles and
+              split x into ranges; the slots a family does not own come back
+              bit-equal; with --parent DIR each call also against the parent
+              commit's kernel.
 19. golden_vep3d: the vep3d_hybrid configuration of bench.py at 10^3 f64
               through the default entry point (B6), on the "blocked" route
               (B8) and on the serial path, on bench.py's gates (ShearBand3D's
@@ -101,10 +105,14 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               it; B6 and its plain version timed on the solve's first-chunk
               inputs; then 200 iterations of the same step on the
               "edges_split" route (B9), its launches read around it, and B9
-              timed on that route's first-chunk inputs; then ShearBand3D's
+              timed on that route's first-chunk inputs; one f64 call of each
+              on those inputs against the plain version; then ShearBand3D's
               set-up at 126^3 with stresses near yield: one call and 50
               hybrid iterations of B6 and B9 against the plain version, f64
-              and f32, lambda_e > 0, and B6's time there.
+              and f32, lambda_e > 0, and their times there. Each time comes
+              with its bound (the larger of the words over the HBM peak and
+              the operations, vep3d_edges_ops, over the f32 peak) and, with
+              --parent DIR, the parent commit's kernel timed in turns.
 21. timing_vep3d: bench_kernels.py's pallas_vep3d_edges configuration at
               126^3 f32: B6, B9 and vep3d_edges_reference per call, and the
               hybrid iteration against the plain canvas iteration per PT
@@ -137,7 +145,8 @@ Run from the root of a checkout. Phases, each printing JSON lines:
 Bounds are the bytes an iteration must move over the HBM peak, counted from
 the run's own inputs (hopper_stokes_vep.vep_chunk_words and
 hopper_stokes.ve_chunk_words for the 2D chunks, ve3d_words for the 3D VE
-kernel, vep3d_edges_words for the edge kernel, vep3d_chunk_words for the
+kernel, vep3d_edges_words for the edge kernel, with its operations over the
+f32 peak beside them (vep3d_edges_ops), vep3d_chunk_words for the
 fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failure
@@ -263,6 +272,10 @@ URMS0_F64 = 0.29207194481326537  # blankenbach 32^2 f64 after one step (bench.py
 VEP3D_CASES = ("blocked_plastic", "blocked_elastic", "noncubic_near_yield",
                "shearband3d_kb_inf")
 VEP3D_CHUNK_CASES = VEP3D_CASES + ("buoyant_powerlaw",)
+# grids of "noncubic_near_yield" for the edge kernel: they leave its 4 x 32
+# (y, z) tile unfilled, span two or more y and z tiles, and give x ranges
+# of one or two planes on a card of 132 SMs
+VEP3D_EDGE_RAGGED = ((5, 4, 3), (3, 9, 33), (9, 5, 4), (130, 9, 37))
 VEP3D_EDGE_FIELDS = ("tyz", "txz", "txy", "lam_yz", "lam_xz", "lam_xy")
 VEP3D_CARRY_FIELDS = ("Vx", "Vy", "Vz", "P", "theta", "txx", "tyy", "tzz", "tyz_c", "txz_c",
                       "txy_c", "tyz", "txz", "txy", "eta", "lam", "lam_yz", "lam_xz", "lam_xy")
@@ -707,6 +720,33 @@ def load_parent(name, parent=None):
     if hasattr(mod, "he"):  # the fused chunk builds its library through the edge module
         mod.he = load_parent("hopper_vep3d_edges", parent)
     return mod
+
+
+@functools.lru_cache(maxsize=None)
+def parent_edges():
+    """The parent tree's edge-kernel module (--parent DIR), or None."""
+    return load_parent("hopper_vep3d_edges")
+
+
+def vs_parent_edges(args, ekw, out, split, label):
+    """``out`` (τ_e×3, λ_e×3) against the parent tree's edge kernel on these
+    ``vep3d_edges`` arguments: {"equals_parent": bit for bit,
+    "vs_parent": the largest difference relative to each field's max}, or
+    {} without --parent. The two differ where the compiler contracted a
+    product and a sum into a fused multiply-add in one and not the other, so
+    they are held to each other as to the plain version: 1e-12 in f64, 1e-4
+    in f32."""
+    old = parent_edges()
+    if old is None:
+        return {}
+    co = args[6].co if isinstance(args[6], he.PackedEdgeConsts) else args[6]
+    ref = old.vep3d_edges(*args[:6], co, args[7], split=split, **ekw)
+    ref = (*ref[0], *ref[1])
+    gap = max(rel_diffs_edges(out, ref).values())
+    tol = TOL_VEP3D_CALL if out[0].dtype == torch.float64 else TOL_F32_1024
+    check(gap <= tol, f"{label}: {gap} from the parent kernel")
+    return {"equals_parent": all(torch.equal(a, b) for a, b in zip(out, ref)),
+            "vs_parent": gap}
 
 
 def bound_ms(words, n_cells, itemsize, kind):
@@ -1478,7 +1518,7 @@ def run_ve3d(dev, smi, kind):
 
 
 # ---- the 3D VEP edge kernel (B6/B9) ----------------------------------------
-def vep3d_numpy(name, n=10):
+def vep3d_numpy(name, n=10, ni=None):
     """numpy inputs of one configuration of the edge kernel's parity phase,
     from a seed: a dict with the grid (``ni``, ``li``), the materials
     (``mats``, Material keyword dicts), the cell phase index, the staggered
@@ -1491,12 +1531,13 @@ def vep3d_numpy(name, n=10):
     plasticity on, C = 1e9 with it off). "noncubic_near_yield" is a
     (11, 8, 6) grid with unequal spacings, random stresses, multipliers and
     pressures around the yield stress, dilatancy, a tension cap and a finite
-    Kb, on a random two-phase field (seed 11). "buoyant_powerlaw" adds to it
+    Kb, on a random two-phase field (seed 11), or the same on the grid
+    ``ni``. "buoyant_powerlaw" adds to it
     a density ρ(T, P)·g with a random temperature (seed 2) and a power-law
     creep table (n = 3): the body force and the power-law viscosity target
     of the fused chunk."""
     if name == "buoyant_powerlaw":
-        d = vep3d_numpy("noncubic_near_yield", n)
+        d = vep3d_numpy("noncubic_near_yield", n, ni)
         d["mats"] = [dict(m, rho0=1.0 + k, alpha=0.1, T0=0.5, beta=0.01, gravity=1.0,
                           disl_A=0.5, disl_n=3.0) for k, m in enumerate(d["mats"])]
         d["T"] = 0.5 + 0.1 * np.random.default_rng(2).standard_normal(d["ni"])
@@ -1524,7 +1565,7 @@ def vep3d_numpy(name, n=10):
                  tau_o_c=(txx_o, -txx_o, z, z, z, z), tau_o_e=edges, EII=z, P0=z, Q=z,
                  dt=0.125)
     elif name == "noncubic_near_yield":
-        ni, li = (11, 8, 6), (1.0, 1.0, 1.0)
+        ni, li = ni or (11, 8, 6), (1.0, 1.0, 1.0)
         nx, ny, nz = ni
         rng = np.random.default_rng(11)
         common = dict(rho0=0.0, Kb=6.0, is_plastic=1.0, C=0.3 / math.cos(math.radians(30.0)),
@@ -1570,10 +1611,11 @@ def _vep3d_inputs(geometry, material, pr_c, pr_e, V, P, theta, tau_c, tau_e, eta
     return carry, co6, co9, material, tuple(1.0 / d for d in geometry.di), kw
 
 
-def vep3d_case(name, dtype, dev, n=10):
+def vep3d_case(name, dtype, dev, n=10, ni=None):
     """Inputs of the 3D VEP kernels' parity phases: (carry, consts for B6
     and B8, consts for B9, material, inv_di, chunk keywords). The numpy
-    configurations of :func:`vep3d_numpy`, and "shearband3d_kb_inf":
+    configurations of :func:`vep3d_numpy` (``ni``: the grid of
+    "noncubic_near_yield"), and "shearband3d_kb_inf":
     ShearBand3D's own set-up (``models/shearband3d._setup``, Kb = ∞) at n³
     with random stresses, multipliers and old stresses around its yield
     stress 1.6 (seed 13)."""
@@ -1600,7 +1642,7 @@ def vep3d_case(name, dtype, dev, n=10):
             st.viscosity.eta, st.lam, tuple(r(*s, scale=0.05).abs() for s in eshape),
             normals + tuple(r(*ni) for _ in range(3)), tuple(r(*s) for s in eshape),
             st.EII_pl, st.P, st.Q, dt, pt)
-    d = vep3d_numpy(name, n)
+    d = vep3d_numpy(name, n, ni)
     geometry = Geometry(d["ni"], d["li"])
     material = MaterialStack.make([Material(**m) for m in d["mats"]], **kw)
     pr = phase_ratios_from_field(torch.as_tensor(d["phase"], device=dev), 2, dtype=dtype)
@@ -1620,6 +1662,14 @@ def edge_args(carry, co, inv_di, kw):
              inv_di),
             dict(dt=kw["dt"], theta_dtau=kw["theta_dtau"],
                  lambda_relaxation=kw["lambda_relaxation"]))
+
+
+def check_edges_kept(carry, out, label):
+    """The slots a family does not own come back bit-equal to the input."""
+    _, Me = edge_masks(tuple(carry.P.shape), carry.P.device)
+    kept = all(torch.equal(o[~Me[k % 3].expand(o.shape)], b[~Me[k % 3].expand(o.shape)])
+               for k, (o, b) in enumerate(zip(out, (*carry.tau_e, *carry.lam_e))))
+    check(kept, f"{label}: a slot outside the owned edges moved")
 
 
 def flat_vep_carry(c: VEP3DCanvasCarry):
@@ -1688,6 +1738,55 @@ def vep3d_edges_words(packed):
     tau_o = packed.tau_o if packed.split else packed.tau_o[:1]
     return 20 + sum(g is not None for g in packed.G) + \
         sum(t is not None for fam in tau_o for t in fam)
+
+
+# Operations of the edge passes (each add, subtract, multiply, division and
+# root one; comparisons and selects none), counted from csrc/stokes3d_vep.cu:
+# per owned slot of a family, the eight center averages (6 each), 1/eta_e,
+# 1/(G_e dt) and dtau (7), the four averages of the two other families (24),
+# the trial stress (54), its invariant (13), the cone without a tension cap
+# (6; with one 15; the volume term with a finite K 3) and the update (1);
+# a slot that yields 15 more, and each tau_o canvas B6 averages 6; per
+# point, once, the normal strain rates and 1/eta at a cell (15) and the
+# three shear strain rates at an edge point (18)
+EDGE_FAMILY_OPS, EDGE_CAP_OPS, EDGE_K_OPS, EDGE_YIELD_OPS, EDGE_AVG_OPS = 153, 9, 3, 15, 6
+EDGE_CELL_OPS, EDGE_POINT_OPS = 15, 18
+FLOPS_F32 = {"PCIe": 51.2e12, "SXM": 67.0e12}  # FLOP/s outside the tensor cores, data sheets
+
+
+def vep3d_edges_ops(packed, lam_in, lam_out):
+    """Operations one edge-kernel call needs on these inputs (the counts
+    above): the slots each family owns, the ones that yield (λ_e moved from
+    ``lam_in`` to ``lam_out``), whether a tension cap or a finite K is
+    there, and for B6 each τ_o canvas a family averages."""
+    shape = tuple(lam_in[0].shape)
+    nx, ny, nz = (d - 2 for d in shape)
+    _, Me = edge_masks(shape, lam_in[0].device)
+    pT, K = packed.scalars[7], packed.scalars[-1]
+    per = EDGE_FAMILY_OPS + (EDGE_CAP_OPS if pT != 0 else 0) + \
+        (EDGE_K_OPS if math.isfinite(K) else 0)
+    ops = nx * ny * nz * EDGE_CELL_OPS + (nx + 1) * (ny + 1) * (nz + 1) * EDGE_POINT_OPS
+    for k, (m, a, b) in enumerate(zip(Me, lam_in, lam_out)):
+        m = m.expand(shape)
+        averaged = 0 if packed.split else sum(
+            packed.tau_o[k][j] is not None for j in (0, 1, 2, 3 + (k + 1) % 3, 3 + (k + 2) % 3))
+        ops += int(m.sum()) * (per + EDGE_AVG_OPS * averaged)
+        ops += int((m & (a != b)).sum()) * EDGE_YIELD_OPS
+    return ops
+
+
+def edge_bounds(packed, lam_in, lam_out, kind):
+    """(bound_ms, bound_by, bytes bound ms, operations bound ms, words,
+    operations) of one edge-kernel call on these f32 inputs: the larger of
+    the words it must move over the HBM peak and its operations over the
+    f32 peak."""
+    words = vep3d_edges_words(packed)
+    n = math.prod(d - 2 for d in lam_in[0].shape)
+    by_bytes = bound_ms(words, n, 4, kind)
+    ops = vep3d_edges_ops(packed, lam_in, lam_out)
+    by_ops = ops / FLOPS_F32[kind] * 1e3
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", by_bytes,
+            by_ops, words, ops)
 
 
 def vep3d_hybrid_setup(dtype, dev):
@@ -1769,6 +1868,46 @@ def time_pair(kernel, plain, nk=1, npl=1):
     return [tk1, tk2], [tp1, tp2]
 
 
+EDGE_CALLS = 20  # edge-kernel calls per timed run
+
+
+def time_edges_main(args, ekw, split, kind, smi, state="first_chunk"):
+    """B6 (B9 with ``split``) per call over EDGE_CALLS calls back to back,
+    and its plain version per call, on these f32 inputs, in turns, with the
+    parent tree's kernel (--parent DIR) in turns
+    parent, this, this, parent, and its bounds; holds the kernel to the
+    parent's (vs_parent_edges). Returns {ms, plain_ms, parent_ms, bound_ms,
+    ...}."""
+    label = "B9" if split else "B6"
+
+    def calls(fn, a):  # back to back, so that the card and not the host sets the time
+        return lambda: [fn(*a, split=split, **ekw) for _ in range(EDGE_CALLS)]
+
+    tk, tp = time_pair(calls(he.vep3d_edges, args),
+                       lambda: he.vep3d_edges_reference(*args, split=split, **ekw), EDGE_CALLS)
+    out = he.vep3d_edges(*args, split=split, **ekw)
+    bound, bound_by, by_bytes, by_ops, words, ops = edge_bounds(
+        he.pack_edge_consts(args[6], split), args[5], out[1], kind)
+    t_parent, parent = None, vs_parent_edges(args, ekw, (*out[0], *out[1]), split,
+                                             f"{label} {state}")
+    old = parent_edges()
+    if old is not None:
+        co = old.pack_edge_consts(args[6].co, split)
+        a_old = args[:6] + (co,) + args[7:]
+        t_parent = [cuda_time_ms(calls(fn, a)) / EDGE_CALLS
+                    for fn, a in ((old.vep3d_edges, a_old), (he.vep3d_edges, args),
+                                  (he.vep3d_edges, args), (old.vep3d_edges, a_old))]
+    n = math.prod(d - 2 for d in args[1].shape)
+    emit("main_path_vep3d_timing", kernel=label, state=state, n_cells=n, words=words,
+         ops=ops, kernel_ms=tk, plain_ms=tp, parent_then_kernel_ms=t_parent,
+         **parent, bound_ms=bound, bound_by=bound_by, bytes_bound_ms=by_bytes,
+         ops_bound_ms=by_ops, bound_share=bound / min(tk), nvidia_smi=smi)
+    return dict(ms=min(tk), plain_ms=min(tp),
+                parent_ms=None if t_parent is None else min(t_parent[0], t_parent[3]),
+                bound_ms=bound, bound_by=bound_by, bytes_bound_ms=by_bytes,
+                ops_bound_ms=by_ops, words=words, ops=ops)
+
+
 def run_vep3d(dev, smi, kind):
     """Phases 18-21, the 3D VEP solve; returns the entries of the edge
     kernel's two routes (B6, B9) in the kernels line."""
@@ -1787,13 +1926,10 @@ def run_vep3d(dev, smi, kind):
                 torch.cuda.synchronize()
                 out, ref = (*out[0], *out[1]), (*ref[0], *ref[1])
                 res[dt] = (out, ref)
-                # the slots a family does not own come back bit-equal
-                _, Me = edge_masks(tuple(carry.P.shape), dev)
-                before = (*carry.tau_e, *carry.lam_e)
-                kept = all(torch.equal(o[~Me[k % 3].expand(o.shape)],
-                                       b[~Me[k % 3].expand(o.shape)])
-                           for k, (o, b) in enumerate(zip(out, before)))
-                check(kept, f"{label}: a slot outside the owned edges moved")
+                check_edges_kept(carry, out, label)
+                parent = vs_parent_edges(args, ekw, out, split, label)
+                if parent:
+                    emit("parent_vep3d_edges", case=label, dtype=str(dt), **parent)
             (o64, r64), (o32, r32) = res[torch.float64], res[torch.float32]
             d = rel_diffs_edges(o64, r64)
             worst = max(d.values())
@@ -1840,6 +1976,31 @@ def run_vep3d(dev, smi, kind):
                  max_rel_diff=gap, tol=tol32, plain_f32_vs_plain_f64=p32)
             check(gap <= tol32, f"{label} f32 nout=50: {gap} > {tol32}")
         del inputs
+    # the random near-yield configuration on ragged grids: one call, f64 and
+    # f32, against the plain version (and bit for bit the parent's kernel
+    # with --parent)
+    for ni, split in itertools.product(VEP3D_EDGE_RAGGED, (False, True)):
+        label = f"ragged_{'_'.join(map(str, ni))}_{'B9' if split else 'B6'}"
+        res = {}
+        for dt in (torch.float64, torch.float32):
+            carry, co6, co9, _, inv_di, kw = vep3d_case("noncubic_near_yield", dt, dev, ni=ni)
+            args, ekw = edge_args(carry, co9 if split else co6, inv_di, kw)
+            out = he.vep3d_edges(*args, split=split, **ekw)
+            ref = he.vep3d_edges_reference(*args, split=split, **ekw)
+            out, ref = (*out[0], *out[1]), (*ref[0], *ref[1])
+            check_edges_kept(carry, out, label)
+            res[dt] = (out, ref, vs_parent_edges(args, ekw, out, split, label))
+        (o64, r64, par64), (o32, r32, par32) = res[torch.float64], res[torch.float32]
+        worst = max(rel_diffs_edges(o64, r64).values())
+        gap32 = max(rel_diffs_edges(o32, r32).values())
+        p32 = max(rel_diffs_edges(tuple(x.double() for x in r32), r64).values())
+        tol32 = max(TOL_F32_1024, 2.0 * p32)
+        worst_rel, worst_abs = max(worst_rel, worst), max(worst_abs, abs_diff(o64, r64))
+        worst32 = max(worst32, gap32)
+        emit("parity_vep3d", case=label, call="one", max_rel_diff=worst, tol=TOL_VEP3D_CALL,
+             f32_max_rel_diff=gap32, f32_tol=tol32, parent_f64=par64, parent_f32=par32)
+        check(worst <= TOL_VEP3D_CALL, f"{label}: {worst}")
+        check(gap32 <= tol32, f"{label} f32: {gap32} > {tol32}")
 
     # ---- 19. goldens through the default entry points, f64: the default
     # route (B6), the fused chunk (B8) and the serial path
@@ -1905,13 +2066,7 @@ def run_vep3d(dev, smi, kind):
               lambda_relaxation=0.2, viscosity_relaxation=1.0)
     inv_di = tuple(1.0 / d for d in geometry.di)
     args, ekw = edge_args(carry, packed, inv_di, kw)
-    tk, tp = time_pair(lambda: he.vep3d_edges(*args, **ekw),
-                       lambda: he.vep3d_edges_reference(*args, **ekw))
-    words = vep3d_edges_words(packed)
-    bound_main = bound_ms(words, n ** 3, 4, kind)
-    main6 = (min(tk), min(tp), bound_main, words)
-    emit("main_path_vep3d_timing", kernel="B6", n=n, words=words, kernel_ms=tk, plain_ms=tp,
-         bound_ms=bound_main, bound_share=bound_main / min(tk), nvidia_smi=smi)
+    main6 = time_edges_main(args, ekw, False, kind, smi)
     # 50 hybrid iterations kernel vs plain from those inputs, f32 against f64
     out = hybrid_chunk(carry, co, material, inv_di, kw, 50, False, packed=packed)
     ref = hybrid_chunk(carry, co, material, inv_di, kw, 50, False, plain=True, packed=packed)
@@ -1950,20 +2105,32 @@ def run_vep3d(dev, smi, kind):
     # kernels line's numbers for B9
     carry, co, packed = canvas_chunk_inputs(st0, material, pr_c, pr_e, route="edges_split")
     args, ekw = edge_args(carry, packed, inv_di, kw)
-    ekw["split"] = True
-    tk, tp = time_pair(lambda: he.vep3d_edges(*args, **ekw),
-                       lambda: he.vep3d_edges_reference(*args, **ekw))
-    words = vep3d_edges_words(packed)
-    bound9 = bound_ms(words, n ** 3, 4, kind)
-    main9 = (min(tk), min(tp), bound9, words)
-    emit("main_path_vep3d_timing", kernel="B9", n=n, words=words, kernel_ms=tk, plain_ms=tp,
-         bound_ms=bound9, bound_share=bound9 / min(tk), nvidia_smi=smi)
+    main9 = time_edges_main(args, ekw, True, kind, smi)
     del carry, co, packed, args
+
+    # the first-chunk inputs in f64: one call of B6 and B9 against the plain
+    # version (and bit for bit the parent's kernel with --parent)
+    _, st64, mat64, (pr_c64, pr_e64), _, _, _ = shearband3d._setup(n, torch.float64, dev)
+    for split in (False, True):
+        label = "B9" if split else "B6"
+        carry64, _, packed64 = canvas_chunk_inputs(st64, mat64, pr_c64, pr_e64,
+                                                   route="edges_split" if split else "edges")
+        args, ekw = edge_args(carry64, packed64, inv_di, kw)
+        out = he.vep3d_edges(*args, split=split, **ekw)
+        ref = he.vep3d_edges_reference(*args, split=split, **ekw)
+        out, ref = (*out[0], *out[1]), (*ref[0], *ref[1])
+        d1 = max(rel_diffs_edges(out, ref).values())
+        parent = vs_parent_edges(args, ekw, out, split, f"first chunk 126^3 {label} f64")
+        emit("first_chunk_126_f64_vep3d", kernel=label, n=n, one_call_max_rel_diff=d1,
+             tol=TOL_VEP3D_CALL, **parent)
+        check(d1 <= TOL_VEP3D_CALL, f"first chunk 126^3 {label} f64: {d1}")
+    del st64, carry64, packed64, args, out, ref
 
     # near yield at 126^3: ShearBand3D's set-up with old stresses, stresses
     # and multipliers around its yield stress (vep3d_case "shearband3d_kb_inf"),
     # so that the yield branch runs at full width: one call and 50 hybrid
-    # iterations of B6 and B9 against the plain version, and B6's time there
+    # iterations of B6 and B9 against the plain version (one call also bit
+    # for bit against the parent's kernel with --parent), and their times there
     near = {d: vep3d_case("shearband3d_kb_inf", d, dev, n=n)
             for d in (torch.float64, torch.float32)}
     near_ms = {}
@@ -1974,6 +2141,8 @@ def run_vep3d(dev, smi, kind):
         args, ekw = edge_args(carry, co, inv_n, kw_n)
         out = he.vep3d_edges(*args, split=split, **ekw)
         ref = he.vep3d_edges_reference(*args, split=split, **ekw)
+        parent = vs_parent_edges(args, ekw, (*out[0], *out[1]), split,
+                                 f"near yield 126^3 {label} f64")
         d1 = max(rel_diffs_edges((*out[0], *out[1]), (*ref[0], *ref[1])).values())
         lam1 = max(float(x.max()) for x in ref[1])
         out = hybrid_chunk(carry, co, material_n, inv_n, kw_n, 50, split)
@@ -1987,15 +2156,15 @@ def run_vep3d(dev, smi, kind):
         gap = max(rel_diffs_vep3d(out, ref).values())
         p32 = max(rel_diffs_vep3d(as_f64(ref), ref64).values())
         tol32 = max(TOL_F32_1024, 2.0 * p32)
-        if not split:
-            a32, e32 = edge_args(c32, he.pack_edge_consts(co32, False), inv_n, kw32)
-            tk, tp = time_pair(lambda: he.vep3d_edges(*a32, **e32),
-                               lambda: he.vep3d_edges_reference(*a32, **e32))
-            near_ms = dict(near_yield_ms=min(tk), near_yield_plain_ms=min(tp))
+        a32, e32 = edge_args(c32, he.pack_edge_consts(co32, split), inv_n, kw32)
+        t = time_edges_main(a32, e32, split, kind, smi, state="near_yield")
+        near_ms[split] = dict(near_yield_ms=t["ms"], near_yield_plain_ms=t["plain_ms"],
+                              near_yield_parent_ms=t["parent_ms"],
+                              near_yield_bound_ms=t["bound_ms"])
         emit("near_yield_126_vep3d", kernel=label, n=n, one_call_max_rel_diff=d1,
              tol=TOL_VEP3D_CALL, nout50_max_rel_diff=d50, nout50_tol=TOL_VEP3D_NOUT50,
              lam_e_max_one_call=lam1, lam_e_max_nout50=lam50, f32_nout50_max_rel_diff=gap,
-             f32_tol=tol32, plain_f32_vs_plain_f64=p32, **({} if split else near_ms))
+             f32_tol=tol32, plain_f32_vs_plain_f64=p32, parent_f64=parent, **near_ms[split])
         check(d1 <= TOL_VEP3D_CALL, f"near yield 126^3 {label} one call: {d1}")
         check(d50 <= TOL_VEP3D_NOUT50, f"near yield 126^3 {label} nout=50: {d50}")
         check(gap <= tol32, f"near yield 126^3 {label} f32 nout=50: {gap} > {tol32}")
@@ -2011,15 +2180,15 @@ def run_vep3d(dev, smi, kind):
         ekw["split"] = split
         tk, tp = time_pair(lambda: he.vep3d_edges(*args, **ekw),
                            lambda: he.vep3d_edges_reference(*args, **ekw))
-        words = vep3d_edges_words(packed)
-        bound = bound_ms(words, n ** 3, 4, kind)
+        out = he.vep3d_edges(*args, **ekw)
+        bound, bound_by, _, by_ops, words, ops = edge_bounds(packed, carry.lam_e, out[1], kind)
         t_k = min(tk)
         timing[split] = (t_k, min(tp), bound, words)
         emit("timing_vep3d", kernel="B9" if split else "B6", n=n, dtype="float32",
-             words=words, kernel_ms=tk, plain_ms=tp,
+             words=words, ops=ops, kernel_ms=tk, plain_ms=tp,
              T_eff_GBs=words * n ** 3 * 4 / (t_k * 1e-3) / 1e9, bound_ms=bound,
-             bound_share=bound / t_k, bound_ms_at_most=bound_ms(41 if split else 29, n ** 3,
-                                                               4, kind),
+             bound_by=bound_by, ops_bound_ms=by_ops, bound_share=bound / t_k,
+             bound_ms_at_most=bound_ms(41 if split else 29, n ** 3, 4, kind),
              plain_over_kernel=min(tp) / t_k, nvidia_smi=smi)
     packed6 = he.pack_edge_consts(co6, False)
     nit = 20
@@ -2037,7 +2206,6 @@ def run_vep3d(dev, smi, kind):
                  kw=kw, hybrid_ms=t_h, plain_canvas_ms=min(tc))
 
     def entry(split, launches, main):
-        t_k, t_p, bound, words = main
         b_k, b_p, b_bound, b_words = timing[split]
         line = ":449 (B9 vep3d_edges_split)" if split else ":242 (B6 vep3d_edges_blocked)"
         return {
@@ -2049,13 +2217,17 @@ def run_vep3d(dev, smi, kind):
             "max_abs_err": worst_abs,
             "max_rel_diff_f64": worst_rel,
             "max_rel_diff_f32": worst32,
-            "ms": t_k,
-            "plain_ms": t_p,
-            "bound_ms": bound,
-            "bound_by": "bytes",
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
             "library_ms": None,
-            "words": words,
-            **({} if split else near_ms),
+            "parent_ms": main["parent_ms"],
+            "bytes_bound_ms": main["bytes_bound_ms"],
+            "ops_bound_ms": main["ops_bound_ms"],
+            "words": main["words"],
+            "ops": main["ops"],
+            **near_ms[split],
             "bench_ms": b_k,
             "bench_plain_ms": b_p,
             "bench_bound_ms": b_bound,

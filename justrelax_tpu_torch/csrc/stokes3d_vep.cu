@@ -5,10 +5,11 @@
 // Replaces three TPU kernels:
 //   B6  justrelax_tpu/ops/pallas_vep3d_edges.py::vep3d_edges_blocked
 //       (the three edge families in one pass, the old-stress interpolants
-//       re-derived from the nine tau_o canvases): k_edges<T, -1>;
+//       re-derived from the nine tau_o canvases): k_edges<T, false, TOC>;
 //   B9  justrelax_tpu/ops/pallas_vep3d_edges.py::vep3d_edges_split
 //       (one launch per family, the six old-stress interpolants of the family
-//       hoisted into const canvases): k_edges<T, 0..2>;
+//       hoisted into const canvases): k_edges<T, true, false>, the three
+//       families in one launch (the TPU split only shrank VMEM);
 //   B8  justrelax_tpu/ops/pallas_stokes3d_vep_blocked.py::
 //       stokes3d_vep_chunk_blocked (nout fused iterations of
 //       ops/stokes3d_vep_canvas.py::iteration_vep3d_canvas on the 19 carry
@@ -26,10 +27,9 @@
 // viscosity continuation and the velocity update stay in PyTorch; both read
 // the pre-iteration state (a Jacobi update), so the split is exact.
 //
-// One thread per canvas slot, z fastest. Each thread writes every output at
-// its slot: the new value where the slot is updated, the input's value
-// elsewhere. The canvas moves of the plain version become closed-form
-// index clamps (ops/stokes3d_vep.py::serial_moves):
+// Every output is written at every slot: the new value where the slot is
+// updated, the input's value elsewhere. The canvas moves of the plain
+// version become closed-form index clamps (ops/stokes3d_vep.py::serial_moves):
 //   center -> edge k : the 2x2 average over k's edge axes of the center
 //                      values at clamp(j, 1, n) and clamp(j+1, 1, n) (the
 //                      ghost refresh), first along the lower axis;
@@ -38,8 +38,6 @@
 //                      reads m's outermost face), along m's normal axis the
 //                      pair clamp(q, 1, n), clamp(q+1, 1, n), along the
 //                      shared axis the index min(p, n-1).
-// B6 and B9 re-derive strain rates from V at each point read (radius 2), as
-// the TPU kernels do, so no strain-rate canvas goes through device memory.
 // Only the three normal components of tau_c reach the edge passes.
 //
 // The chunk (B8) runs each iteration in three launches, from the carry A to
@@ -50,7 +48,7 @@
 //              iterate theta at the cells;
 //   k_stress   the center return mapping (tau_c x6, lambda, the corrected
 //              P), the viscosity continuation eta, and the three edge
-//              passes (k_edges' body, B6's form) on the new theta. A block
+//              passes (run_family, B6's form) on the new theta. A block
 //              takes an 8 x 32 tile of slots of one x plane: it computes the
 //              strain rates (and 1/eta at the cells) of the tile and a halo
 //              of one slot on three x planes into shared memory, each point
@@ -71,14 +69,26 @@
 // What bounds them on this card. The edge passes (B6, B9) read at least 14
 // words per slot (V x3, theta, eta, tau_c normals x3, tau_e x3, lambda_e x3)
 // and write 6, plus each non-uniform constant (G_e x3, and tau_o: 6 canvases
-// re-derived in B6, 18 hoisted in B9); one chunk iteration reads the 19
-// carry canvases and writes 19, plus its non-uniform constants. B8's stress
-// pass is bound by its arithmetic, not by that traffic: on the card it took
-// as long with every field it reads staged in shared memory as through the
-// caches, and each IEEE division left out moved it (PERF.md §6). So it
-// computes each strain rate and 1/eta once per point, and the branches of
-// the return mapping leave out what they do not use: the multiplier and the
-// plastic correction where a point does not yield, the tension cap's
+// re-derived in B6, 18 hoisted in B9), about 1.0 GFLOP at 126^3 against
+// 0.18 GB: bound by bytes, 55 us at 23 words. But neither kernel comes near
+// that: the one-thread-per-slot form re-derived every strain rate and 1/eta
+// at each of its ~40 reads per slot and took 0.24 ms, and with the strain
+// rates read from precomputed canvases still 0.18 ms; its arithmetic and
+// 64-bit-indexed loads, not its bytes, set the time (PERF.md §6). So
+// k_edges marches a (y, z) tile along x: it stages each plane once by
+// cp.async, computes each strain rate and 1/eta once per point into rings,
+// reads them by 32-bit ring offsets computed once per slot and plane, and
+// runs the three families of a slot in three threads, so that three
+// independent dependency chains of divisions and roots hide each other's
+// latency. Its march alone (staging, strain rates, barriers) takes ~0.07 ms
+// at 126^3 f32, the families ~0.1 ms more. One chunk iteration (B8)
+// reads the 19 carry canvases and writes 19, plus its non-uniform constants.
+// B8's stress pass is bound by its arithmetic, not by that traffic: on the
+// card it took as long with every field it reads staged in shared memory as
+// through the caches, and each IEEE division left out moved it (PERF.md §6).
+// So it computes each strain rate and 1/eta once per point, and the branches
+// of the return mapping leave out what they do not use: the multiplier and
+// the plastic correction where a point does not yield, the tension cap's
 // divisions and roots where there is none (each value unchanged).
 #include <cuda_runtime.h>
 #include <math.h>
@@ -146,12 +156,12 @@ __device__ __forceinline__ int64_t lin(const Args<T>& g, const int* s) {
   return s[0] * g.st[0] + s[1] * g.st[1] + s[2];
 }
 
-// deviatoric normal strain rates at a cell slot
+// deviatoric normal strain rates from the velocity differences along x, y, z
 template <typename T>
-__device__ __forceinline__ void normal_strain(const Args<T>& g, int64_t p, T* e) {
-  const T dx = (g.Vx[p] - g.Vx[p - g.st[0]]) * g.inv[0];
-  const T dy = (g.Vy[p] - g.Vy[p - g.st[1]]) * g.inv[1];
-  const T dz = (g.Vz[p] - g.Vz[p - 1]) * g.inv[2];
+__device__ __forceinline__ void deviatoric(const Args<T>& g, T ux, T uy, T uz, T* e) {
+  const T dx = ux * g.inv[0];
+  const T dy = uy * g.inv[1];
+  const T dz = uz * g.inv[2];
   const T gv = dx + dy + dz;
   const T third = T(1.0 / 3.0);
   e[0] = dx - gv * third;
@@ -159,32 +169,39 @@ __device__ __forceinline__ void normal_strain(const Args<T>& g, int64_t p, T* e)
   e[2] = dz - gv * third;
 }
 
+// a shear strain rate from its two velocity differences u and w and the
+// inverse spacings they are taken over
+template <typename T>
+__device__ __forceinline__ T shear_of(T u, T iu, T w, T iw) {
+  return T(0.5) * (u * iu + w * iw);
+}
+
+// deviatoric normal strain rates at a cell slot
+template <typename T>
+__device__ __forceinline__ void normal_strain(const Args<T>& g, int64_t p, T* e) {
+  deviatoric(g, g.Vx[p] - g.Vx[p - g.st[0]], g.Vy[p] - g.Vy[p - g.st[1]],
+             g.Vz[p] - g.Vz[p - 1], e);
+}
+
 // shear strain rate of family m at an edge slot of that family
 template <typename T>
 __device__ __forceinline__ T shear_strain(const Args<T>& g, int m, int64_t p) {
   const int64_t sx = g.st[0], sy = g.st[1];
-  if (m == 0)
-    return T(0.5) * ((g.Vy[p + 1] - g.Vy[p]) * g.inv[2] + (g.Vz[p + sy] - g.Vz[p]) * g.inv[1]);
-  if (m == 1)
-    return T(0.5) * ((g.Vx[p + 1] - g.Vx[p]) * g.inv[2] + (g.Vz[p + sx] - g.Vz[p]) * g.inv[0]);
-  return T(0.5) * ((g.Vx[p + sy] - g.Vx[p]) * g.inv[1] + (g.Vy[p + sx] - g.Vy[p]) * g.inv[0]);
+  if (m == 0) return shear_of(g.Vy[p + 1] - g.Vy[p], g.inv[2], g.Vz[p + sy] - g.Vz[p], g.inv[1]);
+  if (m == 1) return shear_of(g.Vx[p + 1] - g.Vx[p], g.inv[2], g.Vz[p + sx] - g.Vz[p], g.inv[0]);
+  return shear_of(g.Vx[p + sy] - g.Vx[p], g.inv[1], g.Vy[p + sx] - g.Vy[p], g.inv[0]);
 }
 
-// Where the edge passes read the fields they interpolate: device memory
-// (B6, B9; strain rates re-derived from V at each point read), or the staged
-// window of the fused chunk (B8; strain rates computed once per point). A
-// view maps canvas coordinates to its own index and reads through it.
-template <typename T> struct GlobalView {
-  using Index = int64_t;
-  const Args<T>& g;
-  __device__ int64_t at(const int* c) const { return lin(g, c); }
-  __device__ T theta(int64_t p) const { return g.theta[p]; }
-  __device__ T inv_eta(int64_t p) const { return T(1) / g.eta[p]; }
-  __device__ T tc(int j, int64_t p) const { return g.tc[j][p]; }
-  __device__ T te(int m, int64_t p) const { return g.te[m][p]; }
-  __device__ void normal(int64_t p, T* e) const { normal_strain(g, p, e); }
-  __device__ T shear(int m, int64_t p) const { return shear_strain(g, m, p); }
-};
+template <typename T>
+__device__ __forceinline__ T avg_at(const T* A, T v, const int64_t* q) {
+  if (!A) return v;   // a uniform source: its average is the value itself
+  return avg4(A[q[0]], A[q[1]], A[q[2]], A[q[3]]);
+}
+
+// The edge passes read the fields they interpolate through a view: the
+// rings of the edge kernel's march (B6, B9) or the staged window of the
+// fused chunk's stress pass (B8). A view maps canvas coordinates to its own
+// index and reads through it.
 
 // the canvas coordinates of the four cells the center -> edge K average
 // reads, in avg4 order
@@ -219,10 +236,22 @@ __device__ __forceinline__ void other_points(const int* n, const int* s, int (*c
   }
 }
 
-template <typename T>
-__device__ __forceinline__ T avg_at(const T* A, T v, const int64_t* q) {
-  if (!A) return v;   // a uniform source: its average is the value itself
-  return avg4(A[q[0]], A[q[1]], A[q[2]], A[q[3]]);
+// A view's indices of the four cells of the center -> edge K average and of
+// the four slots of the M -> K move at slot s, from their coordinates (a
+// view with its own rule overloads these)
+template <int K, class V, class I>
+__device__ __forceinline__ void centers(const V& v, const int* n, const int* s, I* w) {
+  int c[4][3];
+  center_points<K>(n, s, c);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = v.at(c[j]);
+}
+template <int K, int M, class V, class I>
+__device__ __forceinline__ void others(const V& v, const int* n, const int* s, I* w) {
+  int c[4][3];
+  other_points<K, M>(n, s, c);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = v.at(c[j]);
 }
 
 // Family M's shear stress, strain rate and (unless hoisted) old stress
@@ -230,19 +259,11 @@ __device__ __forceinline__ T avg_at(const T* A, T v, const int64_t* q) {
 template <typename T, int K, int M, bool HOIST, class V>
 __device__ __forceinline__ void other_family(const Args<T>& g, const V& v, const int* s,
                                              T* t6, T* e6, T* o6) {
-  int c[4][3];
-  other_points<K, M>(g.n, s, c);
   typename V::Index w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) w[j] = v.at(c[j]);
+  others<K, M>(v, g.n, s, w);
   t6[3 + M] = avg4(v.te(M, w[0]), v.te(M, w[1]), v.te(M, w[2]), v.te(M, w[3]));
   e6[3 + M] = avg4(v.shear(M, w[0]), v.shear(M, w[1]), v.shear(M, w[2]), v.shear(M, w[3]));
-  if (!HOIST) {
-    int64_t q[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) q[j] = lin(g, c[j]);
-    o6[3 + M] = avg_at(g.to[K][3 + M], g.tov[K][3 + M], q);
-  }
+  if (!HOIST) o6[3 + M] = v.old4(K, 3 + M, w);
 }
 
 // The Drucker-Prager cone with the optional tension cap (pT = 0: none) at
@@ -290,15 +311,8 @@ __device__ __forceinline__ T inv_II(const T* t) {
 template <typename T, int K, bool HOIST, class V>
 __device__ void family(const Args<T>& g, const V& v, const int* s, int64_t i,
                        typename V::Index vi, T& t_new, T& lam_new) {
-  int cc[4][3];
-  center_points<K>(g.n, s, cc);
-  int64_t qc[4];
   typename V::Index wc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    qc[j] = lin(g, cc[j]);
-    wc[j] = v.at(cc[j]);
-  }
+  centers<K>(v, g.n, s, wc);
   const T Pv = avg4(v.theta(wc[0]), v.theta(wc[1]), v.theta(wc[2]), v.theta(wc[3]));
   const T eta_e = T(1) / avg4(v.inv_eta(wc[0]), v.inv_eta(wc[1]), v.inv_eta(wc[2]),
                               v.inv_eta(wc[3]));
@@ -319,7 +333,7 @@ __device__ void family(const Args<T>& g, const V& v, const int* s, int64_t i,
   }
   if (!HOIST) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) o6[j] = avg_at(g.to[K][j], g.tov[K][j], qc);
+    for (int j = 0; j < 3; ++j) o6[j] = v.old4(K, j, wc);
   }
   // the family's own shear lives here
   t6[3 + K] = v.te(K, vi);
@@ -381,21 +395,314 @@ __device__ __forceinline__ void run_family(const Args<T>& g, const V& v, const i
   g.ole[K][i] = l;
 }
 
-// FAM < 0: the three families, the old-stress interpolants re-derived (B6);
-// FAM = k: family k alone on its hoisted interpolants (B9)
-template <typename T, int FAM>
-__global__ void __launch_bounds__(256) k_edges(const Args<T> g) {
-  constexpr bool HOIST = FAM >= 0;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y * blockDim.y + threadIdx.y;
-  const int a = blockIdx.z;
-  if (b > g.n[1] + 1 || c > g.n[2] + 1) return;
-  const int s[3] = {a, b, c};
-  const int64_t i = a * g.st[0] + b * g.st[1] + c;
-  const GlobalView<T> v{g};
-  if (FAM < 0 || FAM == 0) run_family<T, 0, HOIST>(g, v, s, i, i);
-  if (FAM < 0 || FAM == 1) run_family<T, 1, HOIST>(g, v, s, i, i);
-  if (FAM < 0 || FAM == 2) run_family<T, 2, HOIST>(g, v, s, i, i);
+// ---- the edge passes (B6, B9): (y, z) tiles marching along x -------------
+
+// The block's windows in a plane, both with the origin one slot below the
+// tile in y and z: the velocity window (the tile and one slot below, two
+// above: V is read up to two slots past a slot) and the field window (the
+// tile and one slot around it: what the families read).
+struct EdgeLayout {
+  // a block's tile: TY x TZ (y, z) slots, three threads each (one per family)
+  static constexpr int TY = 4, TZ = 32, NT = TY * TZ;
+  static constexpr int NTH = 3 * NT;  // threads
+  static constexpr int VZ = TZ + 3, NV = (TY + 3) * VZ;
+  static constexpr int WZ = TZ + 2, NW = (TY + 2) * WZ;
+  // window points per thread
+  static constexpr int RV = (NV + NTH - 1) / NTH, RW = (NW + NTH - 1) / NTH;
+};
+// Ring depths, in planes. Step k of the march reads the cell fields of
+// planes k, k+1 and the edge fields of k-1..k+1 (the families of plane k),
+// writes the strain rates of plane k+2 from V of planes k+1..k+3, and
+// stages V of plane k+4 and the other fields of plane k+3: V and the cell
+// fields four planes deep, the edge fields five, or eight where that fits
+// (a power of two makes each ring slot a mask, not a remainder, and
+// every thread computes ten of them per plane; with tau_o staged the
+// larger ring slowed the kernel, PERF.md §6). The cell fields: theta,
+// eta (then 1/eta), the normal tau_c x3 staged, the normal strain rates x3
+// computed, and with TOC the normal tau_o_c x3 staged; the edge fields:
+// tau_e x3 staged, the shear strain rates x3 computed, and with TOC
+// tau_o_e x3 staged.
+constexpr int DV = 4, DC = 4;
+template <bool TOC> __host__ __device__ constexpr int edge_depth() { return TOC ? 5 : 8; }
+// the ring slot of plane p (p >= -D) in a ring D planes deep
+template <int D> __device__ __forceinline__ int ring(int p) {
+  return static_cast<int>(static_cast<unsigned>(p + D) % D);
+}
+enum CellField { CF_TH, CF_ETA, CF_TC, CF_EN = CF_TC + 3, CF_TO = CF_EN + 3 };
+enum EdgeField { EF_TE, EF_ES = 3, EF_TO = 6 };
+template <bool TOC> __host__ __device__ constexpr int n_cell_fields() {
+  return CF_TO + (TOC ? 3 : 0);
+}
+template <bool TOC> __host__ __device__ constexpr int n_edge_fields() {
+  return EF_TO + (TOC ? 3 : 0);
+}
+template <typename T, bool TOC> constexpr size_t edge_smem() {
+  using L = EdgeLayout;
+  return (3 * DV * L::NV +
+          (n_cell_fields<TOC>() * DC + n_edge_fields<TOC>() * edge_depth<TOC>()) * L::NW) *
+         sizeof(T);
+}
+// The resident blocks per SM the registers are capped for: f32 two (80
+// registers, no spills; three would cap them at 56 and spill), f64 one
+template <typename T> constexpr int edge_min_blocks() { return sizeof(T) == 4 ? 2 : 1; }
+
+// Staging copy: cp.async of one element from device to shared memory, no
+// registers and no wait until cp_async_wait_all
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* smem, const T* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+  }
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The march's view for the families of plane a: every field they read at a
+// point other than their slot's own device-memory inputs (lambda_e, G_e,
+// the hoisted tau_o) comes from the rings, by 32-bit indices into the field
+// window: the cell fields of planes a, a+1 and the edge fields of planes
+// a-1..a+1. A point's index is the sum of an x, a y and a z offset, each
+// picked by the point's role on that axis (the clamps of center_points and
+// other_points): the slot's own coordinate s, clamp(s, 1, n),
+// clamp(s + 1, 1, n), s - 1 or min(s, n - 1). The y and z offsets depend
+// on the slot alone and the x offsets on the plane alone, so a thread
+// computes the ten of them once per plane, not once per point read. Scalar
+// tau_o sources are their value.
+enum Role { R_S, R_C0, R_C1, R_M1, R_MIN, N_ROLE };
+
+template <typename T, bool TOC> struct RingView {
+  using L = EdgeLayout;
+  static constexpr int DE = edge_depth<TOC>();
+  struct Index {
+    int c, e;  // cell-ring and edge-ring offsets
+  };
+  const Args<T>& g;
+  const T* cr;          // [cell fields][DC][NW]
+  const T* er;          // [edge fields][DE][NW]
+  const int* ry;        // [N_ROLE] window row of each y role, times WZ
+  const int* cz;        // [N_ROLE] window column of each z role
+  int xc[N_ROLE];       // cell-ring plane offset of each x role (R_S, R_C0, R_C1)
+  int xe[N_ROLE];       // edge-ring plane offset of each x role
+  __device__ Index own() const {
+    return {xc[R_S] + ry[R_S] + cz[R_S], xe[R_S] + ry[R_S] + cz[R_S]};
+  }
+  template <int K> __device__ void centers(Index* w) const {
+    constexpr int A0 = K == 0 ? 1 : 0, A1 = K == 2 ? 1 : 2;  // as center_points
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int r[3] = {R_S, R_S, R_S};
+      r[A0] = (j & 1) ? R_C1 : R_C0;
+      r[A1] = (j & 2) ? R_C1 : R_C0;
+      w[j] = {xc[r[0]] + ry[r[1]] + cz[r[2]], 0};
+    }
+  }
+  template <int K, int M> __device__ void others(Index* w) const {
+    constexpr int SO = K, DO = M, SH = 3 - K - M;  // as other_points
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int r[3];
+      r[SH] = R_MIN;
+      r[SO] = (j & 1) ? R_MIN : R_M1;
+      r[DO] = (j & 2) ? R_C1 : R_C0;
+      w[j] = {0, xe[r[0]] + ry[r[1]] + cz[r[2]]};
+    }
+  }
+  __device__ T cell(int f, Index p) const { return cr[f * DC * L::NW + p.c]; }
+  __device__ T edge(int f, Index p) const { return er[f * DE * L::NW + p.e]; }
+  __device__ T theta(Index p) const { return cell(CF_TH, p); }
+  __device__ T inv_eta(Index p) const { return cell(CF_ETA, p); }
+  __device__ T tc(int j, Index p) const { return cell(CF_TC + j, p); }
+  __device__ T te(int m, Index p) const { return edge(EF_TE + m, p); }
+  __device__ void normal(Index p, T* e) const {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) e[j] = cell(CF_EN + j, p);
+  }
+  __device__ T shear(int m, Index p) const { return edge(EF_ES + m, p); }
+  __device__ T old4(int k, int j, const Index* w) const {
+    if (!TOC || !g.to[k][j]) return g.tov[k][j];
+    if (j < 3) return avg4(cell(CF_TO + j, w[0]), cell(CF_TO + j, w[1]), cell(CF_TO + j, w[2]),
+                           cell(CF_TO + j, w[3]));
+    return avg4(edge(EF_TO + j - 3, w[0]), edge(EF_TO + j - 3, w[1]),
+                edge(EF_TO + j - 3, w[2]), edge(EF_TO + j - 3, w[3]));
+  }
+};
+template <int K, typename T, bool TOC, class I>
+__device__ __forceinline__ void centers(const RingView<T, TOC>& v, const int*, const int*,
+                                        I* w) {
+  v.template centers<K>(w);
+}
+template <int K, int M, typename T, bool TOC, class I>
+__device__ __forceinline__ void others(const RingView<T, TOC>& v, const int*, const int*,
+                                       I* w) {
+  v.template others<K, M>(w);
+}
+
+// The edge passes. A block owns a TY x TZ tile of (y, z) slots over a range
+// of x planes [A0, A1) and marches along it, three threads per slot (one
+// per family); step k, between one barrier and the next:
+//   - cp.async of V of plane k+4 and of the staged fields of plane k+3
+//     into ring slots no one reads in this step;
+//   - the strain rates of plane k+2 at every field-window point where the
+//     families read them (the normal ones and 1/eta at the cells, the shear
+//     ones at the edges), each point once, into the rings;
+//   - the families of the mask at the slots of plane k: the new tau_e and
+//     lambda_e where a family owns the slot, the input's values elsewhere.
+// HOIST: the six old-stress sources of each family are its hoisted
+// interpolants, read at the slot (B9); else the normal tau_o_c and tau_o_e,
+// averaged as the stresses are (B6), staged where TOC.
+template <typename T, bool HOIST, bool TOC>
+__global__ void __launch_bounds__(EdgeLayout::NTH, edge_min_blocks<T>())
+    k_edges(const Args<T> g, int mask, int xc) {
+  using L = EdgeLayout;
+  constexpr int TY = L::TY, TZ = L::TZ, NT = L::NT, NTH = L::NTH, VZ = L::VZ, NV = L::NV,
+                WZ = L::WZ, NW = L::NW, DE = edge_depth<TOC>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* vr = reinterpret_cast<T*>(smem_raw);       // [Vx, Vy, Vz][DV][NV]
+  T* cr = vr + 3 * DV * NV;                      // [cell fields][DC][NW]
+  T* er = cr + n_cell_fields<TOC>() * DC * NW;  // [edge fields][DE][NW]
+
+  const int nx = g.n[0], ny = g.n[1], nz = g.n[2];
+  const int X = nx + 2, Y = ny + 2, Z = nz + 2;
+  const int64_t sx = g.st[0];
+  // block -> (x range, y tile, z tile), z fastest
+  const int ntz = (Z + TZ - 1) / TZ, nty = (Y + TY - 1) / TY;
+  const int tz = blockIdx.x % ntz, ty = (blockIdx.x / ntz) % nty;
+  const int tx = blockIdx.x / (ntz * nty);
+  const int B0 = ty * TY, C0 = tz * TZ;
+  const int A0 = tx * xc, A1 = min(A0 + xc, X);
+  const int b_lo = B0 - 1, c_lo = C0 - 1;
+  const int t = threadIdx.x;
+  const T* const V[3] = {g.Vx, g.Vy, g.Vz};
+
+  // this thread's points of the velocity window (staging) and of the field
+  // window (staging and strain rates); out of the canvas: no point
+  int gv[L::RV], gw[L::RW];  // in-plane offsets in the canvas
+  int qw[L::RW], qv[L::RW];
+  bool in_v[L::RV], in_w[L::RW], cell_yz[L::RW], edge_yz[L::RW];
+#pragma unroll
+  for (int r = 0; r < L::RV; ++r) {
+    const int q = t + r * NTH, b = b_lo + q / VZ, c = c_lo + q % VZ;
+    in_v[r] = q < NV && b >= 0 && b < Y && c >= 0 && c < Z;
+    gv[r] = b * Z + c;
+  }
+#pragma unroll
+  for (int r = 0; r < L::RW; ++r) {
+    const int q = t + r * NTH, wb = q / WZ, wc = q % WZ, b = b_lo + wb, c = c_lo + wc;
+    in_w[r] = q < NW && b >= 0 && b < Y && c >= 0 && c < Z;
+    // cells below the tile's window row 1 are never read (their strain
+    // rates would need V one row outside the velocity window)
+    cell_yz[r] = in_w[r] && wb >= 1 && wc >= 1 && b <= ny && c <= nz;
+    edge_yz[r] = in_w[r] && b <= ny && c <= nz;
+    gw[r] = b * Z + c;
+    qw[r] = q;
+    qv[r] = wb * VZ + wc;
+  }
+
+  // cp.async of V of plane p, and of the staged cell and edge fields of plane p
+  auto stage_v = [&](int p) {
+#pragma unroll
+    for (int r = 0; r < L::RV; ++r) {
+      if (!in_v[r]) continue;
+      const int q = t + r * NTH;
+      for (int f = 0; f < 3; ++f)
+        cp_async_elem(vr + (f * DV + ring<DV>(p)) * NV + q, V[f] + p * sx + gv[r]);
+    }
+  };
+  auto stage_fields = [&](int p) {
+    const bool pc = p >= 1 && p <= nx;
+#pragma unroll
+    for (int r = 0; r < L::RW; ++r) {
+      if (!in_w[r]) continue;
+      const int64_t i = p * sx + gw[r];
+      T* ce = cr + ring<DC>(p) * NW + qw[r];
+      T* ed = er + ring<DE>(p) * NW + qw[r];
+      if (pc && cell_yz[r]) {
+        cp_async_elem(ce + CF_TH * DC * NW, g.theta + i);
+        cp_async_elem(ce + CF_ETA * DC * NW, g.eta + i);
+        for (int j = 0; j < 3; ++j) cp_async_elem(ce + (CF_TC + j) * DC * NW, g.tc[j] + i);
+        if (TOC)
+          for (int j = 0; j < 3; ++j)
+            if (g.to[0][j]) cp_async_elem(ce + (CF_TO + j) * DC * NW, g.to[0][j] + i);
+      }
+      for (int m = 0; m < 3; ++m) cp_async_elem(ed + (EF_TE + m) * DE * NW, g.te[m] + i);
+      if (TOC && p <= nx && edge_yz[r])
+        for (int m = 0; m < 3; ++m)
+          if (g.to[0][3 + m]) cp_async_elem(ed + (EF_TO + m) * DE * NW, g.to[0][3 + m] + i);
+    }
+  };
+  // the strain rates (and 1/eta) of plane p from V of planes p-1..p+1
+  auto strain_rates = [&](int p) {
+    const int o0 = ring<DV>(p) * NV, o1 = ring<DV>(p + 1) * NV;
+    const T* Vx = vr;
+    const T* Vy = vr + DV * NV;
+    const T* Vz = vr + 2 * DV * NV;
+#pragma unroll
+    for (int r = 0; r < L::RW; ++r) {
+      const int v0 = o0 + qv[r];
+      T* ce = cr + ring<DC>(p) * NW + qw[r];
+      if (p >= 1 && p <= nx && cell_yz[r]) {
+        const int vm = ring<DV>(p - 1) * NV + qv[r];
+        T e[3];
+        deviatoric(g, Vx[v0] - Vx[vm], Vy[v0] - Vy[v0 - VZ], Vz[v0] - Vz[v0 - 1], e);
+        for (int j = 0; j < 3; ++j) ce[(CF_EN + j) * DC * NW] = e[j];
+        ce[CF_ETA * DC * NW] = T(1) / ce[CF_ETA * DC * NW];
+      }
+      if (p <= nx && edge_yz[r]) {
+        const int v1 = o1 + qv[r];
+        T* es = er + (EF_ES * DE + ring<DE>(p)) * NW + qw[r];
+        es[0] = shear_of(Vy[v0 + 1] - Vy[v0], g.inv[2], Vz[v0 + VZ] - Vz[v0], g.inv[1]);
+        es[DE * NW] = shear_of(Vx[v0 + 1] - Vx[v0], g.inv[2], Vz[v1] - Vz[v0], g.inv[0]);
+        es[2 * DE * NW] = shear_of(Vx[v0 + VZ] - Vx[v0], g.inv[1], Vy[v1] - Vy[v0], g.inv[0]);
+      }
+    }
+  };
+
+  // the slot and family of this thread (a warp's threads share a family)
+  const int fam = t / NT, sb = B0 + (t % NT) / TZ, sc = C0 + t % TZ;
+  const bool slot = sb < Y && sc < Z && (mask >> fam & 1);
+  const int gs = sb * Z + sc;
+  // its window rows and columns of each role
+  const int ry[N_ROLE] = {(sb - b_lo) * WZ, (clampi(sb, 1, ny) - b_lo) * WZ,
+                          (clampi(sb + 1, 1, ny) - b_lo) * WZ, (sb - 1 - b_lo) * WZ,
+                          (min(sb, ny - 1) - b_lo) * WZ};
+  const int cz[N_ROLE] = {sc - c_lo, clampi(sc, 1, nz) - c_lo, clampi(sc + 1, 1, nz) - c_lo,
+                          sc - 1 - c_lo, min(sc, nz - 1) - c_lo};
+
+  // the march: the families of plane A0 need the strain rates of planes
+  // A0-1..A0+1, so it starts three planes before the range; it stages as
+  // far as the strain rates of plane A1
+  const int k0 = A0 - 3;
+  const int last_v = min(A1 + 1, X - 1), last_f = min(A1, X - 1);
+  for (int p = max(k0 + 1, 0); p <= min(k0 + 3, last_v); ++p) stage_v(p);
+  if (k0 + 2 >= 0 && k0 + 2 <= last_f) stage_fields(k0 + 2);
+  for (int k = k0; k < A1; ++k) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (k + 4 <= last_v) stage_v(k + 4);
+    if (k + 3 >= 0 && k + 3 <= last_f) stage_fields(k + 3);
+    if (k + 2 >= 0 && k + 2 <= last_f) strain_rates(k + 2);
+    if (k >= A0 && slot) {
+      const int s[3] = {k, sb, sc};
+      const int64_t i = k * sx + gs;
+      // the ring planes of each role
+      const int x[N_ROLE] = {k, clampi(k, 1, nx), clampi(k + 1, 1, nx), k - 1, min(k, nx - 1)};
+      RingView<T, TOC> v{g, cr, er, ry, cz};
+#pragma unroll
+      for (int r = 0; r < N_ROLE; ++r) {
+        v.xc[r] = ring<DC>(x[r]) * NW;  // read for R_S, R_C0, R_C1 (planes k, k+1)
+        v.xe[r] = ring<DE>(x[r]) * NW;
+      }
+      const typename RingView<T, TOC>::Index vi = v.own();
+      if (fam == 0) run_family<T, 0, HOIST>(g, v, s, i, vi);
+      else if (fam == 1) run_family<T, 1, HOIST>(g, v, s, i, vi);
+      else run_family<T, 2, HOIST>(g, v, s, i, vi);
+    }
+  }
+  cp_async_wait_all();  // no copy outlives the block (the last steps stage none)
 }
 
 // The plastic scalars (the order of ops/hopper_vep3d_edges.py _PP_FIELDS)
@@ -414,9 +721,9 @@ void set_grid(Args<T>& g, int nx, int ny, int nz) {
   g.st[2] = 1; g.st[1] = nz + 2; g.st[0] = (int64_t)(ny + 2) * (nz + 2);
 }
 
+// The edge passes' arguments from the C interface's `ptrs` and `vals`
 template <typename T>
-int launch_edges(const void* const* ptrs, const double* vals, int nx, int ny, int nz,
-                 int family, cudaStream_t stream) {
+Args<T> edge_args(const void* const* ptrs, const double* vals, int nx, int ny, int nz) {
   Args<T> g;
   set_grid(g, nx, ny, nz);
   auto cp = [&](int j) { return static_cast<const T*>(ptrs[j]); };
@@ -437,16 +744,49 @@ int launch_edges(const void* const* ptrs, const double* vals, int nx, int ny, in
   for (int k = 0; k < 3; ++k) g.Gv[k] = T(vals[7 + N_PP + k]);
   for (int k = 0; k < 3; ++k)
     for (int j = 0; j < 6; ++j) g.tov[k][j] = T(vals[10 + N_PP + 6 * k + j]);
+  return g;
+}
 
-  const dim3 blk(32, 8, 1);
-  const dim3 grid((nz + 2 + 31) / 32, (ny + 2 + 7) / 8, nx + 2);
-  void (*kern)(const Args<T>) = family < 0 ? k_edges<T, -1>
-                                : family == 0 ? k_edges<T, 0>
-                                : family == 1 ? k_edges<T, 1>
-                                : family == 2 ? k_edges<T, 2> : nullptr;
-  if (!kern) return (int)cudaErrorInvalidValue;
-  kern<<<grid, blk, 0, stream>>>(g);
+// One launch of k_edges over the whole canvas, x split into as many ranges
+// as fill one wave of resident blocks
+template <typename T, bool HOIST, bool TOC>
+int launch_march(const Args<T>& g, int mask, cudaStream_t stream) {
+  using L = EdgeLayout;
+  constexpr size_t smem = edge_smem<T, TOC>();
+  auto kern = k_edges<T, HOIST, TOC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int X = g.n[0] + 2;
+  const int tiles = ((g.n[1] + 2 + L::TY - 1) / L::TY) * ((g.n[2] + 2 + L::TZ - 1) / L::TZ);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, L::NTH, smem)) !=
+          cudaSuccess)
+    return (int)err;
+  const int ranges = max(1, min(X, sms * per_sm / tiles));
+  const int xc = (X + ranges - 1) / ranges;  // x planes per block
+  kern<<<tiles * ((X + xc - 1) / xc), L::NTH, smem, stream>>>(g, mask, xc);
   return (int)cudaGetLastError();
+}
+
+// family < 0: B6, the three families with the old-stress interpolants
+// averaged; 0..2: that family on its hoisted interpolants; 3: the three
+// families on theirs (B9)
+template <typename T>
+int launch_edges(const void* const* ptrs, const double* vals, int nx, int ny, int nz,
+                 int family, cudaStream_t stream) {
+  // the kernel indexes a canvas plane with 32-bit offsets
+  if (family < -1 || family > 3 || (int64_t)(ny + 2) * (nz + 2) > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const Args<T> g = edge_args<T>(ptrs, vals, nx, ny, nz);
+  if (family >= 0) return launch_march<T, true, false>(g, family == 3 ? 7 : 1 << family, stream);
+  bool toc = false;
+  for (int j = 0; j < 6; ++j) toc = toc || g.to[0][j] != nullptr;
+  return toc ? launch_march<T, false, true>(g, 7, stream)
+             : launch_march<T, false, false>(g, 7, stream);
 }
 
 // ---- the fused chunk (B8) -----------------------------------------------
@@ -558,6 +898,10 @@ template <typename T> struct StrainView {
     for (int j = 0; j < 3; ++j) e[j] = s[(F_EN + j) * 3 * NW + p.s];
   }
   __device__ T shear(int m, Index p) const { return s[(F_ES + m) * 3 * NW + p.s]; }
+  __device__ T old4(int k, int j, const Index* w) const {
+    const int64_t q[4] = {w[0].g, w[1].g, w[2].g, w[3].g};
+    return avg_at(g.to[k][j], g.tov[k][j], q);
+  }
 };
 
 // The center return mapping at cell slot s (canvas index i, view index vi):
@@ -817,7 +1161,9 @@ int launch_chunk(const void* const* ptrs, const double* vals, int nx, int ny, in
 
 // Plain C interface (loaded with ctypes).
 //
-// jr_vep3d_edges_*: the edge passes, B6 (`family` < 0) or family 0..2 (B9).
+// jr_vep3d_edges_*: the edge passes in one launch: B6 (`family` < 0), the
+//   three families on their hoisted interpolants (B9, `family` 3) or one of
+//   them (0..2).
 // `ptrs`: 14 inputs (Vx, Vy, Vz, theta, eta, tau_c normals x3, tau_e x3,
 //   lambda_e x3), 6 outputs (tau_e x3, lambda_e x3; null for a family that
 //   is not run), G_e x3, then per family the six old-stress sources (null:

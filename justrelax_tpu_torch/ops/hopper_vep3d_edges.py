@@ -12,14 +12,15 @@ the edge passes of ``ops/stokes3d_vep.py::update_stresses_center_edges_3d``
 on the slots each family owns, the other slots unchanged.
 
 - ``vep3d_edges`` is the wrapper. On CUDA tensors it launches the kernel of
-  ``csrc/stokes3d_vep.cu`` (``k_edges``; built with ``nvcc`` at first use by
-  ``ops/_cuda_build.py`` and loaded with ``ctypes``) or raises; on CPU
-  tensors it runs the plain version. ``split=False`` is B6: one launch for
-  the three families, the old-stress interpolants re-derived from the nine
-  τ_o canvases (``vep3d_edges.launches`` counts these launches).
-  ``split=True`` is B9: one launch per family on its six hoisted interpolants
+  ``csrc/stokes3d_vep.cu`` (``k_edges``, (y, z) tiles marching along x;
+  built with ``nvcc`` at first use by ``ops/_cuda_build.py`` and loaded with
+  ``ctypes``) or raises; on CPU tensors it runs the plain version.
+  ``split=False`` is B6: one launch for the three families, the old-stress
+  interpolants re-derived from the nine τ_o canvases
+  (``vep3d_edges.launches`` counts these launches). ``split=True`` is B9:
+  one launch for the three families on their six hoisted interpolants each
   (``vep3d_canvas_consts(hoist_tau_o=True)``; ``vep3d_edges.split_launches``
-  counts these, three per call).
+  counts these launches, one per call).
 - ``vep3d_edges_reference`` is the plain version, the same two forms through
   ``update_stresses_center_edges_3d(probe_passes=("edges",),
   edge_families=…)``.
@@ -30,7 +31,9 @@ on the slots each family owns, the other slots unchanged.
   modulus phase-uniform, softening off (the kernel takes them as scalars).
 
 The TPU kernels' x-slab windows, double buffering, ``choose_blocking_edges``
-and the 128-lane padding are not ported.
+and the 128-lane padding are not ported, nor B9's one launch per family: it
+shrank the TPU kernel's VMEM live set, and the card's kernel runs the three
+families of a slot in one pass over the same staged planes.
 """
 
 from __future__ import annotations
@@ -253,7 +256,7 @@ def vep3d_edges(V, theta, eta, tau_c_normals3, tau_e3, lam_e3, co, inv_di, *,
                       (*V, theta, eta, *tau_c_normals3, *tau_e3, *lam_e3), co, inv_di, dt,
                       theta_dtau, lambda_relaxation, split)
     if split:
-        vep3d_edges.split_launches += 3
+        vep3d_edges.split_launches += 1
     else:
         vep3d_edges.launches += 1
     return out
@@ -262,8 +265,8 @@ def vep3d_edges(V, theta, eta, tau_c_normals3, tau_e3, lam_e3, co, inv_di, *,
 def _launch(lib, stream, dyn, co, inv_di, dt, theta_dtau, lambda_relaxation, split):
     """Check the edge passes' inputs ``dyn`` (V×3, θ, η, the normal τ_c×3,
     τ_e×3, λ_e×3), pack the consts and run the C function of ``lib`` (bound
-    by ``_bind``) on ``stream``: one launch (B6) or one per family (B9).
-    Returns (τ_e×3, λ_e×3); raises on a launch error."""
+    by ``_bind``) on ``stream``: one launch, B6 or (``split``) B9. Returns
+    (τ_e×3, λ_e×3); raises on a launch error."""
     _check(dyn, "input")
     theta = dyn[3]
     packed = pack_edge_consts(co, split)
@@ -283,21 +286,19 @@ def _launch(lib, stream, dyn, co, inv_di, dt, theta_dtau, lambda_relaxation, spl
             *(v for fam in packed.tau_o_val for v in fam)]
     fn = lib.jr_vep3d_edges_f32 if theta.dtype == torch.float32 else lib.jr_vep3d_edges_f64
     c_vals = (ctypes.c_double * len(vals))(*vals)
-    for fam in ((0, 1, 2) if split else (-1,)):
-        outs = [None] * 6
-        for k in ((0, 1, 2) if fam < 0 else (fam,)):
-            outs[k], outs[3 + k] = out_tau[k].data_ptr(), out_lam[k].data_ptr()
-        ptrs = [t.data_ptr() for t in dyn] + outs + [ptr(g) for g in packed.G] + tau_o_ptrs
-        c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        err = fn(c_ptrs, c_vals, X - 2, Y - 2, Z - 2, fam, stream)
-        if err != 0:
-            raise RuntimeError(f"vep3d_edges: CUDA error {err}: "
-                               f"{lib.jr_cuda_error_string(err).decode()}")
+    outs = [t.data_ptr() for t in (*out_tau, *out_lam)]
+    ptrs = [t.data_ptr() for t in dyn] + outs + [ptr(g) for g in packed.G] + tau_o_ptrs
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    # family 3: the three families on their hoisted interpolants (B9); -1: B6
+    err = fn(c_ptrs, c_vals, X - 2, Y - 2, Z - 2, 3 if split else -1, stream)
+    if err != 0:
+        raise RuntimeError(f"vep3d_edges: CUDA error {err}: "
+                           f"{lib.jr_cuda_error_string(err).decode()}")
     return out_tau, out_lam
 
 
 vep3d_edges.launches = 0         # B6 launches (split=False)
-vep3d_edges.split_launches = 0   # B9 launches (split=True), three per call
+vep3d_edges.split_launches = 0   # B9 launches (split=True), one per call
 
 
 def _check(tensors, what, like=None, who="vep3d_edges"):

@@ -1,7 +1,8 @@
 """Time the redesigned chunk kernels of a parent tree against this tree's, in
 turns, on one card.
 
-    python -m justrelax_tpu_torch.scripts.compare_parent_kernels PARENT_DIR [--kernels b7,b8,edges]
+    python -m justrelax_tpu_torch.scripts.compare_parent_kernels PARENT_DIR
+        [--kernels 2d,b7,b8,edges,step] [--n 1024] [--iters 200]
 
 Run from the root of a checkout (it takes its inputs from ``chip_smoke.py``).
 ``PARENT_DIR`` holds the parent's ``justrelax_tpu_torch/ops/hopper_*.py``
@@ -17,9 +18,13 @@ this tree, this tree, parent, by CUDA events:
 - ``b7``: B7 on the SolVi 126³ f32 solve's first chunk (gap after 200);
 - ``b8``: B8 on the ShearBand3D 126³ f32 step's first chunk on
   ``"blocked"`` and on its set-up near yield (gap after 50);
-- ``edges``: B6 and B9, which share B8's return mapping, per call on the
-  step's first-chunk inputs on ``"edges"`` and ``"edges_split"`` (gap after
-  one call).
+- ``edges``: B6 and B9 per call on the step's first-chunk inputs on
+  ``"edges"`` and ``"edges_split"`` and on its set-up near yield (gap after
+  one call);
+- ``step``: the ShearBand3D 126³ f32 step through ``shearband3d.run`` on
+  ``"edges"`` (B6) and 200 iterations of it on ``"edges_split"`` (B9), the
+  solver's edge kernel swapped for the parent's and back, in turns, by the
+  host clock: wall time, ms per hybrid iteration, iterations and τII max.
 
 Each line holds the bound from the words those inputs need and the largest
 difference of each version from the plain version after the stated number
@@ -33,6 +38,7 @@ import argparse
 import json
 import math
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -144,15 +150,18 @@ def runs_b8(parent, dev, n=126):
 
 
 def runs_edges(parent, dev, n=126):
-    """B6 and B9 (which share B8's return mapping) on the ShearBand3D n³ f32
-    step's first-chunk inputs on their routes, per call; a timed call of
-    ``nout`` runs that many calls."""
+    """B6 and B9 (which share B8's return mapping) per call, on the
+    ShearBand3D n³ f32 step's first-chunk inputs on their routes and on its
+    set-up near yield (λ_e > 0, the yield branch at full width); a timed
+    call of ``nout`` runs that many calls."""
     old = load_parent(parent, "hopper_vep3d_edges")
     geometry, st0, material, (pr_c, pr_e), _, pt, dt = shearband3d._setup(n, torch.float32,
                                                                           dev)
     kw = dict(dt=dt, r=pt.r, theta_dtau=pt.theta_dtau, etadtau=pt.etadtau,
               lambda_relaxation=0.2, viscosity_relaxation=1.0)
     inv_di = tuple(1.0 / d for d in geometry.di)
+    near, co6, co9, _, inv_near, kw_near = cs.vep3d_case("shearband3d_kb_inf", torch.float32,
+                                                         dev, n=n)
 
     def rel(a, b):
         return cs.rel_diffs_edges((*a[0], *a[1]), (*b[0], *b[1]))
@@ -168,13 +177,58 @@ def runs_edges(parent, dev, n=126):
     for name, route, split in (("B6 vep3d_edges", "edges", False),
                                ("B9 vep3d_edges_split", "edges_split", True)):
         carry, _, packed = canvas_chunk_inputs(st0, material, pr_c, pr_e, route=route)
-        args, ekw = cs.edge_args(carry, packed, inv_di, kw)
-        old_args = args[:6] + (old.pack_edge_consts(packed.co, split),) + args[7:]
-        out.append((name, "first_chunk", calls(old.vep3d_edges, old_args, ekw, split),
-                    calls(he.vep3d_edges, args, ekw, split),
-                    calls(he.vep3d_edges_reference, args, ekw, split), rel,
-                    cs.vep3d_edges_words(packed), n ** 3, 1, {"per": "call"}))
+        near_packed = he.pack_edge_consts(co9 if split else co6, split)
+        for label, (args, ekw) in (("first_chunk", cs.edge_args(carry, packed, inv_di, kw)),
+                                   ("near_yield", cs.edge_args(near, near_packed, inv_near,
+                                                               kw_near))):
+            old_args = args[:6] + (old.pack_edge_consts(args[6].co, split),) + args[7:]
+            out.append((name, label, calls(old.vep3d_edges, old_args, ekw, split),
+                        calls(he.vep3d_edges, args, ekw, split),
+                        calls(he.vep3d_edges_reference, args, ekw, split), rel,
+                        cs.vep3d_edges_words(args[6]), n ** 3, 1, {"per": "call"}))
     return out
+
+
+def steps(parent, dev, smi, n=126):
+    """Print one line per route of the ShearBand3D n³ f32 step through the
+    parent's edge kernel and this tree's, in turns parent, this, this,
+    parent (the solver's ``vep3d_edges`` swapped; the parent packs its
+    consts once per solve, as the solver does)."""
+    from justrelax_tpu_torch.solvers import stokes3d_vep as solver
+
+    old = load_parent(parent, "hopper_vep3d_edges")
+    packs = {}
+
+    def old_edges(*args, co, split=False, **kw):
+        key = (id(co), split)
+        if key not in packs:
+            packs[key] = (co, old.pack_edge_consts(co.co, split))
+        return old.vep3d_edges(*args, co=packs[key][1], split=split, **kw)
+
+    for route, kw in (("edges", dict(iter_max=2_000, nout=200)),
+                      ("edges_split", dict(iter_max=200, nout=100))):
+        res = {"parent": [], "new": []}
+        for who in ("parent", "new", "new", "parent"):
+            solver.vep3d_edges = old_edges if who == "parent" else he.vep3d_edges
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info, tau, _ = shearband3d.run(n=n, nt=1, dtype=torch.float32, use_kernel=route,
+                                              **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res[who].append((wall, int(info.iters), float(tau[-1])))
+            packs.clear()
+        solver.vep3d_edges = he.vep3d_edges
+        iters = res["new"][0][1]
+        print(json.dumps({
+            "step": "shearband3d", "route": route, "n": n, "dtype": "float32", "iters": iters,
+            "iters_parent": res["parent"][0][1],
+            "parent_s": [r[0] for r in res["parent"]], "new_s": [r[0] for r in res["new"]],
+            "parent_ms_per_iter": [r[0] / r[1] * 1e3 for r in res["parent"]],
+            "new_ms_per_iter": [r[0] / r[1] * 1e3 for r in res["new"]],
+            "tauII_max_parent": res["parent"][0][2], "tauII_max_new": res["new"][0][2],
+            "tauII_max_gap": abs(res["new"][0][2] - res["parent"][0][2]),
+            "nvidia_smi": smi}), flush=True)
 
 
 RUNS = {"2d": runs_2d, "b7": runs_b7, "b8": runs_b8, "edges": runs_edges}
@@ -184,7 +238,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("parent", type=Path)
     p.add_argument("--kernels", default="2d,b7,b8,edges",
-                   help="comma-separated: " + ", ".join(RUNS))
+                   help="comma-separated: " + ", ".join(RUNS) + ", step")
     p.add_argument("--n", type=int, default=1024, help="the 2D grid")
     p.add_argument("--iters", type=int, default=200, help="iterations per timed call")
     a = p.parse_args(argv)
@@ -196,6 +250,9 @@ def main(argv=None):
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     kind = "PCIe" if "PCIe" in torch.cuda.get_device_name(0) else "SXM"
     for key in a.kernels.split(","):
+        if key == "step":
+            steps(a.parent, dev, smi)
+            continue
         args = (a.parent, dev, a.n) if key == "2d" else (a.parent, dev)
         for name, label, old, new, plain, rel, words, cells, gap_it, extra in RUNS[key](*args):
             o, nw = in_turns(old, new, a.iters)

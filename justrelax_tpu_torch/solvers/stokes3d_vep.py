@@ -11,8 +11,8 @@ per chunk. On the canvas routes (``use_kernel`` ``"edges"``, the default on
 the card, ``"edges_split"``, ``"blocked"`` and ``"canvas"``) a chunk's first
 ``nout − 1`` iterations run on the collocated canvases
 (``ops/stokes3d_vep_canvas.py``): the hybrid iteration, whose edge passes
-run in the edge kernel (``ops/hopper_vep3d_edges.py``: B6, or B9 per
-family), the fused chunk kernel (``ops/hopper_stokes3d_vep.py``, B8), or
+run in the edge kernel (``ops/hopper_vep3d_edges.py``: B6, or B9 on the
+hoisted old-stress interpolants), the fused chunk kernel (``ops/hopper_stokes3d_vep.py``, B8), or
 the plain canvas chunk. Its last iteration runs on the staggered arrays, so
 every diagnostic (τII, η_vep, ε_pl, RP) comes from the same code on every
 route. State
@@ -173,12 +173,14 @@ def solve_vep_3d(
       one on the CPU.
     - ``False``: the staggered serial iteration.
     - ``True`` or ``"edges"``: the hybrid canvas iteration with the three
-      edge passes in one launch of ``csrc/vep3d_edges.cu`` per iteration
+      edge passes in one launch of ``csrc/stokes3d_vep.cu`` per iteration
       (B6). It needs phase-uniform plasticity with softening off and a
       phase-uniform Kb (``edges_unsupported``); elsewhere ``True`` raises
       ``ValueError`` naming ``use_kernel=False`` and ``"canvas"`` (the JAX
       package falls back to ``"canvas"`` there).
-    - ``"edges_split"``: the same with one launch per edge family (B9).
+    - ``"edges_split"``: the same with the edge families' old-stress
+      interpolants hoisted into the consts (B9), also one launch per
+      iteration.
     - ``"blocked"``: the fully fused chunk kernel (B8), three launches of
       ``csrc/stokes3d_vep.cu`` per iteration; the material guard is the edge
       kernel's.

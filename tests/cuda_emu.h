@@ -36,9 +36,16 @@ inline thread_local std::barrier<>* emu_barrier;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 0 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 0, cudaDevAttrMultiProcessorCount = 16 };
 typedef void* cudaStream_t;
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
+// an emulated card of 4 SMs, one resident block each
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 4; return 0; }
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return 0;
+}
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "emulated"; }
 inline float __fmul_rn(float a, float b) { return a * b; }

@@ -24,6 +24,7 @@ from chip_smoke import (
     TOL_VEP3D_NOUT50,
     VEP3D_CASES,
     VEP3D_CHUNK_CASES,
+    VEP3D_EDGE_RAGGED,
     TOL_NOUT1,
     TOL_NOUT50,
     TOL_TH_NOUT1,
@@ -434,7 +435,7 @@ def test_vep3d_edges_match_plain_f64(cuda, case, split):
     counter = "split_launches" if split else "launches"
     before = getattr(he.vep3d_edges, counter)
     carry, out = _edge_call(case, torch.float64, cuda, split, he.vep3d_edges)
-    assert getattr(he.vep3d_edges, counter) == before + (3 if split else 1)
+    assert getattr(he.vep3d_edges, counter) == before + 1
     _, ref = _edge_call(case, torch.float64, cuda, split, he.vep3d_edges_reference)
     worst = max(rel_diffs_edges(out, ref).values())
     assert worst <= TOL_VEP3D_CALL, (case, split, worst)
@@ -512,6 +513,32 @@ def test_vep3d_edges_random_carries_noncubic(cuda, ni):
         ref = he.vep3d_edges_reference(*dyn, co, inv_di, split=split, **kw)
         worst = max(rel_diffs_edges((*out[0], *out[1]), (*ref[0], *ref[1])).values())
         assert worst <= TOL_VEP3D_CALL, (ni, split, worst)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["B6", "B9"])
+@pytest.mark.parametrize("ni", VEP3D_EDGE_RAGGED)
+def test_vep3d_edges_ragged_grids(cuda, ni, split):
+    """Phase 18's random near-yield configuration on grids that leave the
+    kernel's (y, z) tile unfilled, span two tiles and split x into ranges
+    of one or two planes: f64 within 1e-12 of the plain version, f32 within
+    1e-4 or twice the plain version's own f32 error, and the slots a family
+    does not own bit-equal to the input."""
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        carry, co6, co9, _, inv_di, kw = vep3d_case("noncubic_near_yield", dtype, cuda, ni=ni)
+        args, ekw = edge_args(carry, co9 if split else co6, inv_di, kw)
+        out = he.vep3d_edges(*args, split=split, **ekw)
+        ref = he.vep3d_edges_reference(*args, split=split, **ekw)
+        out, ref = (*out[0], *out[1]), (*ref[0], *ref[1])
+        _, Me = edge_masks(tuple(carry.P.shape), cuda)
+        for k, (o, b) in enumerate(zip(out, (*carry.tau_e, *carry.lam_e))):
+            off = ~Me[k % 3].expand(o.shape)
+            assert torch.equal(o[off], b[off]), (dtype, k)
+        res[dtype] = (out, ref)
+    (o64, r64), (o32, r32) = res[torch.float64], res[torch.float32]
+    assert max(rel_diffs_edges(o64, r64).values()) <= TOL_VEP3D_CALL
+    p32 = max(rel_diffs_edges(tuple(x.double() for x in r32), r64).values())
+    assert max(rel_diffs_edges(o32, r32).values()) <= max(TOL_F32_1024, 2.0 * p32)
 
 
 def test_vep3d_edges_rejects_bad_inputs(cuda):

@@ -18,8 +18,10 @@ compiler, against their plain PyTorch versions:
   without the free-slip ghosts, and with the x extent split over blocks;
 - ``csrc/stokes3d_vep.cu``: B8 (the fused 3D VEP chunk, its stress pass
   tiled) in the five configurations of ``chip_smoke.py``'s phase 22 at
-  8³–11³, and B6 and B9 (the edge passes, which share its edge code) in
-  the four of phase 18.
+  8³–11³, and B6 and B9 (the edge passes' x-march, which shares its
+  return mapping) in the four of phase 18 and on ragged grids that leave
+  the (y, z) tile unfilled, span two tiles and split x into ranges, f64
+  and f32, every input in a NaN-padded buffer.
 
 Each call goes through the wrapper's own ``_launch`` (argument checks, slot
 packing, work sets). This checks the kernels' index arithmetic, halos, tile
@@ -45,7 +47,6 @@ from chip_smoke import (
     VEP3D_CASES,
     VEP3D_CHUNK_CASES,
     chunk_case,
-    edge_args,
     flat_vep_carry,
     rel_diffs,
     rel_diffs_ve,
@@ -64,6 +65,7 @@ from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc
 from justrelax_tpu_torch.ops import hopper_vep3d_edges as he
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv
 from justrelax_tpu_torch.ops import hopper_window_copy as hw
+from justrelax_tpu_torch.ops.stokes3d_vep_canvas import edge_masks
 
 torch.set_num_threads(1)
 
@@ -246,14 +248,52 @@ def test_vep3d_chunk_kernel(libs, case, dtype):
     assert all(torch.equal(a, b) for a, b in zip(before, flat_vep_carry(carry)))
 
 
+# the edge kernel (B6/B9) on phase 18's random near-yield configuration on
+# grids that leave its 4 x 32 (y, z) tile unfilled, span three y and two z
+# tiles, and (the emulated card holds four blocks, so two (y, z) tiles take
+# two x ranges each) split x into ranges
+EDGE_RAGGED = {"ragged_5_4_3": (5, 4, 3), "ragged_3_9_33": (3, 9, 33),
+               "x_ranges_9_5_4": (9, 5, 4)}
+
+
+def _guard_consts(packed):
+    """``packed`` with each G_e and τ_o canvas in a NaN-padded buffer (one
+    buffer per source)."""
+    memo = {}
+
+    def guard(t):
+        if t is None:
+            return None
+        return memo.setdefault(id(t), _guarded(t))
+    return packed._replace(G=tuple(map(guard, packed.G)),
+                           tau_o=tuple(tuple(map(guard, fam)) for fam in packed.tau_o))
+
+
 @pytest.mark.parametrize("split", [False, True])
-@pytest.mark.parametrize("case", VEP3D_CASES)
+@pytest.mark.parametrize("case", VEP3D_CASES + tuple(EDGE_RAGGED))
 def test_vep3d_edges_kernel(libs, case, split):
-    """B6 (B9 with ``split``) against their plain version, f64, one call."""
-    carry, co6, co9, _, inv_di, kw = vep3d_case(case, torch.float64, "cpu", n=8)
-    args, ekw = edge_args(carry, co9 if split else co6, inv_di, kw)
-    V, theta, eta, tcn, te, le, co, inv = args
-    out = he._launch(libs[he], None, (*V, theta, eta, *tcn, *te, *le), co, inv, ekw["dt"],
-                     ekw["theta_dtau"], ekw["lambda_relaxation"], split)
-    ref = he.vep3d_edges_reference(*args, split=split, **ekw)
-    assert max(rel_diffs_edges((*out[0], *out[1]), (*ref[0], *ref[1])).values()) <= TOL[torch.float64]
+    """B6 (B9 with ``split``) against their plain version after one call, f64
+    and f32, every input in a NaN-padded buffer: the inputs are not written
+    and the slots a family does not own come back bit-equal."""
+    for dtype in (torch.float64, torch.float32):
+        ni = EDGE_RAGGED.get(case)
+        carry, co6, co9, _, inv_di, kw = (
+            vep3d_case("noncubic_near_yield", dtype, "cpu", ni=ni) if ni
+            else vep3d_case(case, dtype, "cpu", n=8))
+        packed = _guard_consts(he.pack_edge_consts(co9 if split else co6, split))
+        dyn = tuple(map(_guarded, (*carry.V, carry.theta, carry.eta, *carry.tau_c[:3],
+                                   *carry.tau_e, *carry.lam_e)))
+        before = [t.clone() for t in dyn]
+        ekw = dict(dt=kw["dt"], theta_dtau=kw["theta_dtau"],
+                   lambda_relaxation=kw["lambda_relaxation"])
+        out = he._launch(libs[he], None, dyn, packed, inv_di, *ekw.values(), split)
+        assert all(torch.equal(a, b) for a, b in zip(before, dyn))  # input not written
+        ref = he.vep3d_edges_reference(dyn[:3], dyn[3], dyn[4], dyn[5:8], dyn[8:11], dyn[11:],
+                                       packed, inv_di, split=split, **ekw)
+        out, ref = (*out[0], *out[1]), (*ref[0], *ref[1])
+        worst = max(rel_diffs_edges(out, ref).values())
+        assert worst <= TOL[dtype], (dtype, worst)
+        _, Me = edge_masks(tuple(carry.P.shape), "cpu")
+        for k, (o, b) in enumerate(zip(out, dyn[8:])):
+            off = ~Me[k % 3].expand(o.shape)
+            assert torch.equal(o[off], b[off]), (dtype, k)

@@ -6,7 +6,7 @@ version against the JAX package, in float64 on the CPU:
   without the hoisted ``make_vep_params_3d``: every output within 1e-14 of
   its field's max; ``make_vep_params_3d`` field by field;
 - ``canvas_moves`` against ``serial_moves`` on the slots each family owns,
-  and the closed-form index clamps that ``csrc/vep3d_edges.cu`` evaluates
+  and the closed-form index clamps that ``csrc/stokes3d_vep.cu`` evaluates
   against ``canvas_moves`` on a non-cubic grid;
 - ``vep3d_canvas_consts`` in its three forms (the plain chunk's, B6's and
   B9's) and with buoyancy and a power-law creep table, against JAX's;
@@ -210,7 +210,7 @@ def _avg4(a, b, c, d):
 
 @pytest.mark.parametrize("ni", [(5, 4, 3), (3, 6, 4)])
 def test_kernel_clamp_rules_match_canvas_moves(ni):
-    """The index rules ``csrc/vep3d_edges.cu`` evaluates in closed form
+    """The index rules ``csrc/stokes3d_vep.cu`` evaluates in closed form
     (``center_points``, ``other_points``), restated per slot, against the
     canvas moves of the plain version on every owned slot of a non-cubic
     grid: center → edge k averages the centers at clamp(j, 1, n) and
