@@ -137,8 +137,14 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               (justrelax_tpu_torch/scripts/repro_2d_dma.py) in its three
               modes through the kernel, with the launch count read around
               it; the kernel against its plain version, bit for bit, in each
-              mode; the kernel, the plain version and the one indexing call
-              that computes the same copy, timed by CUDA events.
+              mode, on the script's ramp and on noise; then per mode the
+              kernel (ms), the plain version, the one indexing call that
+              computes the same copy (library_ms) and the byte floor, one
+              device-to-device copy_ of the same 2 MiB (floor_ms), each by
+              the card's time per call (device_time_ms: CUDA events behind a
+              torch.cuda._sleep that outlasts the host's queueing) with the
+              host's wall time per call beside it (wall_ms), in turns with
+              the parent commit's kernel with --parent DIR (parent_ms).
 26. launches_per_iteration: the CUDA launches each kernel makes per PT
               iteration, counted by torch.profiler.
 
@@ -770,6 +776,57 @@ def cuda_time_ms(fn, repeats=5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+SLEEP_HZ = 2.0e9  # cycles per second of torch.cuda._sleep: the H100's top SM clock
+
+
+def device_time_ms(fn, reps=20, repeats=7):
+    """The card's time per call of ``fn`` and the host's, apart:
+    ``{"ms": device ms, "wall_ms": host ms, "wall_min_ms": the host's
+    fastest run, "queued": bool}``, medians of ``repeats`` runs of ``reps``
+    calls after one warm-up call (the host's clock varies more than the
+    card's: its cores are shared).
+
+    ``wall_ms`` is the host's clock from the first call to the end of the
+    last on the card, over ``reps``: where the host's work per call (Python,
+    allocation, launch) outlasts the card's, it is the host's rate of calls.
+    ``ms`` is read between two CUDA events that a ``torch.cuda._sleep`` puts
+    behind the host: the card sleeps until every call is queued, so the
+    events bracket the card's work alone. ``queued`` says that the start
+    event was still pending when the last call was queued in every run (the
+    sleep is lengthened once and the run repeated where it was not). Keep
+    ``reps`` times the launches per call well inside the card's queue of
+    pending launches (about a thousand): past it the host waits for the card
+    and the events take in that wait."""
+    fn()
+    torch.cuda.synchronize()
+    walls, devs, queued = [], [], True
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / reps * 1e3)
+    wall = statistics.median(walls)
+    cycles = int(4.0 * wall * 1e-3 * reps * SLEEP_HZ) + 200_000
+    for _ in range(repeats):
+        for attempt in range(2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            ok = not a.query()  # the card still asleep when the last call was queued
+            torch.cuda.synchronize()
+            if ok or attempt:
+                break
+            cycles *= 4
+        queued &= ok
+        devs.append(a.elapsed_time(b) / reps)
+    return {"ms": statistics.median(devs), "wall_ms": wall, "wall_min_ms": min(walls),
+            "queued": queued}
 
 
 @contextlib.contextmanager
@@ -2486,34 +2543,56 @@ def run_window_copy(dev, smi, kind):
     check(main_launches == 3 * len(hw.MODES), "window_copy: the kernel was not launched")
 
     # kernel against plain, bit for bit, on the script's input and a random
-    # one; the kernel, the plain version and the one indexing call timed
+    # one (and the parent tree's kernel with --parent); then each timed by
+    # the card's time per call and the host's (device_time_ms): the kernel
+    # (in turns with the parent's), the plain version, the one indexing call
+    # and the byte floor, one device-to-device copy of the same 2 MiB
     N, X, Y, Z = repro_2d_dma.N, repro_2d_dma.X, repro_2d_dma.Y, repro_2d_dma.Z
     geom = dict(W=repro_2d_dma.W, Wy=repro_2d_dma.Wy, R=repro_2d_dma.R, Ry=repro_2d_dma.Ry)
     ramp = (torch.arange(N * X * Y * Z, dtype=torch.float32, device=dev)
             .reshape(N, X, Y, Z) / 1e6)
     noise = torch.as_tensor(np.random.default_rng(17).standard_normal((N, X, Y, Z)),
                             dtype=torch.float32, device=dev)
+    old = load_parent("hopper_window_copy")
+    # each output word written once and read once from the source
+    bound = 2 * X * Y * Z * 4 / HBM_PEAK[kind] * 1e3
     worst_abs, per_mode = 0.0, {}
     for mode in hw.MODES:
         for src in (ramp, noise):
-            out = hw.window_copy(src, mode, **geom)
             ref = hw.window_copy_reference(src, mode, **geom)
-            torch.cuda.synchronize()
-            check(torch.equal(out, ref), f"window_copy {mode}: kernel differs from plain")
-            worst_abs = max(worst_abs, float((out - ref).abs().max()))
+            for who in (hw, old) if old else (hw,):
+                out = who.window_copy(src, mode, **geom)
+                torch.cuda.synchronize()
+                check(torch.equal(out, ref),
+                      f"window_copy {mode}: {'kernel' if who is hw else 'parent'} differs "
+                      "from plain")
+                worst_abs = max(worst_abs, float((out - ref).abs().max()))
         xi, yi = hw.window_indices(X, Y, mode, **geom, device=dev)
-        reps = 100
-
-        def loop(fn):
-            return lambda: [fn() for _ in range(reps)]
-
-        tk = cuda_time_ms(loop(lambda: hw.window_copy(ramp, mode, **geom))) / reps
-        tp = cuda_time_ms(loop(lambda: hw.window_copy_reference(ramp, mode, **geom))) / reps
-        tl = cuda_time_ms(loop(lambda: ramp[0][xi[:, None], yi[None, :]])) / reps
-        per_mode[mode] = dict(ms=tk, plain_ms=tp, library_ms=tl)
+        floor_out = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+        fns = {"kernel": lambda: hw.window_copy(ramp, mode, **geom),
+               "plain": lambda: hw.window_copy_reference(ramp, mode, **geom),
+               "library": lambda: ramp[0][xi[:, None], yi[None, :]],
+               "floor": lambda: floor_out.copy_(ramp[0])}
+        order = ["kernel", "plain", "library", "floor", "kernel"]
+        if old:
+            fns["parent"] = lambda: old.window_copy(ramp, mode, **geom)
+            order = ["parent", *order, "parent"]
+        t = {}
+        for name in order:
+            t.setdefault(name, []).append(device_time_ms(fns[name]))
+        best = {name: min(r, key=lambda x: x["ms"]) for name, r in t.items()}
+        per_mode[mode] = {
+            **{("ms" if n == "kernel" else f"{n}_ms"): b["ms"] for n, b in best.items()},
+            **{("wall_ms" if n == "kernel" else f"{n}_wall_ms"): b["wall_ms"]
+               for n, b in best.items()},
+            **{("wall_min_ms" if n == "kernel" else f"{n}_wall_min_ms"):
+               min(x["wall_min_ms"] for x in t[n]) for n in t},
+            "runs_ms": {n: [x["ms"] for x in r] for n, r in t.items()},
+            "queued": all(x["queued"] for r in t.values() for x in r),
+            "bound_share": bound / best["kernel"]["ms"]}
+        check(per_mode[mode]["queued"], f"window_copy {mode}: the card caught up with the "
+              "host while timing; a device time was not read")
     hw.window_copy.launches = main_launches  # comparison launches do not count
-    # each output word written once and read once from the source
-    bound = 2 * X * Y * Z * 4 / HBM_PEAK[kind] * 1e3
     emit("window_copy", max_abs_err=worst_abs, bound_ms=bound, per_mode=per_mode,
          nvidia_smi=smi)
     return {
@@ -2528,6 +2607,10 @@ def run_window_copy(dev, smi, kind):
         "bound_ms": bound,
         "bound_by": "bytes",
         "library_ms": per_mode["2d"]["library_ms"],
+        "wall_ms": per_mode["2d"]["wall_ms"],
+        "floor_ms": per_mode["2d"]["floor_ms"],
+        "parent_ms": per_mode["2d"].get("parent_ms"),
+        "per": "copy (device time)",
         "per_mode": per_mode,
     }
 

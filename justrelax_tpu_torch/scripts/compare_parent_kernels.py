@@ -2,7 +2,7 @@
 turns, on one card.
 
     python -m justrelax_tpu_torch.scripts.compare_parent_kernels PARENT_DIR
-        [--kernels 2d,b7,b8,edges,step] [--n 1024] [--iters 200]
+        [--kernels 2d,b7,b8,edges,step,r] [--n 1024] [--iters 200]
 
 Run from the root of a checkout (it takes its inputs from ``chip_smoke.py``).
 ``PARENT_DIR`` holds the parent's ``justrelax_tpu_torch/ops/hopper_*.py``
@@ -24,7 +24,11 @@ this tree, this tree, parent, by CUDA events:
 - ``step``: the ShearBand3D 126³ f32 step through ``shearband3d.run`` on
   ``"edges"`` (B6) and 200 iterations of it on ``"edges_split"`` (B9), the
   solver's edge kernel swapped for the parent's and back, in turns, by the
-  host clock: wall time, ms per hybrid iteration, iterations and τII max.
+  host clock: wall time, ms per hybrid iteration, iterations and τII max;
+- ``r``: R (the 2D dynamic-window copy) at the repro script's shape in each
+  mode, by the card's time per copy (``chip_smoke.device_time_ms``, which
+  keeps the host's queueing out of the events) and the host's wall time per
+  copy beside it, each version held bit-equal to the plain version.
 
 Each line holds the bound from the words those inputs need and the largest
 difference of each version from the plain version after the stated number
@@ -50,7 +54,9 @@ from justrelax_tpu_torch.ops import hopper_stokes3d as h3
 from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc
 from justrelax_tpu_torch.ops import hopper_stokes_vep as hv
 from justrelax_tpu_torch.ops import hopper_vep3d_edges as he
+from justrelax_tpu_torch.ops import hopper_window_copy as hw
 from justrelax_tpu_torch.ops.stencil import maxloc
+from justrelax_tpu_torch.scripts import repro_2d_dma as rp
 from justrelax_tpu_torch.solvers.stokes3d_vep import canvas_chunk_inputs
 
 
@@ -231,6 +237,41 @@ def steps(parent, dev, smi, n=126):
             "nvidia_smi": smi}), flush=True)
 
 
+def window_copy_turns(parent, dev, smi, kind):
+    """Print one line per mode of R: the parent's and this tree's time per
+    copy on the card and on the host's clock, in turns parent, this, this,
+    parent."""
+    old = load_parent(parent, "hopper_window_copy")
+    shape = (rp.N, rp.X, rp.Y, rp.Z)
+    geom = dict(W=rp.W, Wy=rp.Wy, R=rp.R, Ry=rp.Ry)
+    src = torch.arange(math.prod(shape), dtype=torch.float32, device=dev).reshape(shape) / 1e6
+    bound = 2 * rp.X * rp.Y * rp.Z * 4 / cs.HBM_PEAK[kind] * 1e3
+    for mode in hw.MODES:
+        ref = hw.window_copy_reference(src, mode, **geom)
+        fns = {"parent": lambda: old.window_copy(src, mode, **geom),
+               "new": lambda: hw.window_copy(src, mode, **geom)}
+        for who, fn in fns.items():
+            out = fn()
+            torch.cuda.synchronize()
+            cs.check(torch.equal(out, ref), f"window_copy {mode}: {who} differs from plain")
+        res = {"parent": [], "new": []}
+        for who in ("parent", "new", "new", "parent"):
+            res[who].append(cs.device_time_ms(fns[who]))
+        best = {who: min(r["ms"] for r in v) for who, v in res.items()}
+        print(json.dumps({
+            "kernel": "R window_copy", "mode": mode, "shape": list(shape), "dtype": "float32",
+            "parent_ms": [r["ms"] for r in res["parent"]],
+            "new_ms": [r["ms"] for r in res["new"]],
+            "parent_wall_ms": [r["wall_ms"] for r in res["parent"]],
+            "new_wall_ms": [r["wall_ms"] for r in res["new"]],
+            "parent_wall_min_ms": min(r["wall_min_ms"] for r in res["parent"]),
+            "new_wall_min_ms": min(r["wall_min_ms"] for r in res["new"]),
+            "queued": all(r["queued"] for v in res.values() for r in v),
+            "speedup": best["parent"] / best["new"], "bound_ms": bound,
+            "parent_bound_share": bound / best["parent"],
+            "new_bound_share": bound / best["new"], "nvidia_smi": smi}), flush=True)
+
+
 RUNS = {"2d": runs_2d, "b7": runs_b7, "b8": runs_b8, "edges": runs_edges}
 
 
@@ -238,7 +279,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("parent", type=Path)
     p.add_argument("--kernels", default="2d,b7,b8,edges",
-                   help="comma-separated: " + ", ".join(RUNS) + ", step")
+                   help="comma-separated: " + ", ".join(RUNS) + ", step, r")
     p.add_argument("--n", type=int, default=1024, help="the 2D grid")
     p.add_argument("--iters", type=int, default=200, help="iterations per timed call")
     a = p.parse_args(argv)
@@ -252,6 +293,9 @@ def main(argv=None):
     for key in a.kernels.split(","):
         if key == "step":
             steps(a.parent, dev, smi)
+            continue
+        if key == "r":
+            window_copy_turns(a.parent, dev, smi, kind)
             continue
         args = (a.parent, dev, a.n) if key == "2d" else (a.parent, dev)
         for name, label, old, new, plain, rel, words, cells, gap_it, extra in RUNS[key](*args):

@@ -37,6 +37,14 @@ def _norm(x):
     return torch.linalg.vector_norm(x.reshape(-1))
 
 
+def _ratio(err, err1):
+    """err/err₁ in IEEE arithmetic, as the JAX loop takes it: 0/0 is nan
+    (a state that is already exact stops after one chunk), x/0 is ±∞."""
+    if err1 == 0.0:
+        return math.nan if err == 0.0 or math.isnan(err) else math.copysign(math.inf, err)
+    return err / err1
+
+
 def solve_ve(
     stokes,
     pt_stokes,
@@ -119,7 +127,7 @@ def solve_ve(
     hist = torch.full((max_chunks, 3), math.nan, dtype=dtype, device=device)
     # err starts at inf, so at least one chunk runs
     err, err1, chunk = math.inf, 1.0, 0
-    while chunk < 1 or ((err / err1 > eps_rel and err > eps_abs) and chunk < max_chunks):
+    while chunk < 1 or ((_ratio(err, err1) > eps_rel and err > eps_abs) and chunk < max_chunks):
         if use_kernel:
             c = stokes_chunk(*c, *fields, inv_dx, inv_dy, r, theta_dtau, etadtau,
                              nout=nout, G=G, K=K, P0=P0, Q=Q, tau_o=tau_o, dt=dt)

@@ -40,7 +40,7 @@ from justrelax_tpu_torch.ops.stokes_vep import (
 from justrelax_tpu_torch.rheology.materials import _as_stack
 from justrelax_tpu_torch.rheology.plasticity import second_invariant_staggered
 from justrelax_tpu_torch.rheology.viscosity import _is_linear_creep
-from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm
+from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm, _ratio
 
 __all__ = ["solve_vep"]
 
@@ -176,7 +176,7 @@ def _solve_vep(
     # err starts at inf, so at least one chunk runs and sets the diagnostics
     err, err1, chunk = math.inf, 1.0, 0
     while chunk < min_chunks or (
-        (err / err1 > eps_rel and err > eps_abs) and chunk < max_chunks
+        (_ratio(err, err1) > eps_rel and err > eps_abs) and chunk < max_chunks
     ):
         if use_kernel:
             c = VEPCarry(*stokes_vep_chunk(
@@ -196,7 +196,9 @@ def _solve_vep(
         eps_pl_xx, eps_pl_yy, eps_pl_xy_v = res.eps_pl_xx, res.eps_pl_yy, res.eps_pl_xy_v
         nRx, nRy, nRP, _, _ = residual_norms(c, RP)
         err_t = torch.maximum(torch.maximum(nRx, nRy), nRP)
-        hist[chunk] = torch.stack([nRx, nRy, nRP])
+        # iter_min may ask for more chunks than iter_max: the history keeps
+        # the last in its last row, as JAX's clamped dynamic update does
+        hist[min(chunk, max_chunks - 1)] = torch.stack([nRx, nRy, nRP])
         err = float(err_t)  # the one host read per chunk
         if chunk == 0:
             err1 = err

@@ -31,17 +31,9 @@ from justrelax_tpu_torch.ops.stokes3d_canvas import (
     unpack_carry,
     ve3d_canvas_coefficients,
 )
-from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm
+from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm, _ratio
 
 __all__ = ["solve_ve_3d", "kernel_chunk_inputs"]
-
-
-def _ratio(err, err1):
-    """err/err₁ in IEEE arithmetic, as the JAX loop takes it: 0/0 is nan
-    (a state that is already exact stops after one chunk), x/0 is ±∞."""
-    if err1 == 0.0:
-        return math.nan if err == 0.0 or math.isnan(err) else math.copysign(math.inf, err)
-    return err / err1
 
 
 def _static_all_inf(x):

@@ -63,8 +63,7 @@ from justrelax_tpu_torch.rheology.viscosity import (
     phase_viscosity,
     shared_powerlaw_exponent,
 )
-from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm
-from justrelax_tpu_torch.solvers.stokes3d import _ratio
+from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm, _ratio
 
 __all__ = ["solve_vep_3d", "canvas_chunk_inputs"]
 

@@ -771,11 +771,19 @@ def test_window_copy_matches_plain(cuda, mode):
     params = dict(W=12, Wy=10, R=8, Ry=6)
     assert torch.equal(hw.window_copy(small, mode, **params),
                        hw.window_copy_reference(small, mode, **params))
+    # two TMA boxes along z; a 16-byte inner box
+    for shape, params in (((1, 128, 64, 512), dict(W=64, Wy=40, R=32, Ry=16)),
+                          ((3, 20, 24, 4), dict(W=10, Wy=9, R=5, Ry=6))):
+        s = torch.as_tensor(np.random.default_rng(4).standard_normal(shape),
+                            dtype=torch.float32, device=cuda)
+        assert torch.equal(hw.window_copy(s, mode, **params),
+                           hw.window_copy_reference(s, mode, **params))
 
 
 def test_window_copy_rejects_bad_inputs(cuda):
     src = torch.zeros((4, 64, 64, 128), device=cuda)
-    for bad in (src.double(), src.transpose(1, 2), src[..., :126]):
+    misaligned = torch.zeros(src.numel() + 1, device=cuda)[1:].view(src.shape)
+    for bad in (src.double(), src.transpose(1, 2), src[..., :126], misaligned):
         with pytest.raises(ValueError):
             hw.window_copy(bad)
 

@@ -10,7 +10,9 @@ compiler, against their plain PyTorch versions:
 - ``csrc/stokes_ve.cu`` (B1/B4): the three configurations of
   ``chip_smoke.ve_case`` and ragged random states, with and without the
   free-slip ghosts;
-- ``csrc/window_copy.cu`` (R): the three modes, with ``cp.async`` as a copy;
+- ``csrc/window_copy.cu`` (R): the three modes at five shapes and four cuts,
+  its TMA copies as strided copies checked against the emulated
+  tensor map, shared memory and mbarrier;
 - ``csrc/stokes3d_ve.cu`` (B7): ragged grids that do not fill the (y, z)
   tile, in the viscous form, the general form with dt = ∞ (its varying
   coefficients derived from η and ητ) and with a finite dt (streamed, but
@@ -77,14 +79,24 @@ RAGGED = [(2, 2), (3, 5), (33, 31), (17, 70)]
 def _emulated(source: Path, out: Path, bind):
     """Build ``source`` against the emulation header and bind it."""
     text = source.read_text().replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
+    text = text.replace("#include <cuda.h>\n", "").replace("#include <cudaTypedefs.h>\n", "")
     text = re.sub(r"extern __shared__ __align__\(16\) (\w+ ?\w*) (\w+)\[\];",
                   r"\1* \2 = reinterpret_cast<\1*>(emu_smem);", text)
     text = re.sub(r"(\w+)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ", text)
-    # cp.async: a plain copy; commit and wait have nothing to do
+    # cp.async: a plain copy; commit and wait have nothing to do. TMA: a
+    # strided copy of the box, its bytes counted on the emulated mbarrier;
+    # the proxy fence and the bulk group's commit and wait have nothing to do
     for name, body in (("cp_async16", "std::memcpy(smem, gmem, 16);"),
                        ("cp_async_elem", "*smem = *gmem;"),
                        ("cp_async_commit", ""), ("cp_async_wait_all", ""),
-                       ("cp_async_wait_group", "")):
+                       ("cp_async_wait_group", ""),
+                       ("mbar_init", "emu_mbar_init(bar, 1);"),
+                       ("mbar_expect_tx", "emu_mbar_add(bar, -1, bytes);"),
+                       ("mbar_wait", "emu_mbar_wait(bar, parity);"),
+                       ("tma_load_4d", "emu_tma_4d(smem, map, bar, c0, c1, c2, c3);"),
+                       ("tma_store_4d",
+                        "emu_tma_4d(const_cast<void*>(smem), map, nullptr, c0, c1, c2, c3);"),
+                       ("fence_proxy_async", ""), ("bulk_commit_and_wait_read", "")):
         text = re.sub(r"__device__ __forceinline__ void " + name + r"\((.*?)\) \{.*?\n\}",
                       "inline void " + name + r"(\1) { " + body + " }", text, flags=re.S)
     assert "asm volatile" not in text
@@ -172,14 +184,66 @@ def test_ve_kernel_ragged_tiles(libs, ni, vary, dtype):
         assert max(rel_diffs_ve(out, ref).values()) <= TOL[dtype], free_slip
 
 
+def _window_copy(lib, src, mode, params, rows=None):
+    """R's kernel under the emulation; no TMA box off its shared memory, no
+    barrier wait that would not complete on the card."""
+    faults = lib.emu_fault_count()
+    out = hw._launch(lib, None, src, mode, *params, rows=rows)
+    assert lib.emu_fault_count() == faults
+    return out
+
+
 @pytest.mark.parametrize("mode", hw.MODES)
 @pytest.mark.parametrize("shape,params", [((4, 64, 64, 128), (32, 40, 32, 16)),
                                           ((2, 24, 30, 8), (12, 10, 8, 6)),
-                                          ((1, 128, 64, 512), (64, 40, 32, 16))])
+                                          ((1, 128, 64, 512), (64, 40, 32, 16)),
+                                          ((3, 20, 24, 4), (10, 9, 5, 6)),
+                                          ((2, 16, 32, 256), (8, 20, 8, 16))],
+                         ids=["script", "small", "z512", "z4", "box256"])
 def test_window_copy_kernel(libs, mode, shape, params):
+    """At the script's shape, a small one, Z = 512 (two TMA boxes along z),
+    Z = 4 (a box's inner 16 bytes) and Z = 256 (a box of 256 elements)."""
     src = torch.as_tensor(np.random.default_rng(7).standard_normal(shape), dtype=torch.float32)
-    out = hw._launch(libs[hw], None, src, mode, *params)
+    out = _window_copy(libs[hw], src, mode, params)
     assert torch.equal(out, hw.window_copy_reference(src, mode, *params))
+
+
+@pytest.mark.parametrize("mode", hw.MODES)
+@pytest.mark.parametrize("rows", [2, 4, 32])
+def test_window_copy_kernel_rows(libs, mode, rows):
+    """Other cuts of the script's shape than ``plan``'s one x row a block,
+    up to a whole window (256 KiB of shared memory in mode "loop" is
+    refused)."""
+    shape, params = (4, 64, 64, 128), (32, 40, 32, 16)
+    src = torch.as_tensor(np.random.default_rng(8).standard_normal(shape), dtype=torch.float32)
+    if hw.plan(128, 32, 16, mode, rows)[3] > hw._SMEM_MAX:
+        with pytest.raises(ValueError, match="shared memory"):
+            hw._launch(libs[hw], None, src, mode, *params, rows=rows)
+        return
+    out = _window_copy(libs[hw], src, mode, params, rows)
+    assert torch.equal(out, hw.window_copy_reference(src, mode, *params))
+
+
+def test_window_copy_kernel_rejects_misaligned_and_strided(libs):
+    shape, params = (4, 64, 64, 128), (32, 40, 32, 16)
+    buf = torch.zeros(int(np.prod(shape)) + 1)
+    misaligned = buf[1:].view(shape)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hw._launch(libs[hw], None, misaligned, "2d", *params)
+    with pytest.raises(ValueError, match="contiguous"):
+        hw._launch(libs[hw], None, torch.zeros(shape).transpose(1, 2), "2d", *params)
+
+
+def test_window_copy_encode_failure_raises(libs, monkeypatch):
+    """Past the wrapper's checks, a misaligned base fails the tensor map's
+    encode, and the wrapper raises with its CUresult."""
+    shape, params = (4, 64, 64, 128), (32, 40, 32, 16)
+    misaligned = torch.zeros(int(np.prod(shape)) + 1)[1:].view(shape)
+    monkeypatch.setattr(hw, "_kernel_check",
+                        lambda src, mode, R, Ry, rows: hw.plan(shape[3], R, Ry, mode, rows))
+    with pytest.raises(RuntimeError, match="CUresult 1"):
+        hw._launch(libs[hw], None, misaligned, "2d", *params)
 
 
 def _guarded(t):

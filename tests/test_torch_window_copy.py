@@ -103,3 +103,35 @@ def test_cli_runs_on_cpu(mode, capsys):
     assert text[-1] == "PASS"
     assert all(f"finite=True sum={SUMS[mode]:.3f}" in ln for ln in text[1:4])
     assert out.shape == (1, 64, 64, 128)
+
+
+@pytest.mark.parametrize("Z,R,Ry,mode,want", [
+    # the script's shape: 1 x row of 8 KiB a block, 64 x (64 / 16) = 256 blocks
+    (128, 32, 16, "2d", (1, 128, 8192, 8448)),
+    (128, 32, 16, "loop", (1, 128, 512, 8448)),
+    # Z = 512: two boxes of 256 along z, one x row of 32 KiB a block
+    (512, 64, 16, "x", (1, 256, 16384, 33024)),
+    # Z = 4: five rows of 96 bytes a block, each y row's box rounded up to 128 bytes
+    (4, 5, 6, "2d", (5, 4, 512, 768)),
+    (4, 5, 6, "loop", (5, 4, 128, 1024)),
+    # Z = 300: boxes of 100, the largest multiple of 4 up to 256 dividing 300
+    (300, 8, 4, "2d", (1, 100, 1664, 5248)),
+])
+def test_plan(Z, R, Ry, mode, want):
+    """``plan``: (x rows a block, z values a box, bytes a box's region,
+    bytes of shared memory a block)."""
+    assert hw.plan(Z, R, Ry, mode) == want
+
+
+@pytest.mark.parametrize("shape,kwargs,match", [
+    ((4, 64, 64, 126), {}, "multiple of 4"),
+    ((1, 8, 512, 4), dict(W=8, Wy=512, R=8, Ry=512), "TMA box"),
+    ((1, 4, 64, 4096), dict(W=4, Wy=64, R=4, Ry=16), "shared memory"),
+])
+def test_kernel_check_rejects(shape, kwargs, match):
+    """What the kernel does not take is refused before a launch."""
+    kw = dict(dict(mode="2d", W=32, Wy=40, R=32, Ry=16), **kwargs)
+    src = torch.zeros(shape)
+    hw._check(src, kw["mode"], kw["W"], kw["Wy"], kw["R"], kw["Ry"])
+    with pytest.raises(ValueError, match=match):
+        hw._kernel_check(src, kw["mode"], kw["R"], kw["Ry"], None)
