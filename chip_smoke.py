@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--parent DIR]
 
+(``--golden LABEL`` runs one of phase 28's goldens and prints its result:
+phase 28 starts three of them that way, in processes of their own.)
+
 Run from the root of a checkout. Phases, each printing JSON lines:
 
 0. device   : the card's name and power limit (nvidia-smi).
@@ -146,7 +149,27 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               host's wall time per call beside it (wall_ms), in turns with
               the parent commit's kernel with --parent DIR (parent_ms).
 26. launches_per_iteration: the CUDA launches each kernel makes per PT
-              iteration, counted by torch.profiler.
+              iteration, counted by torch.profiler (run last).
+27. kernel_refusals: on the card, with use_kernel left to its default, a 3D
+              heatdiffusion_PT and solve_vep(visc_plastic_tau=True) raise
+              ValueError naming use_kernel=False.
+28. golden_models: the models of the module queue through their default
+              entry points, f64, at the JAX tests' sizes and on their
+              assertions: the sinking block at 32^2 (B2/B3), diffusion3d at
+              32^3, global convection at 32^2 over 3 steps (B1/B4), the
+              thermal stresses at 48^2 over 2 steps (B5), shear heating at
+              32^2 over 5 steps, 3D shear heating at 12^3 over 2 steps (B7),
+              the visc_plastic_tau shear band at 32^2 over 10 steps, SolVi
+              2D at 96^2 for both viscosity ratios; each with the launches
+              of the kernel it routes through (> 0) and of no other.
+29. main_path_models: the new paths at production grids in f32 (PROD): the
+              sinking block at 1024^2 through B2/B3 on the flagship's budget,
+              the thermal stresses at 1024^2 (B5, then the plain alpha_dT
+              Stokes solve), 3D shear heating at 126^3 (B7 for both Picard
+              solves, the plain 3D thermal solve) and diffusion3d at 126^3
+              over one step; wall time, its split by CUDA events (the
+              kernel's chunk calls, each solve with its iterations, err and
+              whether it stopped before its cap) and the rest.
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
 the run's own inputs (hopper_stokes_vep.vep_chunk_words and
@@ -155,7 +178,9 @@ kernel, vep3d_edges_words for the edge kernel, with its operations over the
 f32 peak beside them (vep3d_edges_ops), vep3d_chunk_words for the
 fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
-Then the kernels line, and last {"ok": true, "device": {...}}. Any failure
+Then the kernels line (each entry with its launches on the main path it
+was first ported for, and launches_models: its launches in phases 28-29),
+and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
 printing any result. With --parent DIR (a parent commit's
 justrelax_tpu_torch/ops and csrc, e.g. from git archive) the redesigned
@@ -191,12 +216,19 @@ from justrelax_tpu_torch.models import (  # noqa: E402
     blankenbach,
     burstedde,
     diffusion2d,
+    diffusion3d,
     elastic_buildup,
+    global_convection2d,
     shearband,
+    shearheating,
+    shearheating3d,
+    sinking_block,
     solcx,
     solkz,
     shearband3d,
+    solvi2d,
     solvi3d,
+    thermal_stresses,
 )
 from justrelax_tpu_torch.models.shearband import _circle_phase_ratios  # noqa: E402
 from justrelax_tpu_torch.ops import _cuda_build  # noqa: E402
@@ -216,6 +248,8 @@ from justrelax_tpu_torch.ops.bc import (  # noqa: E402
 )
 from justrelax_tpu_torch.solvers import stokes2d as solver_ve  # noqa: E402
 from justrelax_tpu_torch.solvers import stokes2d_vep as solver_vep  # noqa: E402
+from justrelax_tpu_torch.solvers import stokes3d as solver_ve3d  # noqa: E402
+from justrelax_tpu_torch.solvers import thermal as solver_thermal  # noqa: E402
 from justrelax_tpu_torch.solvers.stokes3d import kernel_chunk_inputs  # noqa: E402
 from justrelax_tpu_torch.solvers.thermal import heatdiffusion_PT  # noqa: E402
 from justrelax_tpu_torch.ops.stencil import av_vertex_to_center, expand_edges, maxloc  # noqa: E402
@@ -1049,10 +1083,12 @@ def main():
     b6_line, b9_line, bench, tau_edges = run_vep3d(dev, smi, kind)
     b8_line = run_vep3d_chunk(dev, smi, kind, bench, tau_edges)
     r_line = run_window_copy(dev, smi, kind)
+    model_launches = run_models(dev, smi)
     lines = [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line, b8_line, r_line]
     per_iter = launches_per_iteration(dev)
     for line in lines:
         line["launches_per_iteration"] = per_iter[line["name"]]
+        line["launches_models"] = model_launches.get(line["name"], {})
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
@@ -2615,6 +2651,352 @@ def run_window_copy(dev, smi, kind):
     }
 
 
+# ---- the models of the module queue (phases 27-29) ---------------------------
+# The kernel each model's default entry point routes through on the card
+# (None: plain by contract), its golden at the JAX test's size in f64, and
+# its production grid in f32. Cuts at the production grids are of steps
+# and iteration caps only, never of the grid (PERF.md §4).
+MODEL_KERNEL = {
+    "sinking_block": "stokes_vep_chunk",
+    "global_convection2d": "stokes_chunk",
+    "thermal_stresses": "thermal_chunk",
+    "diffusion3d": None,
+    "shearheating": None,
+    "shearheating3d": "stokes3d_chunk",
+    "shearband_visc_plastic_tau": None,
+    "solvi2d": None,
+}
+SINKING_BLOCK_VMAX = 4.841885609356093e-10  # tests/test_more_benchmarks.py
+DIFFUSION3D_T = {(15, 15, 15): 1813.2470160788096, (16, 16, 16): 1831.2568044653274}
+YR = 3600.0 * 24.0 * 365.25
+# production runs and their cuts: the sinking block on the flagship's
+# budget (40 000 iterations, the model's own cap 150 000); the thermal
+# stresses' plain alpha_dT Stokes solve capped at 20 000 (the model's
+# 100 000: ~1 ms per iteration on the host's dispatch); one time step of
+# each model (the JAX tests run 2, 3 and 10); the models' other caps as
+# they are
+PROD = {
+    "sinking_block": dict(n=1024, iter_max=40_000, nout=1_000),
+    "thermal_stresses": dict(nx=1024, ny=1024, nt=1, stokes_iter_max=20_000),
+    "shearheating3d": dict(nx=126, ny=126, nz=126, nt=1),
+    "diffusion3d": dict(n=126, ttot=50 * diffusion3d.KYR),
+}
+
+
+# goldens run in processes of their own in phase 28 (each ~100-140 s of
+# the host's dispatch of plain PyTorch iterations on the H100's host)
+GOLDENS_APART = ("thermal_stresses", "shearheating", "shearband_visc_plastic_tau")
+
+
+def golden_result(label, fn):
+    """Run one golden of phase 28 with every launch counter at 0; its
+    result with the seconds it took, the kernel its model routes through,
+    that kernel's launches and the launches of every other."""
+    reset_counts()
+    t0 = time.perf_counter()
+    g = fn()
+    torch.cuda.synchronize()
+    c = counts()
+    kernel = MODEL_KERNEL[label]
+    g.update(seconds=time.perf_counter() - t0, kernel=kernel,
+             launches=None if kernel is None else c[kernel],
+             other_launches=sum(v for k, v in c.items() if k != kernel))
+    return g
+
+
+def golden_cases():
+    """Phase 28's goldens: label → (run, checks), each run through the
+    model's default entry point on the card in f64 at its JAX test's size,
+    each check that test's assertion."""
+    from scipy.ndimage import binary_erosion
+
+    f64 = torch.float64
+
+    def g_sinking_block():
+        st, info, vmax = sinking_block.run(n=32, dtype=f64)
+        return dict(iters=int(info.iters), err=float(info.err), vmax=vmax)
+
+    def g_diffusion3d():
+        th, info = diffusion3d.run(n=32, dtype=f64)
+        T = {f"T{i[0]}": float(th.T[i]) for i in DIFFUSION3D_T}
+        return dict(iters=int(info.iters), err=float(info.err), **T)
+
+    def g_global_convection():
+        _, st, th, info, t, eta_hist = global_convection2d.run(n=32, nt=3, dtype=f64)
+        T = th.T[1:-1, 1:-1]
+        Vy = st.V.Vy
+        nx = T.shape[0]
+        return dict(iters=int(info.iters), err=float(info.err), T_min=float(T.min()),
+                    T_max=float(T.max()), finite=bool(torch.isfinite(T).all()),
+                    eta_min=eta_hist[-1][0], eta_max=eta_hist[-1][1],
+                    upwelling=float(Vy[1 + nx // 2, :].max()),
+                    vmax_cmyr=float(Vy.max()) * 100.0 * YR, t=t)
+
+    def g_thermal_stresses():
+        st, th, phi, info, chamber = thermal_stresses.run(nx=48, ny=48, nt=2, dtype=f64)
+        P, phi = st.P.cpu().numpy(), phi.cpu().numpy()
+        rr = np.hypot(*np.meshgrid(np.linspace(-1, 1, P.shape[0]),
+                                   np.linspace(-1, 1, P.shape[1]), indexing="ij"))
+        core, far = rr < 0.15, rr > 0.8
+        near = ~chamber & ~far
+        dT = (th.T - th.Told).cpu().numpy()[1:-1, 1:-1]
+        return dict(iters=int(info.iters), err=float(info.err),
+                    phi_core_min=float(phi[core].min()), phi_host_max=float(phi[~chamber].max()),
+                    P_near_max=float(P[near].max()), P_chamber_min=float(P[chamber].min()),
+                    P_far=float(abs(P[far]).max()), P_abs_max=float(np.abs(P).max()),
+                    P_bound=float((1.0 / 6.0e-11) * 6.0e-5 * np.abs(dT).max() * 1.5))
+
+    def g_shearheating():
+        st, th, info = shearheating.run(nx=32, ny=32, nt=5, dtype=f64)
+        H = th.shear_heating
+        return dict(iters=int(info.iters), err=float(info.err), H_min=float(H.min()),
+                    H_max=float(H.max()), H_median=float(H.flatten().median()))
+
+    def g_shearheating3d():
+        st, th, info = shearheating3d.run(nx=12, ny=12, nz=12, nt=2, rc=8.0e3, dtype=f64)
+        H = th.shear_heating
+        return dict(iters=int(info.iters), err=float(info.err), H_min=float(H.min()),
+                    H_max=float(H.max()), T_max=float(th.T.max()),
+                    H_inclusion=float(H[6, 6, 4]), H_far=float(H[1, 1, 1]))
+
+    def g_shearband_vpt():
+        _, info, _, _, tII = shearband.run(n=32, nt=10, dtype=f64, visc_plastic_tau=True,
+                                           use_kernel=False)
+        return dict(iters=int(info.iters), err=float(info.err), tauII_min=float(tII.min()),
+                    tauII_max=float(tII.max()))
+
+    def g_solvi2d():
+        out = {}
+        for d_eta in (1e-3, 1e3):
+            _, st, info, inside = solvi2d.run(n=96, d_eta=d_eta, rc=0.2, L=4.0, dtype=f64)
+            core = torch.as_tensor(binary_erosion(inside, iterations=2), device=st.P.device)
+            txx, P = st.tau.xx[core], st.P[core]
+            a = solvi2d.interior_amplitude(1.0, d_eta, 1.0)
+            mean = float(txx.mean())
+            out[f"deta{d_eta:g}"] = dict(iters=int(info.iters), err=float(info.err),
+                                        mean_rel=abs(mean - a) / abs(a),
+                                        std_rel=abs(float(txx.std(unbiased=False)) / mean),
+                                        P_mean=abs(float(P.mean())))
+        return dict(cases=out)
+
+    return {
+        "sinking_block": (g_sinking_block, lambda g: [
+            ("err", g["err"] < 1e-5),
+            ("vmax", abs(g["vmax"] - SINKING_BLOCK_VMAX) <= 0.10 * SINKING_BLOCK_VMAX)]),
+        "diffusion3d": (g_diffusion3d, lambda g: [("err", g["err"] < 1e-5)] + [
+            (f"T{i[0]}", abs(g[f"T{i[0]}"] - v) <= 1e-3 * v) for i, v in DIFFUSION3D_T.items()]),
+        "global_convection2d": (g_global_convection, lambda g: [
+            ("err", g["err"] < 1e-4), ("finite", g["finite"]),
+            ("T bounds", g["T_min"] >= 299.0 and g["T_max"] <= 3.5e3 + 1.0),
+            ("eta span", 1e16 <= g["eta_min"] < 1e21 and g["eta_max"] <= 1e24 + 1.0
+             and g["eta_max"] / g["eta_min"] > 1e3),
+            ("upwelling", g["upwelling"] > 0.0 and 1e-3 < g["vmax_cmyr"] < 100.0),
+            ("time", g["t"] > 0.0)]),
+        "thermal_stresses": (g_thermal_stresses, lambda g: [
+            ("iters", g["iters"] < 100_000), ("err", g["err"] < 1e-5),
+            ("molten core", g["phi_core_min"] > 0.95), ("solid host", g["phi_host_max"] < 0.5),
+            ("over-pressure", g["P_near_max"] > 10.0 * g["P_far"]),
+            ("suction", g["P_chamber_min"] < -10.0 * g["P_far"]),
+            ("elastic bound", g["P_abs_max"] < g["P_bound"])]),
+        "shearheating": (g_shearheating, lambda g: [
+            ("err", g["err"] < 1e-4), ("H >= 0", g["H_min"] >= 0.0),
+            ("H concentrated", g["H_max"] > 5.0 * g["H_median"])]),
+        "shearheating3d": (g_shearheating3d, lambda g: [
+            ("err", g["err"] < 1e-4), ("H >= 0", g["H_min"] >= 0.0), ("H > 0", g["H_max"] > 0.0),
+            ("heated", g["T_max"] > 674.0), ("at the inclusion", g["H_inclusion"] > g["H_far"])]),
+        "shearband_visc_plastic_tau": (g_shearband_vpt, lambda g: [
+            ("err", g["err"] < 1e-6), ("tauII min", abs(g["tauII_min"] - 1.4422770) <= 1e-4),
+            ("tauII max", abs(g["tauII_max"] - 1.6643166) <= 1e-4)]),
+        "solvi2d": (g_solvi2d, lambda g: [
+            (f"{k} {name}", ok) for k, c in g["cases"].items() for name, ok in (
+                ("err", c["err"] < 1e-8), ("mean", c["mean_rel"] < 0.04),
+                ("std", c["std_rel"] < 0.25), ("P", c["P_mean"] < 0.04))]),
+    }
+
+
+def golden_apart(label):
+    """``--golden LABEL``: one golden of phase 28 in this process, its result
+    printed as the last line (the phase's process holds it to its checks)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    for mod in (hv, hs, ht, h3):
+        mod._library()  # built by the phase's process
+    print(json.dumps(golden_result(label, golden_cases()[label][0])), flush=True)
+
+
+@contextlib.contextmanager
+def timed_solves(module, name):
+    """``module.name`` (a solver returning ``(state, info)``) wrapped as
+    ``timed_calls`` does; yields the list of (start, end, info) per call."""
+    fn = getattr(module, name)
+    calls = []
+
+    def shim(*args, **kwargs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kwargs)
+        b.record()
+        calls.append((a, b, out[1], kwargs.get("iter_max")))
+        return out
+
+    setattr(module, name, shim)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def solves_summary(calls):
+    """Per solve: iterations, err, err/err₁ and whether it stopped before
+    its cap (a solve that ran to its cap is counted as not converged), and
+    the seconds between its events."""
+    torch.cuda.synchronize()
+    out = []
+    for a, b, info, cap in calls:
+        hist = info.err_history
+        hist = hist.amax(dim=-1) if hist.ndim > 1 else hist
+        err, err1 = float(info.err), float(hist[0])
+        iters = int(info.iters)
+        out.append(dict(iters=iters, err=err, err_rel=err / err1 if err1 else math.nan,
+                        cap=cap, converged=cap is None or iters < cap,
+                        seconds=a.elapsed_time(b) * 1e-3))
+    return out
+
+
+def run_models(dev, smi):
+    """Phases 27-29; returns the launches of each kernel per model phase."""
+    f64, f32 = torch.float64, torch.float32
+    launches = {}
+
+    # ---- 27. the kernel refusals on the card: a 3D thermal solve and
+    # solve_vep(visc_plastic_tau=True) with use_kernel left to its default
+    g3 = Geometry((8, 8, 8), (1.0, 1.0, 1.0))
+    th3 = ThermalState.make((8, 8, 8), dtype=f64)
+    K3 = torch.ones((8, 8, 8), dtype=f64, device=dev)
+    bc3 = TemperatureBoundaryConditions(constant_value=Faces(top=0.0, bot=1.0))
+    pt3 = PTThermalCoeffs.make(K3, K3, 0.3, g3.di, g3.li)
+    refusals = {}
+    try:
+        heatdiffusion_PT(th3, pt3, bc3, 0.3, g3, K=K3, rho_Cp=K3, iter_max=10, nout=10)
+    except ValueError as e:
+        refusals["thermal_3d"] = str(e)
+    try:
+        shearband.run(n=8, nt=1, dtype=f64, visc_plastic_tau=True, iter_max=10, nout=10)
+    except ValueError as e:
+        refusals["visc_plastic_tau"] = str(e)
+    emit("kernel_refusals", **refusals)
+    for key in ("thermal_3d", "visc_plastic_tau"):
+        check("use_kernel=False" in refusals.get(key, ""), f"refusal {key}: not raised")
+
+    # ---- 28. goldens through the default entry points on the card, f64, at
+    # the JAX tests' sizes and on their assertions; the three that the
+    # host's dispatch of plain PyTorch iterations holds longest run in
+    # processes of their own beside the others (the card has room to spare;
+    # phase 29's timings start after every one has ended)
+    cases = golden_cases()
+    procs = {label: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--golden",
+                                      label], cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+             for label in GOLDENS_APART}
+    try:
+        results = {label: golden_result(label, cases[label][0])
+                   for label in cases if label not in procs}
+        for label, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            check(proc.returncode == 0 and lines,
+                  f"golden_models {label}: its process failed ({proc.returncode}):\n{err[-3000:]}")
+            results[label] = json.loads(lines[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for label, (_, checks) in cases.items():
+        g = results[label]
+        kernel = g["kernel"]
+        emit("golden_models", case=label, nvidia_smi=smi, apart=label in procs, **g)
+        for key, ok in checks(g):
+            check(ok, f"golden_models {label}: {key}")
+        if kernel is not None:
+            launches.setdefault(kernel, {})[f"golden_{label}"] = g["launches"]
+            check(g["launches"] > 0, f"golden_models {label}: {kernel} was not launched")
+        check(g["other_launches"] == 0, f"golden_models {label}: another kernel launched")
+
+    # ---- 29. the new paths at production grids, f32, through the default
+    # entry points: wall time and its split (CUDA events around the kernel's
+    # chunk calls and around each solve; the rest is the model's set-up,
+    # host reads and the glue between solves)
+    def production(label, fn, timers):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            recs = {name: stack.enter_context(ctx) for name, ctx in timers.items()}
+            result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        kernel = MODEL_KERNEL[label]
+        split = {}
+        for name, rec in recs.items():
+            if rec and len(rec[0]) == 4:
+                split[name] = solves_summary(rec)
+            else:
+                split[name] = events_s(rec)
+        solve_s = sum(x["seconds"] for v in split.values() if isinstance(v, list) for x in v)
+        emit("main_path_models", case=label, dtype="float32", wall_s=wall, kernel=kernel,
+             launches=None if kernel is None else c[kernel], split=split,
+             rest_s=wall - solve_s, nvidia_smi=smi, **result)
+        check(result["finite"], f"main_path_models {label}: non-finite fields")
+        if kernel is not None:
+            launches.setdefault(kernel, {})[f"production_{label}"] = c[kernel]
+            check(c[kernel] > 0, f"main_path_models {label}: {kernel} was not launched")
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    def p_sinking_block():
+        st, info, vmax = sinking_block.run(dtype=f32, **PROD["sinking_block"])
+        return dict(grid=PROD["sinking_block"], vmax=vmax,
+                    finite=finite(st.V.Vx, st.V.Vy, st.P, st.tau.II) and math.isfinite(vmax))
+
+    production("sinking_block", p_sinking_block, {
+        "stokes_vep_chunk_s": timed_calls(solver_vep, "stokes_vep_chunk"),
+        "solve_vep": timed_solves(sinking_block, "solve_vep")})
+
+    def p_thermal_stresses():
+        st, th, phi, info, _ = thermal_stresses.run(dtype=f32, **PROD["thermal_stresses"])
+        return dict(grid=PROD["thermal_stresses"], P_max=float(st.P.abs().max()),
+                    phi_max=float(phi.max()), finite=finite(st.P, st.V.Vx, th.T, phi))
+
+    production("thermal_stresses", p_thermal_stresses, {
+        "thermal_chunk_s": timed_calls(solver_thermal, "thermal_chunk"),
+        "heatdiffusion_PT": timed_solves(thermal_stresses, "heatdiffusion_PT"),
+        "solve_ve": timed_solves(thermal_stresses, "solve_ve")})
+
+    def p_shearheating3d():
+        st, th, info = shearheating3d.run(dtype=f32, **PROD["shearheating3d"])
+        H = th.shear_heating
+        return dict(grid=PROD["shearheating3d"], H_min=float(H.min()), H_max=float(H.max()),
+                    finite=finite(st.V.Vx, st.P, th.T, H) and float(H.min()) >= 0.0
+                    and float(H.max()) > 0.0)
+
+    production("shearheating3d", p_shearheating3d, {
+        "stokes3d_chunk_s": timed_calls(solver_ve3d, "stokes3d_chunk"),
+        "solve_ve_3d": timed_solves(shearheating3d, "solve_ve_3d"),
+        "heatdiffusion_PT": timed_solves(shearheating3d, "heatdiffusion_PT")})
+
+    def p_diffusion3d():
+        th, info = diffusion3d.run(dtype=f32, **PROD["diffusion3d"])
+        return dict(grid={k: v for k, v in PROD["diffusion3d"].items() if k != "ttot"},
+                    steps=1, T_center=float(th.T[64, 64, 64]), finite=finite(th.T))
+
+    production("diffusion3d", p_diffusion3d, {
+        "heatdiffusion_PT": timed_solves(diffusion3d, "heatdiffusion_PT")})
+    return launches
+
+
 def kernel_launches(fn):
     """How many kernels of the port's CUDA sources ``fn()`` launches, from
     ``torch.profiler``; ``None`` if the profiler recorded no device kernel."""
@@ -2667,6 +3049,9 @@ def launches_per_iteration(dev):
 
 
 if __name__ == "__main__":
+    if "--golden" in sys.argv:
+        golden_apart(sys.argv[sys.argv.index("--golden") + 1])
+        sys.exit(0)
     if "--parent" in sys.argv:
         PARENT = sys.argv[sys.argv.index("--parent") + 1]
     main()

@@ -109,8 +109,11 @@ def _slab_set(A, axis: int, dst: int, src: Optional[int], scale=None):
     return A
 
 
-# (axis, side) of each face, in the order thermal_bcs applies them
+# (axis, side) of each face, in the order thermal_bcs applies them: later
+# faces overwrite the edge and corner ghosts of earlier ones
 THERMAL_FACE_ORDER = (("bot", 1, 0), ("top", 1, 1), ("left", 0, 0), ("right", 0, 1))
+THERMAL_FACE_ORDER_3D = (("bot", 2, 0), ("top", 2, 1), ("left", 0, 0), ("right", 0, 1),
+                         ("front", 1, 0), ("back", 1, 1))
 
 
 def _line(A, axis: int, k: int):
@@ -120,27 +123,29 @@ def _line(A, axis: int, k: int):
 
 
 def thermal_bcs(T, bcs: TemperatureBoundaryConditions):
-    """Scalar BCs on a ghosted ``(nx+2, ny+2)`` temperature; returns a new
-    tensor. constant_value: ghost = 2·value − interior (Dirichlet at the
-    face); no_flux: ghost = interior (mirror); periodic: ghost = opposite
-    interior."""
-    if T.ndim != 2:
-        raise NotImplementedError("the PyTorch port covers 2D grids only")
+    """Scalar BCs on a ghosted ``(nx+2, ny+2[, nz+2])`` temperature; returns
+    a new tensor. constant_value: ghost = 2·value − interior (Dirichlet at
+    the face); no_flux: ghost = interior (mirror); periodic: ghost =
+    opposite interior. Each kind is applied over the faces in
+    ``THERMAL_FACE_ORDER`` (``THERMAL_FACE_ORDER_3D`` in 3D)."""
+    if T.ndim not in (2, 3):
+        raise ValueError(f"thermal_bcs: T has {T.ndim} dimensions, not 2 or 3")
+    order = THERMAL_FACE_ORDER if T.ndim == 2 else THERMAL_FACE_ORDER_3D
     T = T.clone()
     n = T.shape
     if bcs.constant_value.any():
-        for name, axis, side in THERMAL_FACE_ORDER:
+        for name, axis, side in order:
             v = getattr(bcs.constant_value, name)
             if Faces.active(v):
                 inner = T[_line(T, axis, 1 if side == 0 else n[axis] - 2)]
                 T[_line(T, axis, 0 if side == 0 else n[axis] - 1)] = 2.0 * v - inner
     if bcs.no_flux.any():
-        for name, axis, side in THERMAL_FACE_ORDER:
+        for name, axis, side in order:
             if Faces.on(getattr(bcs.no_flux, name)):
                 inner = T[_line(T, axis, 1 if side == 0 else n[axis] - 2)]
                 T[_line(T, axis, 0 if side == 0 else n[axis] - 1)] = inner
     if bcs.periodic.any():
-        for name, axis, side in THERMAL_FACE_ORDER:
+        for name, axis, side in order:
             if Faces.on(getattr(bcs.periodic, name)):
                 inner = T[_line(T, axis, n[axis] - 2 if side == 0 else 1)]
                 T[_line(T, axis, 0 if side == 0 else n[axis] - 1)] = inner

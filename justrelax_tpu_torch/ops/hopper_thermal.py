@@ -54,8 +54,10 @@ def thermal_chunk_unsupported(bcs, geometry=None, K=None, rho_Cp=None, material=
     """Why the chunk kernel does not cover a ``heatdiffusion_PT``
     configuration, or ``None`` if it does. The kernel needs the K/ρCp tensor
     path (a material re-evaluates ρ(T)·Cp and k every iteration), no
-    Dirichlet mask, a uniform serial grid, and constant_value / no_flux BCs
-    only. An adiabatic term is covered."""
+    Dirichlet mask, a uniform serial 2D grid, and constant_value / no_flux
+    BCs only. An adiabatic term is covered."""
+    if geometry is not None and len(geometry.di) != 2:
+        return "needs a 2D grid"
     if K is None or rho_Cp is None or material is not None:
         return "needs K and rho_Cp tensors, not a material"
     if dirichlet is not None:

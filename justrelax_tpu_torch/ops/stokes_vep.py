@@ -24,6 +24,7 @@ import torch
 
 from justrelax_tpu_torch.ops import stokes as kernels
 from justrelax_tpu_torch.ops.bc import flow_bcs
+from justrelax_tpu_torch.ops.interpolation import center2vertex
 from justrelax_tpu_torch.ops.stencil import av_a, expand_edges, harm_a, maxloc
 from justrelax_tpu_torch.rheology.materials import (
     _as_stack,
@@ -281,11 +282,14 @@ def vep_iteration(
     phase_ratios_center, phase_ratios_vertex, T, T_v,
     dt, inv_dx, inv_dy, r, theta_dtau, etadtau,
     rel_lambda, viscosity_relaxation, viscosity_cutoff,
-    flow_bc, free_surface_dt=None, eta_tables=None,
+    flow_bc, free_surface_dt=None, eta_tables=None, visc_plastic_tau=False,
 ):
     """One array-path VEP PT iteration. ``eta_tables`` are the
     ``linear_viscosity_tables`` of a linear creep table (``None``
-    evaluates the creep law every iteration). Returns ``(carry,
+    evaluates the creep law every iteration). ``visc_plastic_tau``
+    series-composes the regularized plastic element into the τII-mode
+    viscosity at the corrected pressure (``compute_viscosity_fields``'
+    ``plastic_in_tau``), with ``eta_tables`` ``None``. Returns ``(carry,
     stress_result, RP)``; the result and RP hold the per-iteration
     diagnostics."""
     eta_tau = maxloc(c.eta, window=1)
@@ -301,12 +305,16 @@ def vep_iteration(
     )
     if eta_tables is None:
         zv = torch.zeros_like(c.eta_v)
+        vp_kw = {}
+        if visc_plastic_tau:
+            vp_kw = dict(plastic_in_tau=True, P=res.P_corrected,
+                         P_v=center2vertex(res.P_corrected))
         eta, eta_v = compute_viscosity_fields(
             c.eta, c.eta_v, material,
             res.txx, res.tyy, res.txy_c, zv, zv, res.txy_v,
             phase_ratios_center, phase_ratios_vertex,
             T=T, T_v=T_v, mode="tau",
-            relaxation=viscosity_relaxation, cutoff=viscosity_cutoff,
+            relaxation=viscosity_relaxation, cutoff=viscosity_cutoff, **vp_kw,
         )
     else:
         eta, eta_v = (

@@ -1,8 +1,9 @@
-"""Pseudo-transient thermal diffusion sweeps (2D).
+"""Pseudo-transient thermal diffusion sweeps (2D and 3D).
 
-Counterpart of the 2D branches of ``justrelax_tpu/ops/thermal.py``. Shapes:
-T ghosted ``(nx+2, ny+2)``, fluxes on faces qTx ``(nx+1, ny)`` / qTy
-``(nx, ny+1)``, coefficients and sources at centers ``(nx, ny)``.
+Counterpart of ``justrelax_tpu/ops/thermal.py``. Shapes (2D): T ghosted
+``(nx+2, ny+2)``, fluxes on faces qTx ``(nx+1, ny)`` / qTy ``(nx, ny+1)``,
+coefficients and sources at centers ``(nx, ny)``; in 3D every field gains
+a z axis and qTz ``(nx, ny, nz+1)`` joins.
 
 The PT flux relaxation is
 
@@ -35,6 +36,7 @@ __all__ = [
     "check_res",
     "face_average_x",
     "face_average_y",
+    "face_average_z",
 ]
 
 
@@ -51,21 +53,37 @@ def face_average_x(C):
 
 
 def face_average_y(C):
-    """Center field → y-faces incl. boundary faces, edge-clamped (nx, ny+1)."""
+    """Center field → y-faces incl. boundary faces, edge-clamped (nx, ny+1[, nz])."""
     Cp = _pad_edge(C, 1)
     return 0.5 * (Cp[:, :-1, ...] + Cp[:, 1:, ...])
 
 
+def face_average_z(C):
+    """Center field → z-faces incl. boundary faces, edge-clamped (nx, ny, nz+1)."""
+    Cp = _pad_edge(C, 2)
+    return 0.5 * (Cp[:, :, :-1] + Cp[:, :, 1:])
+
+
+_FACE_AVERAGE = (face_average_x, face_average_y, face_average_z)
+
+
+def _shifted(T, axis, lo):
+    """The interior of the ghosted ``T`` shifted along ``axis``: the
+    ``[:-1]`` (``lo``) or ``[1:]`` slice there, ``[1:-1]`` on the others."""
+    return T[tuple((slice(None, -1) if lo else slice(1, None)) if a == axis
+                   else slice(1, -1) for a in range(T.ndim))]
+
+
 def _grad_T(T, inv_di):
-    """Temperature gradients on the faces from the ghosted T."""
-    dTdx = (T[1:, 1:-1] - T[:-1, 1:-1]) * inv_di[0]  # (nx+1, ny)
-    dTdy = (T[1:-1, 1:] - T[1:-1, :-1]) * inv_di[1]  # (nx, ny+1)
-    return dTdx, dTdy
+    """Temperature gradients on the faces from the ghosted T: (nx+1, ny),
+    (nx, ny+1)[, (nx, ny, nz+1)]."""
+    return tuple((_shifted(T, a, False) - _shifted(T, a, True)) * inv_di[a]
+                 for a in range(T.ndim))
 
 
 def _face_T(T):
     """Face temperature: the average of the two straddling centers."""
-    return 0.5 * (T[:-1, 1:-1] + T[1:, 1:-1]), 0.5 * (T[1:-1, :-1] + T[1:-1, 1:])
+    return tuple(0.5 * (_shifted(T, a, True) + _shifted(T, a, False)) for a in range(T.ndim))
 
 
 def _face_conductivities(T, P, material, phase_ratios_faces):
@@ -75,8 +93,8 @@ def _face_conductivities(T, P, material, phase_ratios_faces):
     Ks = []
     for axis, Tf in enumerate(_face_T(T)):
         Pp = _pad_edge(P, axis)
-        lo = Pp[:-1] if axis == 0 else Pp[:, :-1]
-        hi = Pp[1:] if axis == 0 else Pp[:, 1:]
+        n = Pp.shape[axis]
+        lo, hi = Pp.narrow(axis, 0, n - 1), Pp.narrow(axis, 1, n - 1)
         pr = None if phase_ratios_faces is None else phase_ratios_faces[axis]
         if pr is None:
             K1 = mat.compute_conductivity(material, T=Tf, P=lo)
@@ -102,14 +120,15 @@ def _apply_constant_flux(q, axis_faces: Tuple[str, str], bc_flux: Faces, q_axis:
     return q
 
 
-_FACE_NAMES = (("left", "right"), ("bot", "top"))
+_FACE_NAMES_2D = (("left", "right"), ("bot", "top"))
+_FACE_NAMES_3D = (("left", "right"), ("front", "back"), ("bot", "top"))
 
 
 def compute_flux(
-    q: Tuple[Tensor, Tensor],
-    q2: Tuple[Tensor, Tensor],
+    q: Tuple[Tensor, ...],
+    q2: Tuple[Tensor, ...],
     T: Tensor,
-    inv_di: Tuple[float, float],
+    inv_di: Tuple[float, ...],
     theta_r_dtau: Tensor,
     bc_flux: Faces,
     K: Optional[Tensor] = None,
@@ -120,30 +139,35 @@ def compute_flux(
     """One PT flux relaxation sweep; returns ``(q_new, q2_new)``, q2 being
     the un-relaxed physical flux. Either ``K`` (center conductivity) or
     ``material`` (with ``P`` and optional face phase ratios) is given."""
-    if T.ndim != 2:
-        raise NotImplementedError("the PyTorch port covers 2D grids only")
+    ndim = T.ndim
+    names = _FACE_NAMES_2D if ndim == 2 else _FACE_NAMES_3D
     grads = _grad_T(T, inv_di)
     if K is not None:
-        Kf = (face_average_x(K), face_average_y(K))
+        Kf = tuple(_FACE_AVERAGE[a](K) for a in range(ndim))
     else:
         Kf = _face_conductivities(T, P, material, phase_ratios_faces)
-    face_avg = (face_average_x, face_average_y)
     q_new, q2_new = [], []
-    for a in range(2):
-        theta = face_avg[a](theta_r_dtau)
+    for a in range(ndim):
+        theta = _FACE_AVERAGE[a](theta_r_dtau)
         qa_phys = -Kf[a] * grads[a]
         qa = (q[a] * theta + qa_phys) / (1.0 + theta)
-        q_new.append(_apply_constant_flux(qa, _FACE_NAMES[a], bc_flux, a))
-        q2_new.append(_apply_constant_flux(qa_phys, _FACE_NAMES[a], bc_flux, a))
+        q_new.append(_apply_constant_flux(qa, names[a], bc_flux, a))
+        q2_new.append(_apply_constant_flux(qa_phys, names[a], bc_flux, a))
     return tuple(q_new), tuple(q2_new)
 
 
 def _div(q, inv_di):
-    return (q[0][1:, :] - q[0][:-1, :]) * inv_di[0] + (q[1][:, 1:] - q[1][:, :-1]) * inv_di[1]
+    """∇·q at the cell centers, the axes summed in order."""
+    out = None
+    for a, qa in enumerate(q):
+        n = qa.shape[a]
+        term = (qa.narrow(a, 1, n - 1) - qa.narrow(a, 0, n - 1)) * inv_di[a]
+        out = term if out is None else out + term
+    return out
 
 
 def _interior(T):
-    return T[1:-1, 1:-1]
+    return T[(slice(1, -1),) * T.ndim]
 
 
 def _total_source(material, phase_ratios, H, shear_heating, adiabatic, T_in):
@@ -158,11 +182,11 @@ def _total_source(material, phase_ratios, H, shear_heating, adiabatic, T_in):
 def update_T(
     T: Tensor,
     Told: Tensor,
-    q: Tuple[Tensor, Tensor],
+    q: Tuple[Tensor, ...],
     H: Tensor,
     shear_heating: Tensor,
     inv_dt: float,
-    inv_di: Tuple[float, float],
+    inv_di: Tuple[float, ...],
     dtau_rho: Tensor,
     rho_Cp: Optional[Tensor] = None,
     material=None,
@@ -191,11 +215,11 @@ def update_T(
 def check_res(
     T: Tensor,
     Told: Tensor,
-    q2: Tuple[Tensor, Tensor],
+    q2: Tuple[Tensor, ...],
     H: Tensor,
     shear_heating: Tensor,
     inv_dt: float,
-    inv_di: Tuple[float, float],
+    inv_di: Tuple[float, ...],
     rho_Cp: Optional[Tensor] = None,
     material=None,
     P: Optional[Tensor] = None,

@@ -69,13 +69,21 @@ def solve_vep(
     does so for a state on the card and runs the plain path for one on the
     CPU; ``False`` asks for the plain path. A configuration the kernel does
     not cover (see ``vep_chunk_supported``) raises ``ValueError`` when the
-    kernel is asked for. A bare ``Material`` is stacked once, on the
-    state's device and in its dtype. Keyword arguments as
-    :func:`_solve_vep`."""
+    kernel is asked for. ``visc_plastic_tau=True`` (the regularized plastic
+    element composed into the τII-mode viscosity) runs on the plain path
+    only: the kernel carries the base convention, and JAX's kernel route
+    mixes the two (its chunk's last iteration alone takes the variant), so
+    the kernel asked for with it raises ``ValueError``. A bare
+    ``Material`` is stacked once, on the state's device and in its dtype.
+    Keyword arguments as :func:`_solve_vep`."""
     material = _as_stack(material, stokes.P)
     use_kernel = resolve_use_kernel(use_kernel, stokes.P)
     has_cap, visc_m = False, None
     if use_kernel:
+        if kwargs.get("visc_plastic_tau", False):
+            raise ValueError(
+                "the VEP chunk kernel carries the base viscosity convention, not "
+                "visc_plastic_tau; pass use_kernel=False for the plain path")
         if not vep_chunk_supported(
             material, geometry, flow_bc, kwargs.get("free_surface", False)
         ):
@@ -118,10 +126,6 @@ def _solve_vep(
     kernel_visc_m=None,
     visc_plastic_tau: bool = False,
 ):
-    if visc_plastic_tau:
-        raise NotImplementedError(
-            "visc_plastic_tau needs ops/interpolation.py, which the PyTorch "
-            "port does not have yet")
     nx, ny = stokes.P.shape
     inv_dx, inv_dy = 1.0 / geometry.di[0], 1.0 / geometry.di[1]
     eps_rel, eps_abs = pt_stokes.eps_rel, pt_stokes.eps_abs
@@ -140,7 +144,8 @@ def _solve_vep(
     inv = vep_invariants(txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl, material,
                          phase_ratios_center, phase_ratios_vertex)
     eta_tables = None
-    if _is_linear_creep(material):
+    # the plastic variant depends on τII, so the linear tables do not serve it
+    if _is_linear_creep(material) and not visc_plastic_tau:
         eta_tables = linear_viscosity_tables(
             material, phase_ratios_center, phase_ratios_vertex, T, T_vertex,
             stokes.P, stokes.tau.xy)
@@ -152,6 +157,7 @@ def _solve_vep(
             pt_stokes.r, pt_stokes.theta_dtau, pt_stokes.etadtau,
             lambda_relaxation, viscosity_relaxation, viscosity_cutoff,
             flow_bc, free_surface_dt=fs_dt, eta_tables=eta_tables,
+            visc_plastic_tau=visc_plastic_tau,
         )
 
     def residual_norms(c, RP):

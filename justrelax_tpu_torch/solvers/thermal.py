@@ -1,16 +1,17 @@
-"""Pseudo-transient thermal diffusion solver, 2D.
+"""Pseudo-transient thermal diffusion solver, 2D and 3D.
 
 Counterpart of ``justrelax_tpu/solvers/thermal.py``. The PT loop runs in
 chunks of ``nout`` iterations (flux relaxation → damped T update → ghost
 BCs, ``ops/thermal.py``), then evaluates the residual norm
-err = ‖ResT‖₂ / √(nx·ny); the host reads ``err`` once per chunk. The loop
+err = ‖ResT‖₂ / √(nx·ny[·nz]); the host reads ``err`` once per chunk. The loop
 runs while err > ϵ and fewer than ⌈iter_max / nout⌉ chunks have run (err
 starts at 2ϵ, so one chunk always runs).
 
 With ``use_kernel`` (the default for a state on the card) each chunk's first
 ``nout − 1`` iterations run in the Hopper chunk kernel
 (``ops/hopper_thermal.py``) and its last one on the array path, which also
-yields the un-relaxed flux q2 that the residual reads.
+yields the un-relaxed flux q2 that the residual reads. The kernel is 2D
+(as JAX's is); a 3D solve runs the array path.
 """
 
 from __future__ import annotations
@@ -68,12 +69,11 @@ def heatdiffusion_PT(
     ``False`` asks for the array path. The kernel covers the K/ρCp path
     with constant_value / no_flux BCs (an adiabatic term included); asked
     for with a material, a Dirichlet mask, or constant_flux or periodic BCs
-    it raises ``ValueError``. The distributed arguments (``halo_exchange``,
-    ``reduce_norm``) and a nonuniform grid are not ported and raise
-    ``NotImplementedError``.
+    it raises ``ValueError``, and so it does on a 3D state: a 3D caller on
+    the card passes ``use_kernel=False``. The distributed arguments
+    (``halo_exchange``, ``reduce_norm``) and a nonuniform grid are not
+    ported and raise ``NotImplementedError``.
     """
-    if thermal.T.ndim != 2:
-        raise NotImplementedError("the PyTorch port covers 2D grids only")
     if halo_exchange is not None or reduce_norm is not None:
         raise NotImplementedError(
             "halo_exchange/reduce_norm belong to the distributed layer, which "
@@ -110,7 +110,10 @@ def heatdiffusion_PT(
         T = kernels.update_T(T, Told, q, H, sh, inv_dt, inv_di, dtau_rho, **cell_kw)
         return thermal_bcs(T, thermal_bc), q, q2
 
-    T, q, q2 = thermal.T, (thermal.qTx, thermal.qTy), (thermal.qTx2, thermal.qTy2)
+    ndim = thermal.T.ndim
+    T = thermal.T
+    q = (thermal.qTx, thermal.qTy) + ((thermal.qTz,) if ndim == 3 else ())
+    q2 = (thermal.qTx2, thermal.qTy2) + ((thermal.qTz2,) if ndim == 3 else ())
     hist = torch.full((max_chunks,), math.nan, dtype=T.dtype, device=T.device)
     err, err_t, chunk = 2.0 * eps, None, 0
     while err > eps and chunk < max_chunks:
@@ -132,5 +135,6 @@ def heatdiffusion_PT(
 
     res = kernels.check_res(T, Told, q2, H, sh, inv_dt, inv_di, **cell_kw)
     new_thermal = thermal.replace(
-        T=T, Told=Told, dT=T - Told, qTx=q[0], qTy=q[1], qTx2=q2[0], qTy2=q2[1], ResT=res)
+        T=T, Told=Told, dT=T - Told, qTx=q[0], qTy=q[1], qTx2=q2[0], qTy2=q2[1], ResT=res,
+        qTz=q[2] if ndim == 3 else None, qTz2=q2[2] if ndim == 3 else None)
     return new_thermal, ThermalSolveInfo(iters=chunk * nout, err=err_t, err_history=hist)

@@ -211,5 +211,7 @@ def test_compute_viscosity_fields(case):
                                     J(xyv), J(rc), J(rv), T=J(T), T_v=J(Tv), mode="tau", **kw)
     for x, y in zip(a, b):
         _close(x, y)
-    with pytest.raises(NotImplementedError):
-        pv.phase_viscosity(p, _t(xx), None, None, "eps")
+    # the strain-rate ("eps") mode on the same invariants
+    inv = np.abs(xx)
+    _close(pv.phase_viscosity(p, _t(inv), _t(T), _t(rc), "eps"),
+           jv.phase_viscosity(j, J(inv), J(T), J(rc), "eps"))

@@ -147,8 +147,12 @@ def test_shearband_golden_f64():
 def test_guards():
     with pytest.raises(NotImplementedError):
         shearband.run(n=8, nt=1, displacement_driven=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        shearband.run(n=8, nt=1, visc_plastic_tau=True, device="cpu")
+    # visc_plastic_tau: the kernel route refuses it, the plain route runs it
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        shearband.run(n=8, nt=1, visc_plastic_tau=True, device="cpu", use_kernel=True)
+    _, info, _, _, tII = shearband.run(n=8, nt=1, visc_plastic_tau=True, device="cpu",
+                                       use_kernel=False, iter_max=200)
+    assert info.iters > 0 and bool(torch.isfinite(tII).all())
     g = Geometry((8, 8), (1.0, 1.0))
     pt = PTStokesCoeffs.make(g.li, g.di)
     st = shearband.StokesState.make((8, 8), device="cpu")
@@ -167,8 +171,13 @@ def test_guards():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, justrelax_tpu_torch, justrelax_tpu_torch.models.shearband, "
-            "justrelax_tpu_torch.models.solcx, justrelax_tpu_torch.models.solkz, "
-            "justrelax_tpu_torch.models.elastic_buildup, justrelax_tpu_torch.convert; "
-            "assert 'jax' not in sys.modules and 'justrelax_tpu' not in sys.modules")
+    modules = ("models.shearband", "models.solcx", "models.solkz", "models.elastic_buildup",
+               "convert", "models.sinking_block", "models.solvi2d",
+               "models.global_convection2d", "models.diffusion3d", "models.thermal_stresses",
+               "models.shearheating", "models.shearheating3d", "ops.interpolation",
+               "ops.heating", "ops.thermal", "ops.bc", "rheology.melting",
+               "rheology.viscosity", "solvers.thermal", "solvers.stokes2d_vep")
+    code = ("import sys, justrelax_tpu_torch, "
+            + ", ".join(f"justrelax_tpu_torch.{m}" for m in modules)
+            + "; assert 'jax' not in sys.modules and 'justrelax_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

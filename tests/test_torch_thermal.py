@@ -10,7 +10,8 @@ in float64 on the CPU:
   the JAX array loop (1e-13) and the JAX TPU kernel ``thermal_chunk_vmem`` in
   interpret mode (1e-12) at n=24, in the three configurations of
   ``chip_smoke.thermal_case``; the wrapper's CPU route and ``nout=0``;
-- where the kernel is refused, and the arguments that are not ported;
+- where the kernel is refused (a 3D state among them), and the arguments
+  that are not ported;
 - ``heatdiffusion_PT`` against the JAX solve (K/ρCp path, material path,
   Dirichlet mask), the frozen values ``chip_smoke.py`` checks on the card,
   and ``diffusion2d.run`` over three steps (1e-10).
@@ -374,6 +375,25 @@ def test_kernel_refused_where_jax_refuses(case):
     ok = _faces(dict(no_flux=dict(left=True), constant_value=dict(top=0.0)), True)
     assert ht.thermal_chunk_supported(ok)
     assert ht.thermal_chunk_unsupported(ok, g, K, rc) is None  # an adiabatic term is taken
+
+
+def test_kernel_refused_in_3d():
+    """The thermal chunk kernel is 2D, in both packages: JAX's
+    ``use_pallas=True`` and the port's ``use_kernel=True`` refuse a 3D state
+    side by side, the port naming ``use_kernel=False``."""
+    from test_torch_thermal3d import _BC_SOLVE
+    from test_torch_thermal3d import _solve_inputs as _solve_inputs_3d
+
+    for port in (False, True):
+        th, pt, g, K, rc = _solve_inputs_3d(port)
+        bc = _faces(_BC_SOLVE, port)
+        if port:
+            assert ht.thermal_chunk_unsupported(bc, g, K, rc) == "needs a 2D grid"
+            with pytest.raises(ValueError, match="use_kernel=False"):
+                heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, use_kernel=True)
+        else:
+            with pytest.raises(ValueError):
+                j_heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, use_pallas=True)
 
 
 def test_not_ported_arguments():
