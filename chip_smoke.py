@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-(``--golden LABEL`` runs one of phase 28's goldens and prints its result:
-phase 28 starts three of them that way, in processes of their own.)
+(``--golden LABEL`` runs one of phase 28's or 30's goldens and prints its
+result: phases 28 and 30 start three each that way, in processes of their
+own.)
 
 Run from the root of a checkout. Phases, each printing JSON lines:
 
@@ -170,6 +171,29 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               over one step; wall time, its split by CUDA events (the
               kernel's chunk calls, each solve with its iterations, err and
               whether it stopped before its cap) and the rest.
+30. golden_dyrel: DYREL (solve_dyrel: each chunk of nout DR iterations a
+              CUDA graph replay) and its models through their default entry
+              points, f64, at the JAX tests' sizes and on their assertions:
+              the DYREL shear band at 32^2 over 10 steps and its tension-cap
+              variant, the cross-solver band (its APT half through B2/B3),
+              the thermal stresses at 32^2 over 2 steps (B5), the sinking
+              block with its APT half (B2/B3), the power-law refresh at
+              24^2, the displacement-driven band at 24^2 over 3 steps
+              (B2/B3); each with the launches of the kernel it routes
+              through (> 0) and of no other.
+31. dyrel_graph_parity: a DR chunk's graph replay against the chunk run
+              eagerly from the same mid-solve state at 64^2 f64, with and
+              without the viscosity refresh, bit for bit; then
+              dyrel_card_vs_cpu: solve_dyrel at 16^2 f64 on the card against
+              the CPU (equal iterations, fields within 1e-10).
+32. main_path_dyrel: the DYREL band at 1024^2 f32, one step, at most
+              20 000 DR iterations (PROD); wall time, iterations, err, the
+              graph's capture time, ms per DR iteration by CUDA events
+              around the replays, and on the solve's final state the graph's
+              and the eager chunk's ms per iteration and the operations one
+              eager DR iteration launches (torch.profiler), beside the bytes
+              bound (dyrel_words); dyrel_per_iteration: the same at 32^2
+              f64, the goldens' grid.
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
 the run's own inputs (hopper_stokes_vep.vep_chunk_words and
@@ -179,7 +203,7 @@ f32 peak beside them (vep3d_edges_ops), vep3d_chunk_words for the
 fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
 Then the kernels line (each entry with its launches on the main path it
-was first ported for, and launches_models: its launches in phases 28-29),
+was first ported for, and launches_models: its launches in phases 28-30),
 and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
 printing any result. With --parent DIR (a parent commit's
@@ -191,6 +215,7 @@ without it parent_ms is null.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import itertools
 import json
@@ -220,6 +245,7 @@ from justrelax_tpu_torch.models import (  # noqa: E402
     elastic_buildup,
     global_convection2d,
     shearband,
+    shearband_dyrel,
     shearheating,
     shearheating3d,
     sinking_block,
@@ -229,6 +255,7 @@ from justrelax_tpu_torch.models import (  # noqa: E402
     solvi2d,
     solvi3d,
     thermal_stresses,
+    thermal_stresses_dyrel,
 )
 from justrelax_tpu_torch.models.shearband import _circle_phase_ratios  # noqa: E402
 from justrelax_tpu_torch.ops import _cuda_build  # noqa: E402
@@ -246,6 +273,7 @@ from justrelax_tpu_torch.ops.bc import (  # noqa: E402
     flow_bcs,
     thermal_bcs,
 )
+from justrelax_tpu_torch.solvers import dyrel as solver_dyrel  # noqa: E402
 from justrelax_tpu_torch.solvers import stokes2d as solver_ve  # noqa: E402
 from justrelax_tpu_torch.solvers import stokes2d_vep as solver_vep  # noqa: E402
 from justrelax_tpu_torch.solvers import stokes3d as solver_ve3d  # noqa: E402
@@ -1084,6 +1112,8 @@ def main():
     b8_line = run_vep3d_chunk(dev, smi, kind, bench, tau_edges)
     r_line = run_window_copy(dev, smi, kind)
     model_launches = run_models(dev, smi)
+    for kernel, by_phase in run_dyrel(dev, smi, kind).items():
+        model_launches.setdefault(kernel, {}).update(by_phase)
     lines = [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line, b8_line, r_line]
     per_iter = launches_per_iteration(dev)
     for line in lines:
@@ -2821,7 +2851,8 @@ def golden_apart(label):
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     for mod in (hv, hs, ht, h3):
         mod._library()  # built by the phase's process
-    print(json.dumps(golden_result(label, golden_cases()[label][0])), flush=True)
+    cases = {**golden_cases(), **dyrel_golden_cases()}
+    print(json.dumps(golden_result(label, cases[label][0])), flush=True)
 
 
 @contextlib.contextmanager
@@ -2995,6 +3026,496 @@ def run_models(dev, smi):
     production("diffusion3d", p_diffusion3d, {
         "heatdiffusion_PT": timed_solves(diffusion3d, "heatdiffusion_PT")})
     return launches
+
+
+# ---- DYREL: phases 30-32 -----------------------------------------------------
+# the kernel each DYREL golden routes through besides DYREL (whose chunks
+# are CUDA graph replays of plain PyTorch operations, no kernel of the port)
+MODEL_KERNEL.update({
+    "shearband_dyrel": None,
+    "shearband_dyrel_dpcap": None,
+    "cross_solver": "stokes_vep_chunk",
+    "thermal_stresses_dyrel": "thermal_chunk",
+    "sinking_block_dyrel": "stokes_vep_chunk",
+    "dyrel_nonlinear": None,
+    "shearband_displacement": "stokes_vep_chunk",
+})
+# the DYREL band at the flagship's grid, one step, at most 20 000 DR
+# iterations (the model's caps are 50 000 each): total_iter_max is checked
+# between inner solves, so each inner solve is capped at 10 000 and a second
+# one starts only below 10 000 in all
+PROD["shearband_dyrel"] = dict(n=1024, nt=1, iter_max=10_000, total_iter_max=10_000)
+# phase 30's goldens in processes of their own: the longest replays
+DYREL_APART = ("thermal_stresses_dyrel", "dyrel_nonlinear", "sinking_block_dyrel")
+DYREL_CARRIED = ("Vx", "Vy", "lam", "lam_v", "dVx", "dVy", "Rx", "Ry", "eta", "eta_v")
+MPA = 1.0e6
+
+
+def dyrel_band_setup(n, dtype, dev):
+    """``shearband_dyrel.run``'s set-up and solve arguments."""
+    common = dict(rho0=0.0, Kb=5.0, eta0=1.0, is_plastic=1.0,
+                  C=1.6 / math.cos(math.radians(30.0)), friction_angle=30.0,
+                  dilation_angle=0.0, eta_reg=1.0e-2)
+    geometry, mat, prc, prv, st, bc = shearband_dyrel._setup(n, common, 1.0, True, dtype, dev)
+    return st, geometry, bc, mat, prc, prv, dict(eps=1.0e-6, nout=50, rel_drop=0.5)
+
+
+def dyrel_nonlinear_setup(n, dtype, dev):
+    """tests/test_dyrel_nonlinear.py's set-up on the port: the shear band
+    with dislocation creep (n = 3) in both phases, η from ε̇II = 1."""
+    common = dict(rho0=0.0, Kb=4.0, is_plastic=1.0, C=1.6 / math.cos(math.radians(30)),
+                  friction_angle=30.0, eta_reg=8e-3)
+    geometry, _, _, _, st, bc = shearband_dyrel._setup(n, common, 1.0, False, dtype, dev)
+    f = dict(dtype=st.P.dtype, device=st.P.device)
+    mat = MaterialStack.make([Material(G=1.0, disl_A=0.5, disl_n=3.0, **common),
+                              Material(G=0.5, disl_A=5.0, disl_n=3.0, **common)], **f)
+
+    def circ(xs, ys):
+        X, Y = np.meshgrid(np.asarray(xs), np.asarray(ys), indexing="ij")
+        inside = (X - 0.5) ** 2 + (Y - 0.5) ** 2 < 0.01
+        return torch.as_tensor(np.stack([~inside, inside], axis=-1).astype(float), **f)
+
+    prc, prv = circ(*geometry.xci), circ(*geometry.xvi)
+    eta0 = phase_viscosity(mat, torch.ones((n, n), **f), None, prc, "eps")
+    eta0v = phase_viscosity(mat, torch.ones((n + 1, n + 1), **f), None, prv, "eps")
+    st = st.replace(viscosity=st.viscosity.replace(eta=eta0, eta_v=eta0v))
+    kw = dict(linear_viscosity=False, viscosity_relaxation=0.5, viscosity_cutoff=(1e-3, 1e3),
+              eps=1e-6, nout=100, iter_max=20_000, total_iter_max=200_000)
+    return st, geometry, bc, mat, prc, prv, eta0, kw
+
+
+def sinking_block_dyrel_setup(n, dtype, dev):
+    """tests/test_sinking_block_dyrel.py's set-up on the port."""
+    ly = 500.0e3
+    geometry = Geometry((n, n), (ly, ly), origin=(0.0, -ly))
+    st = StokesState.make((n, n), dtype=dtype, device=dev)
+    f = dict(dtype=st.P.dtype, device=st.P.device)
+    mat = MaterialStack.make([Material(rho0=3.2e3, eta0=1.0e21, gravity=9.81),
+                              Material(rho0=3.3e3, eta0=1.0e23, gravity=9.81)], **f)
+    X, Y = geometry.cell_centers_mesh()
+    X, Y = np.asarray(X), np.asarray(Y)
+    block = (np.abs(X - 250.0e3) <= 50.0e3) & (np.abs(-Y - 100.0e3) <= 50.0e3)
+    pr = phase_ratios_from_field(torch.as_tensor(block.astype(int), device=f["device"]), 2,
+                                 dtype=f["dtype"])
+    eta0_v = phase_viscosity(mat, torch.ones((n + 1, n + 1), **f), None, pr.vertex, "tau")
+    rho = torch.as_tensor(np.where(block, 3.3e3, 3.2e3), **f)
+    st = st.replace(P=rho * 9.81 * torch.as_tensor(np.abs(Y), **f),
+                    viscosity=st.viscosity.replace(
+                        eta=torch.as_tensor(np.where(block, 1.0e23, 1.0e21), **f), eta_v=eta0_v))
+    bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True))
+    kw = dict(rho_g=(torch.zeros((n, n), **f), rho * 9.81), eps=1.0e-7, nout=100)
+    return st, geometry, bc, mat, pr.center, pr.vertex, kw
+
+
+_DYREL_BAND = {}  # the DYREL band of phase 30, shared by its two goldens
+
+
+def dyrel_golden_cases():
+    """Phase 30's goldens: label → (run, checks), each through the default
+    entry points on the card in f64 at its JAX test's size, each check that
+    test's assertion."""
+    from justrelax_tpu_torch.ops.interpolation import velocity2vertex
+    from justrelax_tpu_torch.ops.stokes import tensor_invariant_staggered_2d
+
+    f64 = torch.float64
+    solve_dyrel = solver_dyrel.solve_dyrel
+
+    def band():
+        if "out" not in _DYREL_BAND:
+            _DYREL_BAND["out"] = shearband_dyrel.run(n=32, nt=10, dtype=f64)
+        return _DYREL_BAND["out"]
+
+    def g_shearband_dyrel():
+        st, info, tmax, sol, tII = band()
+        return dict(iters=info.iters, err=float(info.err), sol_last=sol[-1],
+                    tauII_max=float(tII.max()), tauII_min=float(tII.min()), txx_max_last=tmax[-1])
+
+    def g_dpcap():
+        st, info, tII = shearband_dyrel.run_dpcap(n=32, nt=10, dtype=f64)
+        ev = st.eps_vol_pl
+        return dict(iters=info.iters, err=float(info.err), tauII_max=float(tII.max()),
+                    eps_pl_max=float(st.eps_pl.xx.abs().max()),
+                    EVol_max=float(st.EVol_pl.abs().max()), eps_vol_min=float(ev.min()),
+                    eps_vol_max=float(ev.max()))
+
+    def g_cross_solver():
+        # the APT half through B2/B3: the same band with the full-field
+        # initial velocity (tests/test_cross_solver.py)
+        common = dict(rho0=0.0, Kb=5.0, eta0=1.0, is_plastic=1.0,
+                      C=1.6 / math.cos(math.radians(30.0)), friction_angle=30.0,
+                      dilation_angle=0.0, eta_reg=1.0e-2)
+        geometry, mat, pr_c, pr_v, st, pt, bc = shearband._setup(
+            32, common, 0.5, f64, None, eps_rel=1.0e-6, CFL=0.75 / math.sqrt(2.1))
+        for _ in range(10):
+            st, info = solver_vep.solve_vep(st, pt, geometry, bc, mat, pr_c, pr_v, 0.25,
+                                            iter_max=50_000, nout=100)
+        tau_apt = tensor_invariant_staggered_2d(st.tau.xx, st.tau.yy, st.tau.xy)
+        sd, _, _, _, _ = band()
+        tau_dyr = tensor_invariant_staggered_2d(sd.tau.xx, sd.tau.yy, sd.tau.xy)
+        return dict(apt_iters=int(info.iters), tau_diff=float((tau_apt - tau_dyr).abs().max()),
+                    tau_max_apt=float(tau_apt.max()), tau_max_dyrel=float(tau_dyr.max()),
+                    tau_min_apt=float(tau_apt.min()), tau_min_dyrel=float(tau_dyr.min()),
+                    P_diff=float((st.P - sd.P).abs().max()),
+                    Vx_diff=float((st.V.Vx - sd.V.Vx).abs().max()))
+
+    def g_thermal_stresses_dyrel():
+        st, th, phi, info, chamber = thermal_stresses_dyrel.run(nx=32, ny=32, nt=2, dtype=f64)
+        P, Vy = st.P.cpu().numpy(), st.V.Vy.cpu().numpy()
+        return dict(iters=info.iters, err=float(info.err),
+                    finite=bool(np.isfinite(P).all() and np.isfinite(Vy).all()),
+                    phi_max=float(phi.max()), P_max=float(P.max()),
+                    P_chamber_max=float(P[chamber].max()), Vy_max=float(np.abs(Vy).max()))
+
+    def g_sinking_block_dyrel():
+        st, geometry, bc, mat, prc, prv, kw = sinking_block_dyrel_setup(32, f64, None)
+        s, info = solve_dyrel(st, geometry, bc, mat, prc, prv, 1.0, **kw)
+        Vx_v, Vy_v = velocity2vertex(s.V.Vx, s.V.Vy)
+        vmax = float(torch.sqrt(Vx_v**2 + Vy_v**2).max())
+        _, info_apt, vmax_apt = sinking_block.run(n=32, dtype=f64)
+        return dict(iters=info.iters, err=float(info.err), vmax=vmax, vmax_apt=vmax_apt,
+                    apt_iters=int(info_apt.iters))
+
+    def g_dyrel_nonlinear():
+        st, geometry, bc, mat, prc, prv, eta0, kw = dyrel_nonlinear_setup(24, f64, None)
+        out, info = solve_dyrel(st, geometry, bc, mat, prc, prv, 0.25, **kw)
+        eta_f = out.viscosity.eta.cpu().numpy()
+        tII = out.tau.II.cpu().numpy()
+        return dict(iters=info.iters, err=float(info.err),
+                    eta_ratio=float(eta_f.max() / float(eta0.max())),
+                    eta_median=float(np.median(eta_f)),
+                    expect_bg=float(0.5 / 0.5 * np.median(tII) ** (1.0 - 3.0)))
+
+    def g_displacement():
+        sv, _, hv_, _, tv = shearband.run(n=24, nt=3, dtype=f64)
+        su, info, hu, _, tu = shearband.run(n=24, nt=3, dtype=f64, displacement_driven=True)
+        return dict(iters=int(info.iters), hist_rel=max(abs(a - b) / abs(b) for a, b in zip(hu, hv_)),
+                    tauII_diff=float((tu - tv).abs().max()),
+                    U_diff=float((su.U.Ux - su.V.Vx * 0.25).abs().max()))
+
+    return {
+        "shearband_dyrel": (g_shearband_dyrel, lambda g: [
+            ("err", g["err"] < 1e-6), ("sol", abs(g["sol_last"] - 1.8358) <= 1e-4),
+            ("tauII max", abs(g["tauII_max"] - 1.639) <= 1e-3),
+            ("tauII min", abs(g["tauII_min"] - 1.5383533580936255) <= 1e-2),
+            ("txx max", abs(g["txx_max_last"] - 1.6377101324888117) <= 5e-3),
+            ("iters", g["iters"] < 20_000)]),
+        "cross_solver": (g_cross_solver, lambda g: [
+            ("tauII field", g["tau_diff"] < 5e-3),
+            ("tauII max", abs(g["tau_max_apt"] - g["tau_max_dyrel"]) <= 1e-3),
+            ("tauII min", abs(g["tau_min_apt"] - g["tau_min_dyrel"]) <= 1e-3),
+            ("P", g["P_diff"] < 2e-2), ("Vx", g["Vx_diff"] < 5e-3),
+            ("capped", g["tau_max_apt"] < 1.65 and g["tau_max_dyrel"] < 1.65)]),
+        "shearband_dyrel_dpcap": (g_dpcap, lambda g: [
+            ("err", g["err"] < 1e-5),
+            ("tauII", math.isfinite(g["tauII_max"]) and g["tauII_max"] < 2.0),
+            ("eps_pl", g["eps_pl_max"] > 0.0), ("EVol", g["EVol_max"] > 0.0),
+            ("dilation", g["eps_vol_min"] >= 0.0 and g["eps_vol_max"] > 0.0)]),
+        "thermal_stresses_dyrel": (g_thermal_stresses_dyrel, lambda g: [
+            ("err", g["err"] < 1e-4), ("finite", g["finite"]),
+            ("phi", 0.0 < g["phi_max"] <= 1.0),
+            ("P scale", 5.0 * MPA < g["P_max"] < 25.0 * MPA),
+            ("chamber depressurized", g["P_chamber_max"] < 0.0),
+            ("P max", abs(g["P_max"] - 11.369 * MPA) <= 2e-2 * 11.369 * MPA),
+            ("Vy max", abs(g["Vy_max"] - 2.7418e-11) <= 2e-2 * 2.7418e-11)]),
+        "sinking_block_dyrel": (g_sinking_block_dyrel, lambda g: [
+            ("vmax", abs(g["vmax"] - 4.8419e-10) <= 0.08 * 4.8419e-10),
+            ("vs APT", abs(g["vmax"] - g["vmax_apt"]) <= 2e-2 * g["vmax_apt"])]),
+        "dyrel_nonlinear": (g_dyrel_nonlinear, lambda g: [
+            ("err", g["err"] < 1e-6), ("iters", g["iters"] < 200_000),
+            ("refreshed", abs(g["eta_ratio"] - 1.0) > 0.5),
+            ("power law", 0.3 * g["expect_bg"] < g["eta_median"] < 3.0 * g["expect_bg"])]),
+        "shearband_displacement": (g_displacement, lambda g: [
+            ("hist", g["hist_rel"] <= 1e-12), ("tauII", g["tauII_diff"] <= 1e-12),
+            ("U = V dt", g["U_diff"] <= 1e-15)]),
+    }
+
+
+@contextlib.contextmanager
+def dyrel_chunks():
+    """``_DyrelSolve.run_chunk`` wrapped: each call's solve object, the
+    graph's capture time (host clock around the capture, synchronized) and
+    CUDA events around each replay. Yields a dict with ``solves`` (the
+    objects, in order), ``capture_s`` and ``replays`` ((start, end, nout))."""
+    rec = {"solves": [], "capture_s": [], "replays": []}
+    orig = solver_dyrel._DyrelSolve.run_chunk
+
+    def shim(self, nout):
+        if self.graph is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.capture(nout)
+            torch.cuda.synchronize()
+            rec["capture_s"].append(time.perf_counter() - t0)
+            rec["solves"].append(self)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        self.graph.replay()
+        b.record()
+        rec["replays"].append((a, b, nout))
+
+    solver_dyrel._DyrelSolve.run_chunk = shim
+    try:
+        yield rec
+    finally:
+        solver_dyrel._DyrelSolve.run_chunk = orig
+
+
+def dyrel_carried(s):
+    return [getattr(s, k) for k in DYREL_CARRIED]
+
+
+def dyrel_iteration_times(s, nout, reps=3):
+    """ms per DR iteration on the state of the solve object ``s``: its
+    graph's replay and its chunk run eagerly, by CUDA events, each from the
+    same state (the carried fields restored between runs); whether the
+    replay leaves the carried fields bit-equal to the eager chunk; and the
+    kernels one eager DR iteration launches on the card. The state is left
+    as found."""
+    saved = [t.clone() for t in dyrel_carried(s)]
+
+    def restore():
+        for t, v in zip(dyrel_carried(s), saved):
+            t.copy_(v)
+
+    def timed(fn):
+        out = []
+        for _ in range(reps):
+            restore()
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b) / nout)
+        return out, [t.clone() for t in dyrel_carried(s)]
+
+    graph_ms, after_graph = timed(s.graph.replay)
+    eager_ms, after_eager = timed(lambda: s.chunk(nout))
+    equal = all(torch.equal(a, b) for a, b in zip(after_graph, after_eager))
+    moved = any(not torch.equal(a, b) for a, b in zip(after_eager, saved))
+    restore()
+    launches = dyrel_launches_per_iteration(s)
+    restore()
+    return dict(graph_ms_per_iter=graph_ms, eager_ms_per_iter=eager_ms,
+                replay_bit_equal=equal, replay_moved=moved, **launches)
+
+
+def dyrel_launches_per_iteration(s, k=5):
+    """The kernels one eager DR iteration launches on the card:
+    ``torch.profiler`` over a chunk of ``k`` iterations after a warm-up
+    chunk, divided by ``k``, twice (the count must repeat). Counted as the
+    card's kernel events (memory copies and sets left out) and as the
+    host's kernel-launch calls; ``None`` where the profiler recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    host_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+    s.chunk(k)
+    torch.cuda.synchronize()
+    kernels, calls = [], []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            s.chunk(k)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        dev = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith(("Memcpy", "Memset")))
+        host = sum(e.count for e in events if e.key in host_calls)
+        kernels.append(dev / k if dev else None)
+        calls.append(host / k if host else None)
+    return dict(launches_per_iter=kernels, launch_calls_per_iter=calls)
+
+
+def dyrel_words(s):
+    """Words per cell one DR iteration must move: the carried fields read
+    and written (V, dV and λ at centers and vertices; R written), and each
+    read-only input that does not hold one value everywhere (τ_o at centers
+    and vertices, η, ηv, P, P0, γ_eff, the bulk term, the source, D, λmax
+    and the phase ratios); counted from the run's own inputs."""
+    def varying(t):
+        return t is not None and isinstance(t, torch.Tensor) and t.numel() > 1 and bool(
+            (t != t.reshape(-1)[0]).any())
+
+    ro = list(s.to_c) + list(s.to_v) + [s.eta, s.eta_v, s.P, s.P0, s.gamma_eff, s.etab,
+                                        s.rp_src, s.Dx_f, s.Dy_f, s.lmx, s.lmy]
+    ro += list(s.r_c) + list(s.r_v)
+    return 6 * 2 + 2 + sum(1 for t in ro if varying(t))
+
+
+def dyrel_parity_solve(label, d):
+    """Phase 31's 16^2 f64 solve on device ``d``: the DYREL band (two
+    steps) or the power-law refresh; (state, info)."""
+    if label == "band":
+        st, info, _, _, _ = shearband_dyrel.run(n=16, nt=2, dtype=torch.float64, device=d)
+        return st, info
+    st, geometry, bc, mat, prc, prv, _, kw = dyrel_nonlinear_setup(16, torch.float64, d)
+    return solver_dyrel.solve_dyrel(st, geometry, bc, mat, prc, prv, 0.25, **kw)
+
+
+# Phase 31's card-against-CPU limits, relative to each field's max, 1e-10
+# where not named. RP is rounding of its terms at convergence: held to
+# their scale, max |V|/dx (dx = 1/16). ∇·V is a real field here (Kb·dt = 1):
+# on its own max, at the limit that lies between the sound solves' readings
+# (1.3e-10) and a solve whose chunks run one DR iteration short (9.1e-8);
+# PERF.md.
+DYREL_CARD_VS_CPU_LIMITS = {"grad_V": 1e-9}
+
+
+def dyrel_field_diffs(a, b):
+    """max |a − b| of every field of two states, over max |b| (over 16·max|V|
+    for RP, 0 where equal)."""
+    vmax = max(float(b.V.Vx.abs().max()), float(b.V.Vy.abs().max()))
+    scales = {"R.Rx": vmax, "R.Ry": vmax, "R.RP": 16.0 * vmax}
+    out = {}
+    for name, x, y in flat_state(a, b):
+        d = float((x.cpu() - y).abs().max())
+        out[name] = 0.0 if d == 0.0 else d / scales.get(name, float(y.abs().max()))
+    return out
+
+
+def run_dyrel(dev, smi, kind):
+    """Phases 30-32; returns the launches of B2/B3 and B5 per DYREL golden."""
+    solve_dyrel = solver_dyrel.solve_dyrel
+    f64, f32 = torch.float64, torch.float32
+    launches = {}
+
+    # ---- 30. DYREL goldens through the default entry points, f64
+    cases = dyrel_golden_cases()
+    procs = {label: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--golden",
+                                      label], cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+             for label in DYREL_APART}
+    try:
+        results = {label: golden_result(label, cases[label][0])
+                   for label in cases if label not in procs}
+        for label, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            check(proc.returncode == 0 and lines,
+                  f"golden_dyrel {label}: its process failed ({proc.returncode}):\n{err[-3000:]}")
+            results[label] = json.loads(lines[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for label, (_, checks) in cases.items():
+        g = results[label]
+        kernel = g["kernel"]
+        emit("golden_dyrel", case=label, nvidia_smi=smi, apart=label in procs, **g)
+        for key, ok in checks(g):
+            check(ok, f"golden_dyrel {label}: {key}")
+        if kernel is not None:
+            launches.setdefault(kernel, {})[f"golden_{label}"] = g["launches"]
+            check(g["launches"] > 0, f"golden_dyrel {label}: {kernel} was not launched")
+        check(g["other_launches"] == 0, f"golden_dyrel {label}: another kernel launched")
+
+    # ---- 31. the graph against the eager chunk, bit for bit, from the same
+    # mid-solve state at 64^2 f64 (the band: after a step, its old stresses
+    # scaled to above yield so that the return mapping acts, as in
+    # tests/test_torch_dyrel.py); the card's 16^2 solve against the CPU's
+    for label in ("linear", "nonlinear"):
+        if label == "linear":
+            st, geometry, bc, mat, prc, prv, kw = dyrel_band_setup(64, f64, dev)
+            st, _ = solve_dyrel(st, geometry, bc, mat, prc, prv, 0.25,
+                                **dict(kw, iter_max=300, total_iter_max=300))
+            st = st.replace(tau_o=st.tau_o.replace(**{
+                k: 8.0 * getattr(st.tau, k) for k in ("xx", "yy", "xy", "xy_c", "xx_v", "yy_v")}))
+        else:
+            st, geometry, bc, mat, prc, prv, _, kw = dyrel_nonlinear_setup(64, f64, dev)
+        with dyrel_chunks() as rec:
+            solve_dyrel(st, geometry, bc, mat, prc, prv, 0.25,
+                        **dict(kw, iter_max=300, total_iter_max=300))
+        s = rec["solves"][-1]
+        nout = rec["replays"][-1][2]
+        saved = [t.clone() for t in dyrel_carried(s)]
+        s.chunk(nout)
+        eager = [t.clone() for t in dyrel_carried(s)]
+        for t, v in zip(dyrel_carried(s), saved):
+            t.copy_(v)
+        s.graph.replay()
+        torch.cuda.synchronize()
+        diff = {k: float((a - b).abs().max()) for k, a, b in zip(DYREL_CARRIED, dyrel_carried(s),
+                                                                   eager)}
+        equal = all(torch.equal(a, b) for a, b in zip(dyrel_carried(s), eager))
+        moved = any(not torch.equal(a, b) for a, b in zip(eager, saved))
+        emit("dyrel_graph_parity", case=label, n=64, nout=nout, bit_equal=equal, moved=moved,
+             lam_max=float(s.lam.max()), max_abs_diff=diff)
+        check(equal, f"dyrel_graph_parity {label}: the replay differs from the eager chunk")
+        check(moved, f"dyrel_graph_parity {label}: the chunk did not move the state")
+        if label == "linear":
+            check(float(s.lam.max()) > 0.0, "dyrel_graph_parity: plasticity inactive")
+    for label in ("band", "nonlinear"):
+        outs = {}
+        for d in (dev, torch.device("cpu")):
+            outs[d.type] = dyrel_parity_solve(label, d)
+        (sc, ic), (sh, ih) = outs["cuda"], outs["cpu"]
+        worst = dyrel_field_diffs(sc, sh)
+        limits = {k: DYREL_CARD_VS_CPU_LIMITS.get(k, 1e-10) for k in worst}
+        over = {k: v for k, v in worst.items() if v > limits[k]}
+        line = dict(case=label, n=16, iters_card=ic.iters, iters_cpu=ih.iters,
+                    err_card=float(ic.err), err_cpu=float(ih.err),
+                    max_rel_diff=max(worst.values()), worst_field=max(worst, key=worst.get),
+                    grad_V=worst["grad_V"], R_RP=worst["R.RP"], per_field=worst)
+        if label == "nonlinear":
+            # a faulty solve for the limits to tell apart: each chunk one
+            # DR iteration short, on the CPU, against the sound CPU solve
+            orig = solver_dyrel._DyrelSolve.chunk
+            solver_dyrel._DyrelSolve.chunk = lambda self, nout: orig(self, nout - 1)
+            try:
+                sf, _ = dyrel_parity_solve(label, torch.device("cpu"))
+            finally:
+                solver_dyrel._DyrelSolve.chunk = orig
+            fault = dyrel_field_diffs(sf, sh)
+            line["fault_grad_V"], line["fault_R_RP"] = fault["grad_V"], fault["R.RP"]
+            check(fault["grad_V"] > limits["grad_V"] and fault["R.RP"] > limits["R.RP"],
+                  f"dyrel_card_vs_cpu: the limits pass a faulty solve ({fault})")
+        emit("dyrel_card_vs_cpu", **line)
+        check(ic.iters == ih.iters, f"dyrel_card_vs_cpu {label}: iterations differ")
+        check(not over, f"dyrel_card_vs_cpu {label}: over the limit: {over}")
+
+    # ---- 32. the DYREL band at 1024^2 f32, one step, 20 000 DR iterations at
+    # most; then the per-iteration numbers at 32^2 f64 (the goldens' grid)
+    for n, dtype, kw in ((1024, f32, PROD["shearband_dyrel"]), (32, f64, dict(n=32, nt=1))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dyrel_chunks() as rec:
+            st, info, _, _, tII = shearband_dyrel.run(dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = rec["solves"][-1]
+        iters = sum(nout for _, _, nout in rec["replays"])
+        replay_s = sum(a.elapsed_time(b) for a, b, _ in rec["replays"]) * 1e-3
+        nout = rec["replays"][-1][2]
+        per_iter = dyrel_iteration_times(s, nout)
+        words = dyrel_words(s)
+        finite = all(bool(torch.isfinite(t).all()) for t in (
+            st.V.Vx, st.V.Vy, st.P, st.tau.xx, st.tau.II))
+        emit("main_path_dyrel" if n == 1024 else "dyrel_per_iteration", n=n,
+             dtype=str(dtype).replace("torch.", ""), grid=kw, wall_s=wall, iters=info.iters,
+             dr_iterations_replayed=iters, err=float(info.err),
+             converged=float(info.err) <= 1e-6, tauII_max=float(tII.max()),
+             graph_replay_s=replay_s, graph_ms_per_iter_solve=1e3 * replay_s / iters,
+             capture_s=rec["capture_s"], words=words,
+             bound_ms=bound_ms(words, n * n, torch.finfo(dtype).bits // 8, kind),
+             finite=finite, nvidia_smi=smi, **per_iter)
+        check(finite, f"main_path_dyrel {n}: non-finite fields")
+        check(per_iter["replay_bit_equal"] and per_iter["replay_moved"],
+              f"main_path_dyrel {n}: the replay is not bit-equal to the eager chunk")
+        check(iters > 0 and info.iters > 0, f"main_path_dyrel {n}: no DR iteration ran")
+    return launches
+
+
+def flat_state(a, b, prefix=""):
+    """(name, tensor of ``a``, tensor of ``b``) over two states' tensors."""
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            out.extend(flat_state(x, y, f"{prefix}{f.name}."))
+        elif isinstance(x, torch.Tensor):
+            out.append((prefix + f.name, x, y))
+    return out
 
 
 def kernel_launches(fn):

@@ -21,7 +21,13 @@ from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs
 from justrelax_tpu_torch.core.device import resolve_device
 from justrelax_tpu_torch.core.grid import Geometry
 from justrelax_tpu_torch.core.state import StokesState
-from justrelax_tpu_torch.ops.bc import Faces, VelocityBoundaryConditions, flow_bcs
+from justrelax_tpu_torch.ops.bc import (
+    DisplacementBoundaryConditions,
+    Faces,
+    VelocityBoundaryConditions,
+    flow_bcs,
+)
+from justrelax_tpu_torch.ops.displacement import displacement2velocity, velocity2displacement
 from justrelax_tpu_torch.ops.stokes import tensor_invariant_staggered_2d
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack
 from justrelax_tpu_torch.solvers.stokes2d_vep import solve_vep
@@ -39,10 +45,11 @@ def _circle_phase_ratios(xs, ys, origin, radius):
     return ratios
 
 
-def _setup(n, common, G_inclusion, dtype, device, eps_bg=1.0, **pt_kw):
+def _setup(n, common, G_inclusion, dtype, device, eps_bg=1.0, dt=None, **pt_kw):
     """Grid, two-phase material, phase ratios, pure-shear initial state and
     PT coefficients shared by the shear band variants, on ``device`` (the
-    card unless given)."""
+    card unless given). With ``dt`` the problem is displacement-driven: the
+    BCs act on U = V·dt, and V is converted from U."""
     device = resolve_device(device)
     ni = (n, n)
     geometry = Geometry(ni, (1.0, 1.0))
@@ -64,11 +71,16 @@ def _setup(n, common, G_inclusion, dtype, device, eps_bg=1.0, **pt_kw):
     yv = torch.as_tensor(xvi[1], dtype=f, device=device)
     Vx = (eps_bg * xv)[:, None].expand(n + 1, n + 2)
     Vy = (-eps_bg * yv)[None, :].expand(n + 2, n + 1)
-    flow_bc = VelocityBoundaryConditions(
-        free_slip=Faces(left=True, right=True, top=True, bot=True)
-    )
-    Vx, Vy = flow_bcs((Vx, Vy), flow_bc)
-    stokes = stokes.replace(V=stokes.V.replace(Vx=Vx, Vy=Vy))
+    faces = Faces(left=True, right=True, top=True, bot=True)
+    if dt is not None:
+        flow_bc = DisplacementBoundaryConditions(free_slip=faces)
+        Ux, Uy = flow_bcs((Vx * dt, Vy * dt), flow_bc)
+        stokes = stokes.replace(U=stokes.U.replace(Ux=Ux, Uy=Uy))
+        stokes = displacement2velocity(stokes, dt, flow_bc)
+    else:
+        flow_bc = VelocityBoundaryConditions(free_slip=faces)
+        Vx, Vy = flow_bcs((Vx, Vy), flow_bc)
+        stokes = stokes.replace(V=stokes.V.replace(Vx=Vx, Vy=Vy))
     return geometry, material, pr_center, pr_vertex, stokes, pt_stokes, flow_bc
 
 
@@ -80,11 +92,9 @@ def run(n=32, nt=10, eps_bg=1.0, dtype=None, displacement_driven=False,
     ``device`` defaults to the card; ``use_kernel`` to the Hopper kernel
     on the card and the plain path on the CPU (``False`` asks for the plain
     path); ``iter_max``/``nout`` set the solve's iteration cap and chunk
-    length."""
-    if displacement_driven:
-        raise NotImplementedError(
-            "displacement_driven needs ops/displacement.py, which the PyTorch "
-            "port does not have yet")
+    length. ``displacement_driven`` drives the BCs through the displacement
+    U = V·dt (``DisplacementBoundaryConditions``) and keeps U = V·dt after
+    every step; with a fixed dt it is the velocity-driven band."""
     tau_y, phi, eta0, G0 = 1.6, 30.0, 1.0, 1.0
     dt = eta0 / G0 / 4.0
     common = dict(
@@ -94,6 +104,7 @@ def run(n=32, nt=10, eps_bg=1.0, dtype=None, displacement_driven=False,
     )
     geometry, material, pr_c, pr_v, stokes, pt_stokes, flow_bc = _setup(
         n, common, G0 / (6.0 - 4.0), dtype, device, eps_bg=eps_bg,
+        dt=dt if displacement_driven else None,
         eps_rel=1.0e-6, CFL=0.75 / math.sqrt(2.1),
     )
     t = 0.0
@@ -105,6 +116,8 @@ def run(n=32, nt=10, eps_bg=1.0, dtype=None, displacement_driven=False,
             iter_max=iter_max, nout=nout, use_kernel=use_kernel,
             visc_plastic_tau=visc_plastic_tau,
         )
+        if displacement_driven:
+            stokes = velocity2displacement(stokes, dt)
         tau_max_hist.append(float(stokes.tau.xx.max()))
         t += dt
         sol_hist.append(2.0 * eps_bg * eta0 * (1.0 - math.exp(-G0 * t / eta0)))

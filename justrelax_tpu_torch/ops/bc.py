@@ -23,9 +23,11 @@ __all__ = [
     "Faces",
     "TemperatureBoundaryConditions",
     "VelocityBoundaryConditions",
+    "DisplacementBoundaryConditions",
     "thermal_bcs",
     "flow_bcs",
     "pureshear_bc",
+    "free_surface_vy",
 ]
 
 Value = Union[bool, float, None]
@@ -92,6 +94,12 @@ class VelocityBoundaryConditions:
         object.__setattr__(self, "no_slip", _as_faces(no_slip))
         object.__setattr__(self, "free_slip", _as_faces(free_slip))
         object.__setattr__(self, "free_surface", bool(free_surface))
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class DisplacementBoundaryConditions(VelocityBoundaryConditions):
+    """The same faces applied to a displacement U (see
+    ``ops/displacement.py``)."""
 
 
 def _slab_set(A, axis: int, dst: int, src: Optional[int], scale=None):
@@ -257,3 +265,23 @@ def pureshear_bc(Vx, Vy, xvi, eps_bg):
     Vx[:, 1:-1] = (eps_bg * xv)[:, None]
     Vy[1:-1, :] = (-eps_bg * yv)[None, :]
     return Vx, Vy
+
+
+def free_surface_vy(Vx, Vy, P, P_old, tyy_old, eta, Gdt, inv_dx, inv_dy, nu=1.0e-2):
+    """The analytic free-surface condition on the top Vy row: the
+    zero-traction normal stress at the surface gives
+
+      Vy[top] = Vy[top−1] + 3/2·(P/(2η) + (τyy_o + P_o)/(2 G dt)
+                                 + (∂Vx/∂x)|_{top−1}/3)·dy,
+
+    under-relaxed by ``nu``. ``P``/``P_old``/``tyy_old``/``eta`` are the
+    top-row center values (shape (nx,)); ``Gdt`` is G·dt there (∞: purely
+    viscous). Returns a new ``Vy`` with the interior of its top ghost row
+    updated."""
+    dVx_dx = (Vx[1:, -2] - Vx[:-1, -2]) * inv_dx
+    target = Vy[1:-1, -2] + 1.5 * (
+        P / (2.0 * eta) + (tyy_old + P_old) / (2.0 * Gdt) + dVx_dx / 3.0
+    ) / inv_dy
+    Vy = Vy.clone()
+    Vy[1:-1, -1] = nu * target + (1.0 - nu) * Vy[1:-1, -1]
+    return Vy

@@ -39,6 +39,8 @@ __all__ = [
     "compute_diffusivity",
     "get_shear_modulus",
     "get_bulk_modulus",
+    "CREEP_PRESETS",
+    "creep_preset",
 ]
 
 _INF = float("inf")
@@ -257,3 +259,71 @@ def get_bulk_modulus(material, phase_ratios=None, like=None):
     m = _as_stack(material, _field(phase_ratios, like)).params
     Kb = torch.where((m.Kb == 0) | torch.isnan(m.Kb), _INF, m.Kb)
     return _phase_average_inf_safe(Kb, phase_ratios)
+
+
+# --- named creep-law presets -------------------------------------------------
+# Hirth & Kohlstedt (2003), "Rheology of the upper mantle and the mantle
+# wedge: a view from the experimentalists", as used by the reference's
+# subduction miniapps via GeoParams (Dislocation.wet_olivine1_Hirth_2003 /
+# Diffusion.wet_olivine_Hirth_2003). Published values are MPa- and
+# micrometer-based; here converted to SI (Pa, m): A_Pa = A_MPa·1e-6ⁿ·(1e-6)^m.
+# Wet laws fold the water-content factor C_OH^r at C_OH = 1000 ppm H/Si into
+# A (this framework does not carry a separate fugacity field yet). Exact
+# GeoParams database parity to be pinned from source next round.
+CREEP_PRESETS = {
+    "dry_olivine_disl_Hirth_2003": dict(
+        disl_A=1.1e5 * 1.0e-6**3.5, disl_n=3.5, disl_E=530.0e3, disl_V=14.0e-6,
+    ),
+    "wet_olivine_disl_Hirth_2003": dict(
+        # A = 1600 MPa^-3.5 s^-1 · C_OH^1.2 with C_OH = 1000
+        disl_A=1600.0 * 1000.0**1.2 * 1.0e-6**3.5,
+        disl_n=3.5, disl_E=520.0e3, disl_V=22.0e-6,
+    ),
+    "dry_olivine_diff_Hirth_2003": dict(
+        # A = 1.5e9 MPa^-1 um^3 s^-1, m = 3
+        diff_A=1.5e9 * 1.0e-6 * (1.0e-6) ** 3, diff_m=3.0,
+        diff_E=375.0e3, diff_V=6.0e-6,
+    ),
+    "wet_olivine_diff_Hirth_2003": dict(
+        # A = 2.5e7 MPa^-1 um^3 s^-1 · C_OH^1.0 with C_OH = 1000
+        diff_A=2.5e7 * 1000.0 * 1.0e-6 * (1.0e-6) ** 3, diff_m=3.0,
+        diff_E=375.0e3, diff_V=10.0e-6,
+    ),
+    # Peierls low-temperature plasticity, dry olivine, Mei et al. (2010)
+    # (GeoParams PeierlsCreep "Dry Olivine | Mei et al. (2010)"):
+    # A = 1.4e-7 MPa^-2 s^-1, n = 2, E = 320 kJ/mol, τP = 5.9 GPa,
+    # o = 1/2, q = 1.
+    "dry_olivine_peierls_Mei_2010": dict(
+        peierls_A=1.4e-7 * 1.0e-6**2, peierls_n=2.0, peierls_E=320.0e3,
+        peierls_q=1.0, peierls_o=0.5, peierls_tauP=5.9e9,
+    ),
+    # Peierls, Goetze & Evans (1979) flow-law shape (q = 2, o = 1, n = 0 →
+    # stress enters only through the exponential; implemented with n = 2 and
+    # rescaled A as the common regularized form, cf. Kameyama et al. 1999):
+    "dry_olivine_peierls_Goetze_1979": dict(
+        peierls_A=5.7e11 / (8.5e9) ** 2, peierls_n=2.0, peierls_E=536.0e3,
+        peierls_q=2.0, peierls_o=1.0, peierls_tauP=8.5e9,
+    ),
+    # Dislocation-accommodated grain-boundary sliding, dry olivine < 1523 K,
+    # Hansen et al. (2011) (GeoParams GrainBoundarySliding):
+    # A = 10^4.8 MPa^-2.9 μm^0.7 s^-1, n = 2.9, m = 0.7, E = 445 kJ/mol.
+    "dry_olivine_gbs_Hansen_2011": dict(
+        gbs_A=10.0**4.8 * 1.0e-6**2.9 * (1.0e-6) ** 0.7,
+        gbs_n=2.9, gbs_m=0.7, gbs_E=445.0e3, gbs_V=18.0e-6,
+    ),
+}
+
+
+def creep_preset(*names: str) -> dict:
+    """Merge named creep presets into Material kwargs, e.g.
+    ``Material(**creep_preset("wet_olivine_disl_Hirth_2003",
+    "wet_olivine_diff_Hirth_2003"), rho0=3.3e3, ...)`` composes dislocation +
+    diffusion creep harmonically (see rheology/viscosity.py)."""
+    out = {}
+    for n in names:
+        if n not in CREEP_PRESETS:
+            raise KeyError(
+                f"unknown creep preset {n!r}; available: {sorted(CREEP_PRESETS)}"
+            )
+        out.update(CREEP_PRESETS[n])
+    return out

@@ -14,6 +14,7 @@ the associated cap gradient.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
@@ -27,6 +28,9 @@ __all__ = [
     "flow_gradients_P",
     "second_invariant",
     "second_invariant_staggered",
+    "DruckerPragerCap",
+    "plastic_gradients",
+    "yield_function_cap",
 ]
 
 _INF = float("inf")
@@ -137,3 +141,54 @@ def second_invariant_staggered(xx, yy, xy_gathered4):
     surrounding vertex values."""
     xy2 = sum(v**2 for v in xy_gathered4) / 4.0
     return torch.sqrt(0.5 * (xx**2 + yy**2) + xy2)
+
+
+@dataclass(frozen=True)
+class DruckerPragerCap:
+    """Elliptic compression cap closing the DP cone at high pressure:
+
+      F_cap = √(((P − Pc)/a)² + (τII/b)²) − 1   for P > Pc,
+
+    with semi-axes ``a`` (pressure) and ``b`` (stress), center ``Pc`` on the
+    hydrostat, associated flow on the cap."""
+
+    Pc: float
+    a: float
+    b: float
+
+
+def plastic_gradients(txx_trial, tyy_trial, txy_trial, tau_II, P, pp: PlasticParams,
+                      cap: Optional[DruckerPragerCap] = None):
+    """Flow and yield gradients of the return mapping, tensor convention
+    (every slot τ/(2τII)): ``((∂Q/∂τxx, ∂Q/∂τyy, ∂Q/∂τxy), ∂Q/∂P, ∂F/∂P)``.
+    With ``cap``, cells at P > Pc take the associated elliptic cap's
+    gradients."""
+    it = 1.0 / torch.clamp_min(tau_II, 1e-30)
+    half_it = 0.5 * it
+    dQdt_cone = (txx_trial * half_it, tyy_trial * half_it, txy_trial * half_it)
+    dQdP_cone = -pp.sinpsi
+    dFdP_cone = -pp.sinphi
+    if cap is None:
+        return dQdt_cone, dQdP_cone, dFdP_cone
+
+    dP = P - cap.Pc
+    S = torch.sqrt((dP / cap.a) ** 2 + (tau_II / cap.b) ** 2)
+    S = torch.clamp_min(S, 1e-30)
+    dFdP_cap = dP / (cap.a**2 * S)
+    fac = tau_II / (cap.b**2 * S) * half_it
+    on_cap = dP > 0.0
+    dQdt = tuple(
+        torch.where(on_cap, fac * t, g)
+        for t, g in zip((txx_trial, tyy_trial, txy_trial), dQdt_cone)
+    )
+    dQdP = torch.where(on_cap, dFdP_cap, dQdP_cone)
+    dFdP = torch.where(on_cap, dFdP_cap, dFdP_cone)
+    return dQdt, dQdP, dFdP
+
+
+def yield_function_cap(pp: PlasticParams, P, tau_II, cap: DruckerPragerCap):
+    """The composite cone + cap yield function: the cap's for P > Pc."""
+    F_cone = yield_function(pp, P, tau_II)
+    dP = P - cap.Pc
+    F_cap = torch.sqrt((dP / cap.a) ** 2 + (tau_II / cap.b) ** 2) - 1.0
+    return torch.where(dP > 0.0, F_cap, F_cone)

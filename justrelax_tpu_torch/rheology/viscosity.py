@@ -30,6 +30,8 @@ __all__ = [
     "phase_viscosity",
     "compute_viscosity_fields",
     "continuation_linear",
+    "continuation_log",
+    "correct_phase_ratio",
     "shared_powerlaw_exponent",
     "powerlaw_recip_coeffs",
 ]
@@ -37,6 +39,25 @@ __all__ = [
 
 def continuation_linear(x_new, x_old, nu):
     return nu * x_new + (1.0 - nu) * x_old
+
+
+def continuation_log(x_new, x_old, nu):
+    """exp((1−ν)·ln x_old + ν·ln x_new); x_old where that is nan."""
+    out = torch.exp((1.0 - nu) * torch.log(x_old) + nu * torch.log(x_new))
+    return torch.where(torch.isnan(out), x_old, out)
+
+
+def correct_phase_ratio(phase_ratios, air_phase: int):
+    """The phase ratios with the air slot zeroed and the rock phases
+    renormalized; pure-air cells keep their air one-hot ratios (a zero-ratio
+    harmonic blend would be 1/0 = ∞)."""
+    nphase = phase_ratios.shape[-1]
+    mask = torch.arange(nphase, device=phase_ratios.device) != air_phase
+    corrected = phase_ratios * mask
+    total = torch.sum(corrected, dim=-1, keepdim=True)
+    pure_air = phase_ratios[..., air_phase] > 1.0 - 1.0e-12
+    out = corrected / torch.clamp_min(total, torch.finfo(corrected.dtype).tiny)
+    return torch.where(pure_air[..., None], phase_ratios, out)
 
 
 def _tiny(t):
@@ -216,6 +237,7 @@ def compute_viscosity_fields(
     cutoff: Tuple[float, float] = (-float("inf"), float("inf")),
     P: Optional[torch.Tensor] = None,
     P_v: Optional[torch.Tensor] = None,
+    air_phase: Optional[int] = None,
     plastic_in_tau: bool = False,
 ):
     """Update (η centers, ηv vertices) from the tensor fields: the invariant
@@ -225,7 +247,11 @@ def compute_viscosity_fields(
     ``plastic_in_tau=True`` series-composes the regularized plastic element
     into the τII-mode viscosity, η = τII / (2(ε̇_visc + ε̇_pl)) with
     ε̇_pl = max(τII − P·sinφ − C·cosφ, 0)/(2η_reg); it needs ``mode="tau"``
-    and ``P``/``P_v``."""
+    and ``P``/``P_v``. With ``air_phase`` the air slot is left out of the
+    phase blend (``correct_phase_ratio``)."""
+    if air_phase is not None:
+        phase_ratios_center = correct_phase_ratio(phase_ratios_center, air_phase)
+        phase_ratios_vertex = correct_phase_ratio(phase_ratios_vertex, air_phase)
     eps = torch.finfo(xx.dtype).eps
 
     def update(old, a, b, c, T_, pr, P_):

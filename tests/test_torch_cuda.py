@@ -797,3 +797,35 @@ def test_window_copy_script_on_the_card(cuda, capsys):
     # the card divides arange by 1e6 through a reciprocal, so the input, and
     # with it the sum, differs from the CPU's 128244.781 in the last bits
     assert abs(float(out.sum()) - 128244.781) <= 0.05
+
+
+@pytest.mark.parametrize("linear", [True, False])
+def test_dyrel_graph_replay_matches_eager_chunk(cuda, linear):
+    """A DYREL chunk's graph replay is bit-equal to the chunk run eagerly
+    from the same mid-solve state, with and without the viscosity
+    refresh."""
+    from chip_smoke import DYREL_CARRIED, dyrel_chunks, dyrel_nonlinear_setup
+    from justrelax_tpu_torch.models import shearband_dyrel
+    from justrelax_tpu_torch.solvers.dyrel import solve_dyrel
+
+    with dyrel_chunks() as rec:
+        if linear:
+            shearband_dyrel.run(n=24, nt=1, dtype=torch.float64, iter_max=200,
+                                total_iter_max=200)
+        else:
+            st, geometry, bc, mat, prc, prv, _, kw = dyrel_nonlinear_setup(24, torch.float64,
+                                                                           cuda)
+            solve_dyrel(st, geometry, bc, mat, prc, prv, 0.25,
+                        **dict(kw, iter_max=200, total_iter_max=200))
+    s = rec["solves"][-1]
+    nout = rec["replays"][-1][2]
+    fields = [getattr(s, k) for k in DYREL_CARRIED]
+    saved = [t.clone() for t in fields]
+    s.chunk(nout)
+    eager = [t.clone() for t in fields]
+    for t, v in zip(fields, saved):
+        t.copy_(v)
+    s.graph.replay()
+    torch.cuda.synchronize()
+    for k, a, b in zip(DYREL_CARRIED, fields, eager):
+        assert torch.equal(a, b), k

@@ -145,8 +145,10 @@ def test_shearband_golden_f64():
 
 
 def test_guards():
-    with pytest.raises(NotImplementedError):
-        shearband.run(n=8, nt=1, displacement_driven=True, device="cpu")
+    # the displacement-driven band runs (it raised before ops/displacement.py)
+    st_u, info_u, _, _, _ = shearband.run(n=8, nt=1, displacement_driven=True, device="cpu",
+                                          iter_max=200)
+    assert info_u.iters > 0 and torch.equal(st_u.U.Ux, st_u.V.Vx * 0.25)
     # visc_plastic_tau: the kernel route refuses it, the plain route runs it
     with pytest.raises(ValueError, match="use_kernel=False"):
         shearband.run(n=8, nt=1, visc_plastic_tau=True, device="cpu", use_kernel=True)
@@ -176,7 +178,11 @@ def test_import_leaves_jax_out():
                "models.global_convection2d", "models.diffusion3d", "models.thermal_stresses",
                "models.shearheating", "models.shearheating3d", "ops.interpolation",
                "ops.heating", "ops.thermal", "ops.bc", "rheology.melting",
-               "rheology.viscosity", "solvers.thermal", "solvers.stokes2d_vep")
+               "rheology.viscosity", "solvers.thermal", "solvers.stokes2d_vep",
+               "solvers.dyrel", "solvers.thermal_explicit", "models.shearband_dyrel",
+               "models.thermal_stresses_dyrel", "utils.units", "ops.displacement",
+               "ops.principal_stresses", "ops.stress_rotation", "rheology.plasticity",
+               "rheology.materials")
     code = ("import sys, justrelax_tpu_torch, "
             + ", ".join(f"justrelax_tpu_torch.{m}" for m in modules)
             + "; assert 'jax' not in sys.modules and 'justrelax_tpu' not in sys.modules")
