@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-(``--golden LABEL`` runs one of phase 28's or 30's goldens and prints its
-result: phases 28 and 30 start three each that way, in processes of their
-own.)
+(``--golden LABEL`` runs one of phase 28's, 30's or 33's goldens and prints
+its result: phases 28, 30 and 33 start three each that way, in processes of
+their own.)
 
 Run from the root of a checkout. Phases, each printing JSON lines:
 
@@ -194,6 +194,39 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               eager DR iteration launches (torch.profiler), beside the bytes
               bound (dyrel_words); dyrel_per_iteration: the same at 32^2
               f64, the goldens' grid.
+33. golden_particles: the particle models through their default entry
+              points, f64, at the JAX tests' sizes and on their assertions:
+              the rising blob at 16^3 over 3 steps and over 1 on bench.py's
+              |Vz| max (B7), Van Keken at 32^2 over 100 steps (B2/B3), the
+              multi-phase diffusion at 32^2 and 32^3 (plain by contract),
+              Blankenbach with particle-carried T at 32^2 over 10 steps
+              (B2/B3), the layered convection at 16^2 over 2 steps (Stokes
+              plain by contract, thermal B5; its 3D twin at 12^3, plain by
+              contract, runs as the slow cuda test
+              test_layered_convection3d_golden_f64), its DYREL variant at
+              32^2 over 2 steps (B5) and the
+              sticky-air subduction through DYREL at 50x20 over 2 steps on
+              its residual oracle; each with the launches of the kernel it
+              routes through (> 0) and of no other.
+34. particles_card_vs_cpu: every particle operation on the card against
+              the CPU from the same numpy inputs, f64, at 64^2 x 24 slots and
+              16^3 x 12 (particles_numpy: a divergence-free field moving
+              particles across cell faces, starved and emptied cells): init,
+              advection, the move (and its x-slab form, also against the
+              whole-grid move on the card), injection, grid2particle and
+              centroid2particle and the marker chain's advection and
+              topography correction bit for bit; particle2grid,
+              particle2centroid, the phase ratios and the subgrid diffusion
+              within 1e-13 of each field's max (sums and scatter-adds).
+35. main_path_particles: one step of Van Keken at 1024^2 (its own 40/80/20
+              particles and Stokes cap, through B2/B3) and of the rising blob
+              at 126^3 (8/20/4 particles, B7), f32, through the default entry
+              points: wall time split by CUDA events into the Stokes solve
+              (iterations, err, converged), advection, the move, injection
+              and the phase ratios, the rest; the particles' draw and copy to
+              the card; peak device memory; the kernel launches; the active
+              particles before and after and the smallest count per cell
+              after injection (>= min_xcell).
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
 the run's own inputs (hopper_stokes_vep.vep_chunk_words and
@@ -202,8 +235,9 @@ kernel, vep3d_edges_words for the edge kernel, with its operations over the
 f32 peak beside them (vep3d_edges_ops), vep3d_chunk_words for the
 fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
-Then the kernels line (each entry with its launches on the main path it
-was first ported for, and launches_models: its launches in phases 28-30),
+Then the script's seconds (the line "elapsed"), the kernels line (each
+entry with its launches on the main path it
+was first ported for, and launches_models: its launches in phases 28-35),
 and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
 printing any result. With --parent DIR (a parent commit's
@@ -241,9 +275,14 @@ from justrelax_tpu_torch.models import (  # noqa: E402
     blankenbach,
     burstedde,
     diffusion2d,
+    diffusion2d_multiphase,
     diffusion3d,
     elastic_buildup,
     global_convection2d,
+    layered_convection3d,
+    layered_convection_dyrel,
+    layered_convection_nondim,
+    rising_blob3d,
     shearband,
     shearband_dyrel,
     shearheating,
@@ -254,8 +293,10 @@ from justrelax_tpu_torch.models import (  # noqa: E402
     shearband3d,
     solvi2d,
     solvi3d,
+    subduction2d_dyrel,
     thermal_stresses,
     thermal_stresses_dyrel,
+    vankeken,
 )
 from justrelax_tpu_torch.models.shearband import _circle_phase_ratios  # noqa: E402
 from justrelax_tpu_torch.ops import _cuda_build  # noqa: E402
@@ -936,6 +977,7 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
 
@@ -1114,11 +1156,14 @@ def main():
     model_launches = run_models(dev, smi)
     for kernel, by_phase in run_dyrel(dev, smi, kind).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
+    for kernel, by_phase in run_particles(dev, smi).items():
+        model_launches.setdefault(kernel, {}).update(by_phase)
     lines = [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line, b8_line, r_line]
     per_iter = launches_per_iteration(dev)
     for line in lines:
         line["launches_per_iteration"] = per_iter[line["name"]]
         line["launches_models"] = model_launches.get(line["name"], {})
+    emit("elapsed", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
@@ -2851,7 +2896,7 @@ def golden_apart(label):
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     for mod in (hv, hs, ht, h3):
         mod._library()  # built by the phase's process
-    cases = {**golden_cases(), **dyrel_golden_cases()}
+    cases = {**golden_cases(), **dyrel_golden_cases(), **particle_golden_cases()}
     print(json.dumps(golden_result(label, cases[label][0])), flush=True)
 
 
@@ -3503,6 +3548,529 @@ def run_dyrel(dev, smi, kind):
         check(per_iter["replay_bit_equal"] and per_iter["replay_moved"],
               f"main_path_dyrel {n}: the replay is not bit-equal to the eager chunk")
         check(iters > 0 and info.iters > 0, f"main_path_dyrel {n}: no DR iteration ran")
+    return launches
+
+
+# ---- particles: phases 33-35 -------------------------------------------------
+# the kernel each particle model's default entry point routes through on the
+# card (None: plain by contract, or DYREL's graph replays only)
+MODEL_KERNEL.update({
+    "rising_blob3d": "stokes3d_chunk",
+    "rising_blob3d_nt1": "stokes3d_chunk",
+    "vankeken": "stokes_vep_chunk",
+    "diffusion2d_multiphase": None,
+    "diffusion3d_multiphase": None,
+    "blankenbach_particles": "stokes_vep_chunk",
+    "layered_convection_nondim": "thermal_chunk",
+    "layered_convection3d": None,
+    "layered_convection_dyrel": "thermal_chunk",
+    "subduction2d_dyrel": None,
+})
+# phase 33's goldens in processes of their own: the longest (the host's
+# dispatch of plain PyTorch iterations and of 50-iteration chunks)
+PARTICLES_APART = ("layered_convection_nondim", "vankeken", "layered_convection_dyrel")
+# the golden that runs as a slow cuda test instead (tests/test_torch_cuda.py::
+# test_layered_convection3d_golden_f64): its serial 3D VEP solves, plain by
+# contract, take 370-480 s of the host's dispatch on an H100 (PERF.md §5)
+PARTICLES_MOVED = ("layered_convection3d",)
+# bench.py's rising-blob golden: |Vz| max of the frozen CPU/f64 step at 16^3
+RISING_BLOB_VZ = 3.2058708898361283e-09
+DIFFUSION3D_MP_T = {(15, 15, 15): 1816.8262937737384, (16, 16, 16): 1834.4197141500213}
+LAYERED_DYREL_VMAX = (3.1098e-5, 4.8768e-7)  # tests/test_layered_convection_dyrel.py
+LAYERED_APT_VMAX = (3.2067e-5, 4.4046e-7)
+# the two production steps of phase 35: each model's own particles, caps and
+# nout, one step (the JAX tests run 100 and 3)
+PROD["vankeken"] = dict(nx=1024, ny=1024, nt=1)
+PROD["rising_blob3d"] = dict(n=126, nt=1)
+# the particle operations held card against CPU that are pure selection,
+# gathers and elementwise arithmetic (bit for bit); the others sum or
+# scatter-add in another order on the card (PARTICLE_TOL of each field's max)
+PARTICLE_BIT_EQUAL = ("init", "advect", "move", "move_slab", "inject", "grid2particle",
+                      "centroid2particle", "centroid2particle_ghosted", "chain",
+                      "chain_topography")
+PARTICLE_TOL = 1e-13
+
+
+def swirl_2d(geometry, amplitude=0.3):
+    """A divergence-free cell (stream function sin·sin) on the ghosted
+    staggered velocity grids of a 2D ``geometry``, numpy f64."""
+    (ox, oy), (lx, ly) = geometry.origin, geometry.li
+    (xv, yc), (xc, yv) = geometry.xi_vel
+    X, Y = np.meshgrid(xv, yc, indexing="ij")
+    Vx = amplitude * np.pi / ly * np.sin(np.pi * (X - ox) / lx) * np.cos(np.pi * (Y - oy) / ly)
+    X, Y = np.meshgrid(xc, yv, indexing="ij")
+    Vy = -amplitude * np.pi / lx * np.cos(np.pi * (X - ox) / lx) * np.sin(np.pi * (Y - oy) / ly)
+    return Vx, Vy
+
+
+def swirl_3d(geometry, a=0.25, b=0.2):
+    """Two divergence-free cells, stream functions ψ1(x, y) and ψ2(x, z):
+    Vx = ∂yψ1 + ∂zψ2, Vy = −∂xψ1, Vz = −∂xψ2, on the ghosted staggered
+    grids of a 3D ``geometry``, numpy f64."""
+    o, li = geometry.origin, geometry.li
+    k = [np.pi / li[d] for d in range(3)]
+
+    def s(u, d):
+        return np.sin(k[d] * (u - o[d]))
+
+    def c(u, d):
+        return np.cos(k[d] * (u - o[d]))
+
+    X, Y, Z = np.meshgrid(*geometry.xi_vel[0], indexing="ij")
+    Vx = a * k[1] * s(X, 0) * c(Y, 1) + b * k[2] * s(X, 0) * c(Z, 2)
+    X, Y, Z = np.meshgrid(*geometry.xi_vel[1], indexing="ij")
+    Vy = -a * k[0] * c(X, 0) * s(Y, 1)
+    X, Y, Z = np.meshgrid(*geometry.xi_vel[2], indexing="ij")
+    Vz = -b * k[0] * c(X, 0) * s(Z, 2)
+    return Vx, Vy, Vz
+
+
+def particles_numpy(ndim, n, mx, seed=0):
+    """Phase 34's inputs, numpy f64, for an n^ndim grid with ``mx`` slots:
+    the geometry and slot counts, the divergence-free velocity and a dt that
+    moves the fastest particle 0.8 cells, an active mask with 45 % of the
+    initial particles dropped and a 3^ndim block of cells emptied (its
+    center cell receives none in one step), particle phase (three phases)
+    and T, a center and a ghosted center T, a vertex field and a cell phase
+    field."""
+    rng = np.random.default_rng(seed)
+    if ndim == 2:
+        li, origin = (2.0, 1.5), (0.3, -1.0)
+    else:
+        li, origin = (1.2, 1.0, 0.9), (0.0, 0.2, -0.9)
+    ni = (n,) * ndim
+    geometry = Geometry(ni, li, origin=origin)
+    V = swirl_2d(geometry) if ndim == 2 else swirl_3d(geometry)
+    dt = 0.8 * min(geometry.di) / max(float(np.abs(v).max()) for v in V)
+    shape = ni + (mx,)
+    nxcell = mx // 2
+    active = np.zeros(shape, bool)
+    active[..., :nxcell] = rng.random(ni + (nxcell,)) > 0.45
+    block = tuple(slice(n // 3 - 1, n // 3 + 2) for _ in range(ndim))
+    active[block] = False
+    return dict(
+        geometry=geometry, nxcell=nxcell, max_xcell=mx, min_xcell=(3 * mx) // 8, seed=seed,
+        V=V, dt=dt, active=active, phase=np.floor(rng.random(shape) * 3.0),
+        T=300.0 + 50.0 * rng.random(shape), Tc=300.0 + 50.0 * rng.random(ni),
+        Tg=300.0 + 50.0 * rng.random(tuple(m + 2 for m in ni)),
+        dTg=5.0 * rng.random(tuple(m + 2 for m in ni)),
+        vert=rng.random(tuple(m + 1 for m in ni)),
+        cell_phase=np.floor(rng.random(ni) * 3.0), empty=tuple(n // 3 for _ in range(ndim)))
+
+
+def particle_ops(case, dev):
+    """Every particle operation of the ``particles_numpy`` case's dimension
+    on ``dev``, f64, from the case's numpy inputs: name → tuple of tensors
+    (2D also the marker chain). ``starved`` counts the cells below
+    ``min_xcell`` after the move, ``emptied`` the particles of the emptied
+    cell then."""
+    from justrelax_tpu_torch.particles import marker_chain as pmc
+    from justrelax_tpu_torch.particles import particles as p2
+    from justrelax_tpu_torch.particles import particles3d as p3
+
+    g, ndim = case["geometry"], len(case["geometry"].ni)
+    f = dict(dtype=torch.float64, device=dev)
+
+    def t(name):
+        return torch.as_tensor(case[name], **f)
+
+    axes = ("px", "py", "pz")[:ndim]
+    if ndim == 2:
+        init, advect, move, inject = (p2.init_particles, p2.advect_rk2, p2.move_particles,
+                                      p2.inject_particles)
+        g2p, c2p, p2g, p2c = (p2.grid2particle, p2.centroid2particle, p2.particle2grid,
+                              p2.particle2centroid)
+        ratios = p2.phase_ratios_from_particles
+        phases = t("cell_phase")
+    else:
+        init, advect, move, inject = (p3.init_particles_3d, p3.advect_rk2_3d,
+                                      p3.move_particles_3d, p3.inject_particles_3d)
+        g2p, c2p, p2g, p2c = (p3.grid2particle_3d, p3.centroid2particle_3d,
+                              p3.particle2grid_3d, p3.particle2centroid_3d)
+        ratios = p3.phase_ratios_from_particles_3d
+        phases = 3
+
+    def pos(p):
+        return tuple(getattr(p, a) for a in axes)
+
+    out = {}
+    p = init(g, case["nxcell"], case["max_xcell"], case["min_xcell"], seed=case["seed"],
+             device=dev)
+    out["init"] = pos(p) + (p.active,)
+    p = p.replace(active=torch.as_tensor(case["active"], device=dev))
+    p = advect(p, tuple(torch.as_tensor(v, **f) for v in case["V"]), g, case["dt"])
+    out["advect"] = pos(p)
+    fields = {"phase": t("phase"), "T": t("T")}
+    pm, fm = move(p, g, fields)
+    out["move"] = pos(pm) + (pm.active, fm["phase"], fm["T"])
+    ps, fs = move(p, g, fields, x_slab=max(1, g.ni[0] // 5))
+    out["move_slab"] = pos(ps) + (ps.active, fs["phase"], fs["T"])
+    count = pm.count()
+    out["starved"] = int((count < pm.min_xcell).sum())
+    out["emptied"] = int(count[case["empty"]])
+    pi, fi = inject(pm, g, {"T": t("Tc")}, phases=phases, fields=fm)
+    out["inject"] = pos(pi) + (pi.active, fi["phase"], fi["T"])
+    out["min_count"] = int(pi.count().min())
+    out["grid2particle"] = (g2p(t("vert"), pi, g),)
+    out["centroid2particle"] = (c2p(t("Tc"), pi, g),)
+    out["particle2grid"] = (p2g(fi["T"], pi, g),)
+    out["particle2centroid"] = (p2c(fi["T"], pi, g),)
+    out["phase_ratios"] = ratios(pi, fi["phase"], 3, g)
+    if ndim == 2:
+        out["centroid2particle_ghosted"] = (c2p(t("Tg"), pi, g),)
+        mat = Material(rho0=3.3e3, alpha=2e-5, Cp=1.1e3, k=3.0)
+        Tc_g = t("Tg")[1:-1, 1:-1]
+        dt0 = p2.subgrid_characteristic_time(mat, Tc_g, torch.zeros_like(Tc_g), None, g.di)
+        out["subgrid_diffusion"] = (p2.subgrid_diffusion(
+            fi["T"], t("Tg"), t("dTg"), dt0, pi, g, 0.3 * float(dt0.min().cpu())),)
+        chain = pmc.init_marker_chain(
+            g, lambda x: g.origin[1] + 0.6 * g.li[1] + 0.05 * np.cos(2 * np.pi * x / g.li[0]),
+            n_per_cell=3, device=dev)
+        V = tuple(torch.as_tensor(v, **f) for v in case["V"])
+        for _ in range(2):
+            chain = pmc.advect_marker_chain(chain, V, g, case["dt"])
+        out["chain"] = (chain.x, chain.y)
+        pc, nbad = pmc.update_phases_given_markerchain(chain, pi, fi["phase"], 2)
+        out["chain_topography"] = (pc.active, nbad)
+    return out
+
+
+def particle_diffs(card, cpu):
+    """Per operation of ``particle_ops``: (bit_equal, max |card − cpu| over
+    the max |cpu| of each tensor)."""
+    out = {}
+    for name, ts in cpu.items():
+        if not isinstance(ts, tuple):
+            continue
+        eq, rel = True, 0.0
+        for a, b in zip(card[name], ts):
+            a = a.cpu()
+            eq = eq and torch.equal(a, b)
+            if b.is_floating_point():
+                scale = float(b.abs().max()) if b.numel() else 0.0
+                d = float((a - b).abs().max()) if b.numel() else 0.0
+                rel = max(rel, d / scale if scale else d)
+        out[name] = (eq, rel)
+    return out
+
+
+def mom_residual(geometry, st, eta, eta_v, rho_gy):
+    """tests/test_subduction2d_dyrel.py's independent residual: the RMS of
+    the plain staggered viscous momentum residual (τ = 2η ε̇ with the
+    solve's η fields) and max |∇·V|."""
+    inv_dx, inv_dy = 1.0 / geometry.di[0], 1.0 / geometry.di[1]
+    Vx, Vy = st.V.Vx, st.V.Vy
+    dVxdx = (Vx[1:, 1:-1] - Vx[:-1, 1:-1]) * inv_dx
+    dVydy = (Vy[1:-1, 1:] - Vy[1:-1, :-1]) * inv_dy
+    divV = dVxdx + dVydy
+    exx, eyy = dVxdx - divV / 3.0, dVydy - divV / 3.0
+    exy = 0.5 * ((Vx[:, 1:] - Vx[:, :-1]) * inv_dy + (Vy[1:, :] - Vy[:-1, :]) * inv_dx)
+    txx, tyy, txy = 2 * eta * exx, 2 * eta * eyy, 2 * eta_v * exy
+    P = st.P
+    Rx = ((txx[1:, :] - txx[:-1, :]) * inv_dx + (txy[1:-1, 1:] - txy[1:-1, :-1]) * inv_dy
+          - (P[1:, :] - P[:-1, :]) * inv_dx)
+    Ry = ((tyy[:, 1:] - tyy[:, :-1]) * inv_dy + (txy[1:, 1:-1] - txy[:-1, 1:-1]) * inv_dx
+          - (P[:, 1:] - P[:, :-1]) * inv_dy - 0.5 * (rho_gy[:, 1:] + rho_gy[:, :-1]))
+
+    def rms(A):
+        return float(torch.linalg.norm(A) / math.sqrt(A.numel()))
+
+    return rms(Rx), rms(Ry), float(divV.abs().max())
+
+
+def particle_golden_cases():
+    """Phase 33's goldens: label → (run, checks), each through the model's
+    default entry point on the card in f64 at its JAX test's size, each
+    check that test's assertion (bench.py's for the rising blob at nt=1)."""
+    from justrelax_tpu_torch.ops.interpolation import velocity2vertex
+    from justrelax_tpu_torch.utils.units import dimensionalize, nondimensionalize
+
+    f64 = torch.float64
+    KM = subduction2d_dyrel.KM
+
+    def g_rising_blob():
+        d_rho, eta0, R = -100.0, 1.0e21, 0.12
+        st, par, ph, info, zc = rising_blob3d.run(n=16, nt=3, d_rho=d_rho, eta0=eta0, R=R,
+                                                  dtype=f64)
+        a = par.active & (ph > 0.5)
+        return dict(iters=int(info.iters), err=float(info.err), zc=zc,
+                    vmax=float(st.V.Vz.max()),
+                    v_stokes=2.0 / 9.0 * abs(d_rho) * 9.81 * (R * 1.0e6) ** 2 / eta0,
+                    px_std=float(par.px[a].std(unbiased=False)),
+                    pz_std=float(par.pz[a].std(unbiased=False)), R_L=R * 1.0e6)
+
+    def g_rising_blob_nt1():
+        st, _, _, info, zc = rising_blob3d.run(n=16, nt=1, dtype=f64)
+        return dict(iters=int(info.iters), err=float(info.err), zc=zc[0],
+                    vz_abs_max=float(st.V.Vz.abs().max()))
+
+    def g_vankeken():
+        urms, info, st, par, ph = vankeken.run(nx=32, ny=32, nt=100, dtype=f64)
+        return dict(iters=int(info.iters), err=float(info.err), urms_first=urms[0],
+                    urms_last=urms[-1], urms_max=max(urms), min_count=int(par.count().min()),
+                    min_xcell=par.min_xcell)
+
+    def g_diffusion2d_mp():
+        th, info = diffusion2d_multiphase.run(nx=32, ny=32, dtype=f64)
+        return dict(iters=int(info.iters), err=float(info.err), T17=float(th.T[17, 17]),
+                    T16=float(th.T[16, 16]))
+
+    def g_diffusion3d_mp():
+        th, info = diffusion3d.run_multiphase(n=32, dtype=f64)
+        return dict(iters=int(info.iters), err=float(info.err),
+                    **{f"T{i[0]}": float(th.T[i]) for i in DIFFUSION3D_MP_T})
+
+    def g_blankenbach_particles():
+        urms, nu, info, st, th = blankenbach.run_particles(nx=32, ny=32, nit=10, dtype=f64)
+        return dict(iters=int(info.iters), err=float(info.err), urms_last=urms[-1],
+                    urms_3=urms[2], nu_last=nu[-1])
+
+    def g_layered_nondim():
+        st, th, par, ph, info, u, vmax = layered_convection_nondim.run(
+            nx=16, ny=16, nt=2, nxcell=12, max_xcell=24, min_xcell=6, dtype=f64)
+        T = th.T
+        v_si = dimensionalize(max(vmax), "velocity", u)
+        return dict(iters=int(info.iters), err=float(info.err), T_min=float(T.min()),
+                    T_max=float(T.max()), Vy_max=float(st.V.Vy.max()),
+                    phases=sorted(float(x) for x in torch.unique(ph[par.active]).cpu()),
+                    T_top=nondimensionalize(273.0, "temperature", u),
+                    T_bot=nondimensionalize(1492.0, "temperature", u),
+                    dT=nondimensionalize(200.0, "temperature", u),
+                    roundtrip=abs(nondimensionalize(v_si, "velocity", u) / max(vmax) - 1.0),
+                    cm_yr=v_si * 100 * 365.25 * 24 * 3600)
+
+    def g_layered3d():
+        st, th, par, ph, info, vmax = layered_convection3d.run(
+            nx=12, ny=12, nz=12, nt=2, nxcell=6, max_xcell=12, min_xcell=3, dtype=f64)
+        T = th.T[1:-1, 1:-1, 1:-1]
+        return dict(iters=int(info.iters), err=float(info.err),
+                    phases=sorted(float(x) for x in torch.unique(ph[par.active]).cpu()),
+                    T_min=float(T.min()), T_max=float(T.max()), T_max_ghosted=float(th.T.max()),
+                    Vz_max=float(st.V.Vz.max()), finite=bool(torch.isfinite(st.V.Vz).all()),
+                    vmax_1=vmax[0])
+
+    def g_layered_dyrel():
+        st, th, par, ph, info, u, vmax = layered_convection_dyrel.run(nx=32, ny=32, nt=2,
+                                                                      dtype=f64)
+        Vy = st.V.Vy
+        return dict(iters=int(info.iters), err=float(info.err), vmax=vmax,
+                    finite=bool(torch.isfinite(Vy).all() and torch.isfinite(th.T).all()),
+                    Vy_max=float(Vy.max()), Vy_min=float(Vy.min()))
+
+    def g_subduction_dyrel():
+        nx, ny = 50, 20
+        st, par, ph, prc, info, tip, aux = subduction2d_dyrel.run(nx=nx, ny=ny, nt=2, dtype=f64)
+        geometry = Geometry((nx, ny), (3000.0 * KM, 750.0 * KM), origin=(0.0, -700.0 * KM))
+        rx, ry, divmax = mom_residual(geometry, st, aux["eta"], aux["eta_v"], aux["rho_gy"])
+        yc = torch.as_tensor(geometry.xci[1], device=st.P.device)
+        tII = st.tau.II
+        Vxv, Vyv = velocity2vertex(st.V.Vx, st.V.Vy)
+        yv = torch.as_tensor(geometry.xvi[1], device=st.P.device)
+        return dict(iters=int(info.iters), err=float(info.err), rx=rx, ry=ry, divmax=divmax,
+                    tip=tip, t_air=float(tII[:, yc > 5.0 * KM].max()),
+                    t_rock=float(tII[:, yc < -5.0 * KM].max()),
+                    v_rock=float(torch.sqrt(Vxv**2 + Vyv**2)[:, yv < 0.0].max()))
+
+    def near(a, b, rtol):
+        return abs(a - b) <= rtol * abs(b)
+
+    return {
+        "rising_blob3d": (g_rising_blob, lambda g: [
+            ("err", g["err"] < 1e-6),
+            ("rising", all(b > a for a, b in zip(g["zc"], g["zc"][1:]))),
+            ("Stokes speed", 0.6 * g["v_stokes"] < g["vmax"] < 1.4 * g["v_stokes"]),
+            ("coherent", g["px_std"] < 1.5 * g["R_L"] and g["pz_std"] < 1.5 * g["R_L"])]),
+        "rising_blob3d_nt1": (g_rising_blob_nt1, lambda g: [
+            ("|Vz| max", near(g["vz_abs_max"], RISING_BLOB_VZ, 2e-2)),
+            ("finite", math.isfinite(g["vz_abs_max"]) and g["vz_abs_max"] > 0.0)]),
+        "vankeken": (g_vankeken, lambda g: [
+            ("err", g["err"] < 1e-4), ("Urms < 1e-2", g["urms_max"] < 1e-2),
+            ("growth", g["urms_last"] > g["urms_first"]),
+            ("min count", g["min_count"] >= g["min_xcell"])]),
+        "diffusion2d_multiphase": (g_diffusion2d_mp, lambda g: [
+            ("err", g["err"] < 1e-5), ("T[17, 17]", abs(g["T17"] - 1814.029) <= 1e-1),
+            ("T[16, 16]", abs(g["T16"] - 1823.548) <= 1e-1)]),
+        "diffusion3d_multiphase": (g_diffusion3d_mp, lambda g: [("err", g["err"] < 1e-5)] + [
+            (f"T{i[0]}", near(g[f"T{i[0]}"], v, 1e-3)) for i, v in DIFFUSION3D_MP_T.items()]),
+        "blankenbach_particles": (g_blankenbach_particles, lambda g: [
+            ("err", g["err"] < 1e-4),
+            ("Urms", near(g["urms_last"], 0.40987052065118357, 2e-1)),
+            ("Nu", near(g["nu_last"], 1.0026242251320245, 1e-2)),
+            ("spin-up", g["urms_last"] > g["urms_3"] > 0.0)]),
+        "layered_convection_nondim": (g_layered_nondim, lambda g: [
+            ("err", g["err"] < 1e-5),
+            ("T window", g["T_min"] > 0.5 * g["T_top"] and g["T_max"] < g["T_bot"] + g["dT"] + 0.1),
+            ("upward", g["Vy_max"] > 0.0), ("phases", g["phases"] == [0.0, 1.0, 2.0]),
+            ("units", g["roundtrip"] <= 1e-12), ("ascent", 1e-6 < g["cm_yr"] < 10.0),
+            ("Vy max", near(g["Vy_max"], 4.160546429279427e-06, 1e-5)),
+            ("T max", near(g["T_max"], 1.5278565116446254, 1e-6))]),
+        "layered_convection3d": (g_layered3d, lambda g: [
+            ("err", g["err"] < 1e-5), ("phases", g["phases"] == [0.0, 1.0, 2.0]),
+            ("T window", 270.0 < g["T_min"] and g["T_max"] < 1492.0 + 251.0),
+            ("upward", g["Vz_max"] > 0.0 and g["finite"]),
+            ("Vz max", near(g["vmax_1"], 7.086241845485486e-11, 1e-5)),
+            ("T max", near(g["T_max_ghosted"], 1542.5441453335352, 1e-6))]),
+        "layered_convection_dyrel": (g_layered_dyrel, lambda g: [
+            ("finite", g["finite"]), ("err", g["err"] < 1e-4)] + [
+            (f"vmax {k}", near(g["vmax"][k], LAYERED_DYREL_VMAX[k], 0.05)
+             and near(g["vmax"][k], LAYERED_APT_VMAX[k], 0.15)) for k in range(2)] + [
+            ("circulation", g["Vy_max"] > 0.2 * abs(g["Vy_min"])
+             and g["Vy_min"] < -0.2 * g["Vy_max"])]),
+        "subduction2d_dyrel": (g_subduction_dyrel, lambda g: [
+            ("err", g["err"] < 1e-5), ("residual", g["rx"] < 10.0 and g["ry"] < 40.0),
+            ("div V", g["divmax"] < 1e-12), ("tip", g["tip"][0] < -180.0 * KM),
+            ("descent", all(b < a for a, b in zip(g["tip"], g["tip"][1:]))),
+            ("air stress", g["t_air"] < 0.05 * g["t_rock"]),
+            ("rock |V|", 1.0e-8 < g["v_rock"] < 2.0e-8)]),
+    }
+
+
+@contextlib.contextmanager
+def particle_step_timers(module, names):
+    """CUDA events around each call of ``module``'s functions ``names``
+    (``timed_calls``), the active particles handed to the first call of the
+    first name (the step's count before) and the host clock around
+    ``init_name`` (the numpy draw and its copy to the card): yields a dict
+    name → event pairs, with ``active_before`` and ``init_s``."""
+    rec = {}
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            rec[name] = stack.enter_context(timed_calls(module, name))
+        advect = getattr(module, names[0])
+        init_name = next(n for n in dir(module) if n.startswith("init_particles"))
+        init = getattr(module, init_name)
+
+        def counted(particles, *a, **k):
+            rec.setdefault("active_before", int(particles.active.sum()))
+            return advect(particles, *a, **k)
+
+        def timed_init(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = init(*a, **k)
+            torch.cuda.synchronize()
+            rec["init_s"] = time.perf_counter() - t0
+            return out
+
+        setattr(module, names[0], counted)
+        setattr(module, init_name, timed_init)
+        try:
+            yield rec
+        finally:
+            setattr(module, names[0], advect)
+            setattr(module, init_name, init)
+
+
+def run_particles(dev, smi):
+    """Phases 33-35; returns the launches of each kernel per particle phase."""
+    f32 = torch.float32
+    launches = {}
+
+    # ---- 33. goldens through the default entry points, f64, the JAX tests'
+    # sizes and assertions; three in processes of their own
+    cases = {k: v for k, v in particle_golden_cases().items() if k not in PARTICLES_MOVED}
+    emit("golden_particles_moved", cases=PARTICLES_MOVED,
+         test="tests/test_torch_cuda.py::test_layered_convection3d_golden_f64 (slow, cuda)")
+    procs = {label: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--golden",
+                                      label], cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+             for label in PARTICLES_APART}
+    try:
+        results = {label: golden_result(label, cases[label][0])
+                   for label in cases if label not in procs}
+        for label, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            check(proc.returncode == 0 and lines,
+                  f"golden_particles {label}: its process failed ({proc.returncode}):\n"
+                  f"{err[-3000:]}")
+            results[label] = json.loads(lines[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for label, (_, checks) in cases.items():
+        g = results[label]
+        kernel = g["kernel"]
+        emit("golden_particles", case=label, nvidia_smi=smi, apart=label in procs, **g)
+        for key, ok in checks(g):
+            check(ok, f"golden_particles {label}: {key}")
+        if kernel is not None:
+            launches.setdefault(kernel, {})[f"golden_{label}"] = g["launches"]
+            check(g["launches"] > 0, f"golden_particles {label}: {kernel} was not launched")
+        check(g["other_launches"] == 0, f"golden_particles {label}: another kernel launched")
+
+    # ---- 34. each particle operation on the card against the CPU, f64, from
+    # the same numpy inputs
+    for ndim, n, mx in ((2, 64, 24), (3, 16, 12)):
+        case = particles_numpy(ndim, n, mx)
+        card, cpu = particle_ops(case, dev), particle_ops(case, torch.device("cpu"))
+        diffs = particle_diffs(card, cpu)
+        slab_eq = all(torch.equal(a, b) for a, b in zip(card["move"], card["move_slab"]))
+        emit("particles_card_vs_cpu", ndim=ndim, grid=[n] * ndim, slots=mx,
+             starved=card["starved"], emptied=card["emptied"], min_count=card["min_count"],
+             slab_equals_whole=slab_eq,
+             ops={k: {"bit_equal": e, "max_rel_diff": r} for k, (e, r) in diffs.items()})
+        for name, (eq, rel) in diffs.items():
+            if name in PARTICLE_BIT_EQUAL:
+                check(eq, f"particles_card_vs_cpu {ndim}D {name}: not bit-equal")
+            else:
+                check(rel <= PARTICLE_TOL, f"particles_card_vs_cpu {ndim}D {name}: {rel}")
+        check(slab_eq, f"particles_card_vs_cpu {ndim}D: the slab move differs from the whole")
+        check(card["starved"] > 0 and card["emptied"] == 0,
+              f"particles_card_vs_cpu {ndim}D: no starved or emptied cell")
+        check(card["min_count"] >= case["min_xcell"],
+              f"particles_card_vs_cpu {ndim}D: a cell below min_xcell after injection")
+
+    # ---- 35. one step of each production model, f32, through the default
+    # entry point: wall time split by CUDA events into the Stokes solve and
+    # the particle operations, peak memory, launches, particle counts
+    prod = {
+        "vankeken": (vankeken, ("advect_rk2", "move_particles", "inject_particles",
+                                "phase_ratios_from_particles"), "solve_vep", vankeken.run),
+        "rising_blob3d": (rising_blob3d, ("advect_rk2_3d", "move_particles_3d",
+                                          "inject_particles_3d",
+                                          "phase_ratios_from_particles_3d"), "solve_ve_3d",
+                          rising_blob3d.run),
+    }
+    for label, (module, names, solver, run) in prod.items():
+        kernel = MODEL_KERNEL[label]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with particle_step_timers(module, names) as rec, timed_solves(module, solver) as solves:
+            out = run(dtype=f32, **PROD[label])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        particles = out[3] if label == "vankeken" else out[1]
+        stokes = out[2] if label == "vankeken" else out[0]
+        split = {name.replace("_3d", ""): events_s(rec[name]) for name in names}
+        stokes_split = solves_summary(solves)
+        stokes_s = sum(s["seconds"] for s in stokes_split)
+        count = particles.count()
+        finite = all(bool(torch.isfinite(t).all()) for t in (
+            stokes.V.Vx, stokes.V.Vy, stokes.P, particles.px, particles.py))
+        line = dict(case=label, dtype="float32", grid=PROD[label], wall_s=wall,
+                    stokes=stokes_split, stokes_s=stokes_s, particles_s=split,
+                    init_particles_s=rec.get("init_s"),
+                    rest_s=wall - stokes_s - sum(split.values()),
+                    peak_memory_GiB=torch.cuda.max_memory_allocated() / 2**30,
+                    kernel=kernel, launches=c[kernel],
+                    other_launches=sum(v for k, v in c.items() if k != kernel),
+                    active_before=rec.get("active_before"), active_after=int(count.sum()),
+                    min_count_after=int(count.min()), min_xcell=particles.min_xcell,
+                    finite=finite, nvidia_smi=smi)
+        emit("main_path_particles", **line)
+        launches.setdefault(kernel, {})[f"production_{label}"] = c[kernel]
+        check(finite, f"main_path_particles {label}: non-finite fields")
+        check(c[kernel] > 0, f"main_path_particles {label}: {kernel} was not launched")
+        check(line["min_count_after"] >= particles.min_xcell,
+              f"main_path_particles {label}: a cell below min_xcell after injection")
+        del out, particles, stokes
+        torch.cuda.empty_cache()
     return launches
 
 

@@ -2,10 +2,12 @@
 
 The JAX package's containers turn into nested dicts of arrays with
 ``flax.serialization.to_state_dict`` (done by the caller, so this module
-needs no JAX). ``stokes_state_from_dict``, ``thermal_state_from_dict``, ``material_from_dict``
-and ``phase_ratios_from_dict`` build the port's :class:`StokesState`,
-:class:`ThermalState`, :class:`MaterialStack` and :class:`PhaseRatios` /
-:class:`PhaseRatios3D` from such dicts on a given device (the card unless
+needs no JAX). ``stokes_state_from_dict``, ``thermal_state_from_dict``, ``material_from_dict``,
+``phase_ratios_from_dict``, ``particles_from_dict`` and
+``marker_chain_from_dict`` build the port's :class:`StokesState`,
+:class:`ThermalState`, :class:`MaterialStack`, :class:`PhaseRatios` /
+:class:`PhaseRatios3D`, :class:`Particles` / :class:`Particles3D` and
+:class:`MarkerChain` from such dicts on a given device (the card unless
 given) and dtype; ``to_state_dict`` turns a port container back
 into the same nested dict of numpy arrays (``None`` where the JAX container
 has an unused 3D field).
@@ -21,11 +23,15 @@ import torch
 
 from justrelax_tpu_torch.core.device import resolve_device
 from justrelax_tpu_torch.core.state import StokesState, ThermalState
+from justrelax_tpu_torch.particles.marker_chain import MarkerChain
+from justrelax_tpu_torch.particles.particles import Particles
+from justrelax_tpu_torch.particles.particles3d import Particles3D
 from justrelax_tpu_torch.rheology.materials import MaterialStack
 from justrelax_tpu_torch.rheology.phases import PhaseRatios, PhaseRatios3D
 
 __all__ = ["stokes_state_from_dict", "thermal_state_from_dict", "material_from_dict",
-           "phase_ratios_from_dict", "to_state_dict"]
+           "phase_ratios_from_dict", "particles_from_dict", "marker_chain_from_dict",
+           "to_state_dict"]
 
 
 def _build(cls, d, dtype, device):
@@ -68,6 +74,30 @@ def phase_ratios_from_dict(d, device=None, dtype=None):
     device = resolve_device(device)
     return cls(**{f: torch.tensor(np.array(d[f]), dtype=dtype, device=device)
                   for f in cls._fields})
+
+
+def particles_from_dict(d, device=None, dtype=None):
+    """Port ``Particles`` (2D) or ``Particles3D`` (3D, told by a ``pz``
+    field) from a mapping of the JAX particles' field names to arrays
+    (``px``, ``py``[, ``pz``], ``active``) and its two static ints
+    (``min_xcell``, ``nxcell``; 0 where absent, as flax's state dict leaves
+    them out). ``dtype=None`` keeps the positions' own dtype."""
+    device = resolve_device(device)
+    axes = ("px", "py", "pz") if d.get("pz") is not None else ("px", "py")
+    cls = Particles3D if len(axes) == 3 else Particles
+    pos = {k: torch.tensor(np.array(d[k]), dtype=dtype, device=device) for k in axes}
+    return cls(**pos, active=torch.tensor(np.array(d["active"]), dtype=torch.bool,
+                                          device=device),
+               min_xcell=int(d.get("min_xcell", 0)), nxcell=int(d.get("nxcell", 0)))
+
+
+def marker_chain_from_dict(d, device=None, dtype=None) -> MarkerChain:
+    """Port ``MarkerChain`` from a mapping with its ``x`` and ``y`` arrays
+    (e.g. the JAX chain's ``_asdict()``; ``dtype=None`` keeps their own
+    dtype)."""
+    device = resolve_device(device)
+    return MarkerChain(*(torch.tensor(np.array(d[k]), dtype=dtype, device=device)
+                         for k in MarkerChain._fields))
 
 
 def to_state_dict(obj):

@@ -9,12 +9,14 @@ density (ρ0 = 3.1e3, α = 1.5e-5), Cp = 1.2e3, k = 3.
 
 Golden values at 32³ (tests/test_diffusion3d.py; ghosted 34³ T, 0-based):
 T[15, 15, 15] ≈ 1813.2470160788096 and T[16, 16, 16] ≈ 1831.2568044653274
-(rtol 1e-3), final residual < 1e-5.
+(rtol 1e-3), final residual < 1e-5. The multi-phase variant
+(``run_multiphase``: a second phase, ρ0 = 3.0e3 / 3.3e3 and radiogenic
+heating 1e-6 / 1e-7 W/m³, inside the sphere, its ratios from 3D particles):
+T[15, 15, 15] ≈ 1816.8262937737384, T[16, 16, 16] ≈ 1834.4197141500213.
 
-The solve runs on the plain path by contract: the thermal chunk kernel is
+The solves run on the plain path by contract: the thermal chunk kernel is
 2D (as the JAX package's is), and the material path re-evaluates ρ(T)·Cp
-every iteration. The multi-phase variant (``run_multiphase``) needs the
-3D particles, which the port does not have yet.
+every iteration.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from justrelax_tpu_torch.ops.bc import Faces, TemperatureBoundaryConditions, the
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack
 from justrelax_tpu_torch.solvers.thermal import heatdiffusion_PT
 
-__all__ = ["KYR", "MYR", "run"]
+__all__ = ["KYR", "MYR", "run", "run_multiphase"]
 
 KYR = 1.0e3 * 3600 * 24 * 365.25
 MYR = 1.0e3 * KYR
@@ -94,5 +96,49 @@ def run(n=32, l=100.0e3, ttot=0.5 * MYR, dt=50 * KYR, dtype=None, device=None):
         thermal, info = heatdiffusion_PT(
             thermal, pt_thermal, thermal_bc, dt, geometry,
             material=material, P=P, use_kernel=False,
+        )
+    return thermal, info
+
+
+def run_multiphase(n=32, l=100.0e3, ttot=0.5 * MYR, dt=50 * KYR, dtype=None, device=None):
+    """Particle-carried second phase inside the perturbation sphere; returns
+    (thermal, info of the last solve). ``device`` defaults to the card."""
+    from justrelax_tpu_torch.models.diffusion2d_multiphase import face_ratios
+    from justrelax_tpu_torch.particles.particles3d import (
+        init_particles_3d,
+        phase_ratios_from_particles_3d,
+    )
+
+    device = resolve_device(device)
+    ni = (n, n, n)
+    geometry, thermal, thermal_bc, (xc, yc, zc, r) = _setup_thermal(
+        ni, (l, l, l), dtype, device)
+    f = dict(dtype=thermal.T.dtype, device=device)
+    material = MaterialStack.make([
+        Material(rho0=3.0e3, alpha=1.5e-5, Cp=1.2e3, k=3.0, H_r=1.0e-6),
+        Material(rho0=3.3e3, alpha=1.5e-5, Cp=1.2e3, k=3.0, H_r=1.0e-7),
+    ], **f)
+    # the reference's 3D multiphase test keeps thermal.H = 1e-6 AND the
+    # per-phase radioactive heat: both enter the source
+
+    particles = init_particles_3d(geometry, nxcell=12, max_xcell=12, min_xcell=1, **f)
+    phase = torch.where(
+        (particles.px - xc) ** 2 + (particles.py - yc) ** 2 + (particles.pz - zc) ** 2
+        <= r**2, 1.0, 0.0).to(f["dtype"])
+    pr_c, _ = phase_ratios_from_particles_3d(particles, phase, 2, geometry)
+    pr_faces = tuple(face_ratios(pr_c, a) for a in range(3))
+
+    P = torch.zeros(ni, **f)
+    info = None
+    for _ in range(int(math.ceil(ttot / dt))):
+        pt_thermal = PTThermalCoeffs.from_material(
+            material, thermal.T[1:-1, 1:-1, 1:-1], P, dt, geometry.di, geometry.li,
+            phase_ratios=pr_c, eps=1.0e-5, CFL=0.95 / math.sqrt(3.0),
+        )
+        # plain path by contract: 3D, and the material path
+        thermal, info = heatdiffusion_PT(
+            thermal, pt_thermal, thermal_bc, dt, geometry,
+            material=material, P=P, phase_ratios=pr_c, phase_ratios_faces=pr_faces,
+            iter_max=10_000, nout=100, use_kernel=False,
         )
     return thermal, info

@@ -829,3 +829,62 @@ def test_dyrel_graph_replay_matches_eager_chunk(cuda, linear):
     torch.cuda.synchronize()
     for k, a, b in zip(DYREL_CARRIED, fields, eager):
         assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("ndim,n,mx", [(2, 16, 8), (3, 6, 8)])
+def test_particle_ops_card_match_cpu(cuda, ndim, n, mx):
+    """Every particle operation on the card against the CPU from the same
+    numpy inputs (phase 34 at a small size): selections, gathers and
+    elementwise arithmetic bit for bit, the sums and scatter-adds within
+    PARTICLE_TOL of each field's max; the x-slab move equals the whole-grid
+    move on the card."""
+    from chip_smoke import PARTICLE_BIT_EQUAL, PARTICLE_TOL, particle_diffs, particle_ops, \
+        particles_numpy
+
+    case = particles_numpy(ndim, n, mx)
+    card, cpu = particle_ops(case, cuda), particle_ops(case, torch.device("cpu"))
+    for name, (eq, rel) in particle_diffs(card, cpu).items():
+        if name in PARTICLE_BIT_EQUAL:
+            assert eq, name
+        else:
+            assert rel <= PARTICLE_TOL, (name, rel)
+    assert all(torch.equal(a, b) for a, b in zip(card["move"], card["move_slab"]))
+    assert card["starved"] > 0 and card["min_count"] >= case["min_xcell"]
+
+
+def test_particle_models_route_on_the_card(cuda):
+    """The particle models' solves take their routes on the card with
+    use_kernel left to its default: Van Keken's Stokes solve through B2/B3,
+    the rising blob's through B7, the layered model's thermal solve through
+    B5 (its Stokes solve is plain by contract)."""
+    from chip_smoke import counts, reset_counts
+    from justrelax_tpu_torch.models import layered_convection_nondim, rising_blob3d, vankeken
+
+    runs = {
+        "stokes_vep_chunk": lambda: vankeken.run(nx=16, ny=16, nt=1, nxcell=8, max_xcell=16,
+                                                 min_xcell=4),
+        "stokes3d_chunk": lambda: rising_blob3d.run(n=8, nt=1),
+        "thermal_chunk": lambda: layered_convection_nondim.run(nx=8, ny=8, nt=1, nxcell=4,
+                                                               max_xcell=8, min_xcell=2),
+    }
+    for kernel, run in runs.items():
+        reset_counts()
+        run()
+        c = counts()
+        assert c.pop(kernel) > 0, kernel
+        assert sum(c.values()) == 0, (kernel, c)
+
+
+@pytest.mark.slow
+def test_layered_convection3d_golden_f64(cuda):
+    """tests/test_layered_convection3d.py's golden on the card through the
+    default entry point (12³, 2 steps; plain by contract, no kernel
+    launched): phase 33's case, moved here for its time (the serial 3D VEP
+    iteration's host dispatch, 6–8 min on an H100)."""
+    from chip_smoke import golden_result, particle_golden_cases
+
+    run, checks = particle_golden_cases()["layered_convection3d"]
+    g = golden_result("layered_convection3d", run)
+    for key, ok in checks(g):
+        assert ok, (key, g)
+    assert g["other_launches"] == 0
