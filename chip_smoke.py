@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-(``--golden LABEL`` runs one of phase 28's, 30's or 33's goldens and prints
-its result: phases 28, 30 and 33 start three each that way, in processes of
-their own.)
+(``--golden LABEL`` runs one of phase 28's, 30's, 33's or 36's goldens and
+prints its result: phases 28, 30 and 33 start three each that way, and
+phase 36 four, in processes of their own.)
 
 Run from the root of a checkout. Phases, each printing JSON lines:
 
@@ -189,8 +189,10 @@ Run from the root of a checkout. Phases, each printing JSON lines:
 32. main_path_dyrel: the DYREL band at 1024^2 f32, one step, at most
               20 000 DR iterations (PROD); wall time, iterations, err, the
               graph's capture time, ms per DR iteration by CUDA events
-              around the replays, and on the solve's final state the graph's
-              and the eager chunk's ms per iteration and the operations one
+              around the replays, and on the solve's final state the
+              graphs', the chunk captured as one graph's (the capture before
+              GRAPH_BLOCK) and the eager chunk's ms per iteration and the
+              operations one
               eager DR iteration launches (torch.profiler), beside the bytes
               bound (dyrel_words); dyrel_per_iteration: the same at 32^2
               f64, the goldens' grid.
@@ -227,6 +229,44 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               the card; peak device memory; the kernel launches; the active
               particles before and after and the smallest count per cell
               after injection (>= min_xcell).
+36. golden_variational: the variational solvers (each chunk's core
+              iterations a CUDA graph replay) and the free-surface models
+              through their default entry points, f64, at the JAX tests'
+              sizes and on their assertions: phi = 1 against solve_vep at
+              16^2 and against solve_ve_3d at 8^3, the sticky-air blob at
+              32^2 and sphere at 12x12x16, volcano2d at 16x8 over 2 steps
+              and its DYREL twin, the Rayleigh-Taylor overturn, the plume
+              (plain solve_vep by contract) and the variational plume at
+              32^2, Crameri's relaxation at 32^2 over 4 steps, the 2D
+              subduction at 64x24 and the 3D subduction at 48x8x16 (the
+              plume, Crameri and the two subductions run as the slow cuda
+              test test_variational_golden_f64 for their time,
+              VARIATIONAL_MOVED); each with its graph captures and replays
+              by solve class and no launch of a kernel of the port. The
+              volcanoes, the overturn and the variational plume run in
+              processes of their own, started beside phase 28's (whose
+              processes wait on the host) and collected before phase 29
+              takes its timings.
+37. variational_graph_parity: a variational chunk's graph replay against
+              the chunk run eagerly from the same mid-solve sticky-air state,
+              2D at 64^2 with and without the free-surface term and 3D at
+              16^3, bit for bit; then variational_card_vs_cpu:
+              solve_variational at 16^2 (both), solve_variational_3d at 8^3
+              and the masked solve_vep_3d at 8^3 on the card against the CPU
+              (equal iterations, fields within 1e-10).
+38. main_path_variational: one f32 step of the Rayleigh-Taylor overturn at
+              1024^2 (its own particles, nout and iter_min; Stokes cap
+              10 000) and of the 3D subduction at 252x96x84 (Stokes cap one
+              nout, 1 000) through the default entry points: wall time split
+              by CUDA events into the Stokes solve (iterations, err,
+              converged; the graph's capture seconds and ms per replayed
+              iteration), the particle operations (2D), the thermal solve
+              (3D) and the rest; on the final state the graphed and eager ms
+              per variational iteration over one captured block (replay bit
+              for bit against the eager iterations) and the operations one
+              eager iteration launches (torch.profiler), and the eager ms per
+              masked 3D VEP iteration, beside the bytes bound
+              (variational_words, masked_vep3d_words); peak device memory.
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
 the run's own inputs (hopper_stokes_vep.vep_chunk_words and
@@ -237,7 +277,7 @@ fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
 Then the script's seconds (the line "elapsed"), the kernels line (each
 entry with its launches on the main path it
-was first ported for, and launches_models: its launches in phases 28-35),
+was first ported for, and launches_models: its launches in phases 28-38),
 and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
 printing any result. With --parent DIR (a parent commit's
@@ -298,6 +338,14 @@ from justrelax_tpu_torch.models import (  # noqa: E402
     thermal_stresses_dyrel,
     vankeken,
 )
+from justrelax_tpu_torch.models import (  # noqa: E402
+    crameri2d,
+    rayleigh_taylor,
+    subduction2d,
+    subduction3d,
+    volcano2d,
+    volcano2d_dyrel,
+)
 from justrelax_tpu_torch.models.shearband import _circle_phase_ratios  # noqa: E402
 from justrelax_tpu_torch.ops import _cuda_build  # noqa: E402
 from justrelax_tpu_torch.ops import hopper_stokes as hs  # noqa: E402
@@ -330,7 +378,13 @@ from justrelax_tpu_torch.ops.stokes3d_vep_canvas import (  # noqa: E402
     vep3d_canvas_consts,
     vep3d_chunk_canvas,
 )
+from justrelax_tpu_torch.ops.rock_ratio import (  # noqa: E402
+    RockRatio,
+    update_rock_ratio,
+    update_rock_ratio_3d,
+)
 from justrelax_tpu_torch.rheology.phases import phase_ratios_from_field  # noqa: E402
+from justrelax_tpu_torch.solvers.graphed_chunk import GRAPH_BLOCK, GraphedChunk  # noqa: E402
 from justrelax_tpu_torch.solvers.stokes3d_vep import canvas_chunk_inputs, solve_vep_3d  # noqa: E402
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack  # noqa: E402
 from justrelax_tpu_torch.rheology.viscosity import phase_viscosity  # noqa: E402
@@ -1153,10 +1207,20 @@ def main():
     b6_line, b9_line, bench, tau_edges = run_vep3d(dev, smi, kind)
     b8_line = run_vep3d_chunk(dev, smi, kind, bench, tau_edges)
     r_line = run_window_copy(dev, smi, kind)
-    model_launches = run_models(dev, smi)
+    # phase 36's longest goldens run in processes of their own beside phase
+    # 28's, whose processes wait on the host's dispatch
+    var_procs = start_goldens(VARIATIONAL_APART)
+    var_apart = {}
+    try:
+        model_launches = run_models(dev, smi, before_29=lambda: var_apart.update(
+            finish_goldens(var_procs, "golden_variational")))
+    finally:
+        stop_processes(var_procs)
     for kernel, by_phase in run_dyrel(dev, smi, kind).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
     for kernel, by_phase in run_particles(dev, smi).items():
+        model_launches.setdefault(kernel, {}).update(by_phase)
+    for kernel, by_phase in run_variational(dev, smi, kind, var_apart).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
     lines = [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line, b8_line, r_line]
     per_iter = launches_per_iteration(dev)
@@ -2775,7 +2839,7 @@ def golden_result(label, fn):
     kernel = MODEL_KERNEL[label]
     g.update(seconds=time.perf_counter() - t0, kernel=kernel,
              launches=None if kernel is None else c[kernel],
-             other_launches=sum(v for k, v in c.items() if k != kernel))
+             other_launches=sum(v for k, v in c.items() if k != kernel), all_launches=c)
     return g
 
 
@@ -2896,7 +2960,8 @@ def golden_apart(label):
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     for mod in (hv, hs, ht, h3):
         mod._library()  # built by the phase's process
-    cases = {**golden_cases(), **dyrel_golden_cases(), **particle_golden_cases()}
+    cases = {**golden_cases(), **dyrel_golden_cases(), **particle_golden_cases(),
+             **variational_golden_cases()}
     print(json.dumps(golden_result(label, cases[label][0])), flush=True)
 
 
@@ -2939,8 +3004,9 @@ def solves_summary(calls):
     return out
 
 
-def run_models(dev, smi):
-    """Phases 27-29; returns the launches of each kernel per model phase."""
+def run_models(dev, smi, before_29=None):
+    """Phases 27-29; returns the launches of each kernel per model phase.
+    ``before_29`` is called between phases 28 and 29."""
     f64, f32 = torch.float64, torch.float32
     launches = {}
 
@@ -2969,35 +3035,10 @@ def run_models(dev, smi):
     # host's dispatch of plain PyTorch iterations holds longest run in
     # processes of their own beside the others (the card has room to spare;
     # phase 29's timings start after every one has ended)
-    cases = golden_cases()
-    procs = {label: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--golden",
-                                      label], cwd=ROOT, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True)
-             for label in GOLDENS_APART}
-    try:
-        results = {label: golden_result(label, cases[label][0])
-                   for label in cases if label not in procs}
-        for label, proc in procs.items():
-            out, err = proc.communicate(timeout=900)
-            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
-            check(proc.returncode == 0 and lines,
-                  f"golden_models {label}: its process failed ({proc.returncode}):\n{err[-3000:]}")
-            results[label] = json.loads(lines[-1])
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for label, (_, checks) in cases.items():
-        g = results[label]
-        kernel = g["kernel"]
-        emit("golden_models", case=label, nvidia_smi=smi, apart=label in procs, **g)
-        for key, ok in checks(g):
-            check(ok, f"golden_models {label}: {key}")
-        if kernel is not None:
-            launches.setdefault(kernel, {})[f"golden_{label}"] = g["launches"]
-            check(g["launches"] > 0, f"golden_models {label}: {kernel} was not launched")
-        check(g["other_launches"] == 0, f"golden_models {label}: another kernel launched")
+    run_golden_set(golden_cases(), "golden_models", smi, launches, apart=GOLDENS_APART)
+
+    if before_29 is not None:
+        before_29()
 
     # ---- 29. the new paths at production grids, f32, through the default
     # entry points: wall time and its split (CUDA events around the kernel's
@@ -3278,14 +3319,14 @@ def dyrel_golden_cases():
 @contextlib.contextmanager
 def dyrel_chunks():
     """``_DyrelSolve.run_chunk`` wrapped: each call's solve object, the
-    graph's capture time (host clock around the capture, synchronized) and
+    graphs' capture time (host clock around the capture, synchronized) and
     CUDA events around each replay. Yields a dict with ``solves`` (the
     objects, in order), ``capture_s`` and ``replays`` ((start, end, nout))."""
     rec = {"solves": [], "capture_s": [], "replays": []}
     orig = solver_dyrel._DyrelSolve.run_chunk
 
     def shim(self, nout):
-        if self.graph is None:
+        if self.graphs is None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             self.capture(nout)
@@ -3294,7 +3335,7 @@ def dyrel_chunks():
             rec["solves"].append(self)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        self.graph.replay()
+        self.replay()
         b.record()
         rec["replays"].append((a, b, nout))
 
@@ -3311,11 +3352,12 @@ def dyrel_carried(s):
 
 def dyrel_iteration_times(s, nout, reps=3):
     """ms per DR iteration on the state of the solve object ``s``: its
-    graph's replay and its chunk run eagerly, by CUDA events, each from the
-    same state (the carried fields restored between runs); whether the
-    replay leaves the carried fields bit-equal to the eager chunk; and the
-    kernels one eager DR iteration launches on the card. The state is left
-    as found."""
+    graphs' replay (``GRAPH_BLOCK``-iteration blocks and the rest), the
+    chunk captured here as one graph (as before the blocks), and the chunk
+    run eagerly, by CUDA events, each from the same state (the carried
+    fields restored between runs); whether each replay leaves the carried
+    fields bit-equal to the eager chunk; and the kernels one eager DR
+    iteration launches on the card. The state is left as found."""
     saved = [t.clone() for t in dyrel_carried(s)]
 
     def restore():
@@ -3335,15 +3377,21 @@ def dyrel_iteration_times(s, nout, reps=3):
             out.append(a.elapsed_time(b) / nout)
         return out, [t.clone() for t in dyrel_carried(s)]
 
-    graph_ms, after_graph = timed(s.graph.replay)
+    graph_ms, after_graph = timed(s.replay)
+    restore()
+    whole = s._capture_one(nout)
+    whole_ms, after_whole = timed(whole.replay)
+    del whole
     eager_ms, after_eager = timed(lambda: s.chunk(nout))
     equal = all(torch.equal(a, b) for a, b in zip(after_graph, after_eager))
+    equal_whole = all(torch.equal(a, b) for a, b in zip(after_whole, after_eager))
     moved = any(not torch.equal(a, b) for a, b in zip(after_eager, saved))
     restore()
     launches = dyrel_launches_per_iteration(s)
     restore()
-    return dict(graph_ms_per_iter=graph_ms, eager_ms_per_iter=eager_ms,
-                replay_bit_equal=equal, replay_moved=moved, **launches)
+    return dict(graph_ms_per_iter=graph_ms, whole_graph_ms_per_iter=whole_ms,
+                eager_ms_per_iter=eager_ms, replay_bit_equal=equal and equal_whole,
+                replay_moved=moved, **launches)
 
 
 def dyrel_launches_per_iteration(s, k=5):
@@ -3425,35 +3473,7 @@ def run_dyrel(dev, smi, kind):
     launches = {}
 
     # ---- 30. DYREL goldens through the default entry points, f64
-    cases = dyrel_golden_cases()
-    procs = {label: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--golden",
-                                      label], cwd=ROOT, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True)
-             for label in DYREL_APART}
-    try:
-        results = {label: golden_result(label, cases[label][0])
-                   for label in cases if label not in procs}
-        for label, proc in procs.items():
-            out, err = proc.communicate(timeout=900)
-            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
-            check(proc.returncode == 0 and lines,
-                  f"golden_dyrel {label}: its process failed ({proc.returncode}):\n{err[-3000:]}")
-            results[label] = json.loads(lines[-1])
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for label, (_, checks) in cases.items():
-        g = results[label]
-        kernel = g["kernel"]
-        emit("golden_dyrel", case=label, nvidia_smi=smi, apart=label in procs, **g)
-        for key, ok in checks(g):
-            check(ok, f"golden_dyrel {label}: {key}")
-        if kernel is not None:
-            launches.setdefault(kernel, {})[f"golden_{label}"] = g["launches"]
-            check(g["launches"] > 0, f"golden_dyrel {label}: {kernel} was not launched")
-        check(g["other_launches"] == 0, f"golden_dyrel {label}: another kernel launched")
+    run_golden_set(dyrel_golden_cases(), "golden_dyrel", smi, launches, apart=DYREL_APART)
 
     # ---- 31. the graph against the eager chunk, bit for bit, from the same
     # mid-solve state at 64^2 f64 (the band: after a step, its old stresses
@@ -3478,7 +3498,7 @@ def run_dyrel(dev, smi, kind):
         eager = [t.clone() for t in dyrel_carried(s)]
         for t, v in zip(dyrel_carried(s), saved):
             t.copy_(v)
-        s.graph.replay()
+        s.replay()
         torch.cuda.synchronize()
         diff = {k: float((a - b).abs().max()) for k, a, b in zip(DYREL_CARRIED, dyrel_carried(s),
                                                                    eager)}
@@ -3971,35 +3991,7 @@ def run_particles(dev, smi):
     cases = {k: v for k, v in particle_golden_cases().items() if k not in PARTICLES_MOVED}
     emit("golden_particles_moved", cases=PARTICLES_MOVED,
          test="tests/test_torch_cuda.py::test_layered_convection3d_golden_f64 (slow, cuda)")
-    procs = {label: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--golden",
-                                      label], cwd=ROOT, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True)
-             for label in PARTICLES_APART}
-    try:
-        results = {label: golden_result(label, cases[label][0])
-                   for label in cases if label not in procs}
-        for label, proc in procs.items():
-            out, err = proc.communicate(timeout=900)
-            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
-            check(proc.returncode == 0 and lines,
-                  f"golden_particles {label}: its process failed ({proc.returncode}):\n"
-                  f"{err[-3000:]}")
-            results[label] = json.loads(lines[-1])
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for label, (_, checks) in cases.items():
-        g = results[label]
-        kernel = g["kernel"]
-        emit("golden_particles", case=label, nvidia_smi=smi, apart=label in procs, **g)
-        for key, ok in checks(g):
-            check(ok, f"golden_particles {label}: {key}")
-        if kernel is not None:
-            launches.setdefault(kernel, {})[f"golden_{label}"] = g["launches"]
-            check(g["launches"] > 0, f"golden_particles {label}: {kernel} was not launched")
-        check(g["other_launches"] == 0, f"golden_particles {label}: another kernel launched")
+    run_golden_set(cases, "golden_particles", smi, launches, apart=PARTICLES_APART)
 
     # ---- 34. each particle operation on the card against the CPU, f64, from
     # the same numpy inputs
@@ -4072,6 +4064,778 @@ def run_particles(dev, smi):
         del out, particles, stokes
         torch.cuda.empty_cache()
     return launches
+
+
+# ---- the variational solvers: phases 36-38 ---------------------------------
+# every variational golden runs plain PyTorch (the variational chunks as CUDA
+# graph replays) and no kernel of the port
+VARIATIONAL_LABELS = (
+    "variational_phi_one", "variational_sticky_air", "variational3d_phi_one",
+    "variational3d_sticky_air", "volcano2d", "volcano2d_dyrel", "rayleigh_taylor",
+    "run_plume", "run_plume_variational", "crameri2d", "subduction2d", "subduction3d")
+MODEL_KERNEL.update({label: None for label in VARIATIONAL_LABELS})
+# phase 36's goldens in processes of their own: the longest; the overturn's
+# two solves (48 000 iterations) take 0.7 ms per graphed iteration alone,
+# ~500 small kernels each
+VARIATIONAL_APART = ("volcano2d", "volcano2d_dyrel", "run_plume_variational",
+                     "rayleigh_taylor")
+# the goldens that run as slow cuda tests instead (tests/test_torch_cuda.py::
+# test_variational_golden_f64), for their time on an H100 (PERF.md): the 3D
+# subduction's masked 3D VEP solves and the plume's solve_vep, plain by
+# contract, dispatch each of tens of thousands of iterations from the host;
+# the 2D subduction's two solves run to their 80 000 cap; Crameri's four
+# solves (130 000 graphed iterations) took 293 s as a fifth process and put
+# the script past 800 s
+VARIATIONAL_MOVED = ("subduction3d", "run_plume", "subduction2d", "crameri2d")
+# phase 38's two production steps and their cuts: one step each; the 3D
+# subduction's Stokes cap cut to one nout (1 000; the model's 60 000), set
+# on its solve_vep_3d calls
+PROD["rayleigh_taylor"] = dict(nx=1024, ny=1024, nt=1, iter_max=10_000)
+PROD["subduction3d"] = dict(nx=252, ny=96, nz=84, nt=1)
+SUBDUCTION3D_STOKES_CAP = 1_000
+CM_YR = 1.0e-2 / (365.25 * 24 * 3600)
+KYR = 1.0e3 * 365.25 * 24 * 3600
+
+
+@contextlib.contextmanager
+def variational_chunks():
+    """``GraphedChunk.run_chunk`` wrapped: each solve object with graphs,
+    the capture time (host clock, synchronized) and CUDA events around each
+    chunk's replays, each under its solve's class (``_VariationalSolve``,
+    ``_Variational3DSolve``, ``_DyrelSolve``). Yields a dict with
+    ``solves``, ``capture_s`` ((class, s)) and ``replays`` ((start, end,
+    iterations, graphs, class))."""
+    rec = {"solves": [], "capture_s": [], "replays": []}
+    orig = GraphedChunk.run_chunk
+
+    def shim(self, n):
+        if n == 0:
+            return
+        if self.graphs is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.capture(n)
+            torch.cuda.synchronize()
+            rec["capture_s"].append((type(self).__name__, time.perf_counter() - t0))
+            rec["solves"].append(self)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        self.replay()
+        b.record()
+        rec["replays"].append((a, b, n, len(self.graphs), type(self).__name__))
+
+    GraphedChunk.run_chunk = shim
+    try:
+        yield rec
+    finally:
+        GraphedChunk.run_chunk = orig
+
+
+def replays_summary(rec):
+    """``{"graphs": {solve class: ...}}``: for each class of solve that
+    captured graphs, its captures, chunks replayed (and the graph launches
+    they made), the iterations replayed and the ms per replayed iteration by
+    the events around the replays."""
+    torch.cuda.synchronize()
+    out = {}
+    for name in dict.fromkeys(c for c, _ in rec["capture_s"]):
+        replays = [r for r in rec["replays"] if r[4] == name]
+        iters = sum(r[2] for r in replays)
+        ms = sum(r[0].elapsed_time(r[1]) for r in replays)
+        out[name] = dict(graph_captures=sum(c == name for c, _ in rec["capture_s"]),
+                         capture_s=[t for c, t in rec["capture_s"] if c == name],
+                         graph_replays=len(replays), graph_launches=sum(r[3] for r in replays),
+                         iterations_replayed=iters,
+                         graph_ms_per_iter_solve=ms / iters if iters else None)
+    return {"graphs": out}
+
+
+def blob_setup(n, dtype, dev, free_surface=False):
+    """tests/test_variational.py's sticky-air blob at n²: (state, coeffs,
+    geometry, BCs, materials, ratios, rock ratio, dt, kwargs)."""
+    geometry = Geometry((n, n), (1.0, 1.0))
+    st = StokesState.make((n, n), dtype=dtype, device=dev)
+    f = dict(dtype=st.P.dtype, device=st.P.device)
+    X, Y = geometry.cell_centers_mesh()
+    phase = np.zeros((n, n), dtype=int)
+    phase[Y > 0.75] = 1
+    phase[(X - 0.5) ** 2 + (Y - 0.4) ** 2 <= 0.1**2] = 2
+    pr = phase_ratios_from_field(torch.as_tensor(phase, device=f["device"]), 3, dtype=f["dtype"])
+    phi = update_rock_ratio(pr, air_phase=1)
+    mat = MaterialStack.make([Material(rho0=1.0, eta0=1.0, gravity=10.0),
+                              Material(rho0=0.0, eta0=1.0e-3, gravity=10.0),
+                              Material(rho0=2.0, eta0=1.0, gravity=10.0)], **f)
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, eps_rel=1e-6, CFL=1.0 / math.sqrt(2.1))
+    bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True))
+    kw = dict(iter_max=30_000, nout=500)
+    dt = math.inf
+    if free_surface:
+        dt = 0.1
+        kw.update(free_surface=True, mask_step_floor=0.3, air_phase=1)
+    return st, pt, geometry, bc, mat, pr, phi, dt, kw, phase
+
+
+def phi_one_setup(n, dtype, dev):
+    """tests/test_variational.py's φ ≡ 1 set-up at n²: one phase, ρ
+    perturbed through T."""
+    geometry = Geometry((n, n), (1.0, 1.0))
+    st = StokesState.make((n, n), dtype=dtype, device=dev)
+    f = dict(dtype=st.P.dtype, device=st.P.device)
+    ones = functools.partial(torch.ones, **f)
+    phi = RockRatio(center=ones((n, n)), vertex=ones((n + 1, n + 1)), Vx=ones((n + 1, n)),
+                    Vy=ones((n, n + 1)))
+    X, Y = geometry.cell_centers_mesh()
+    T = -torch.as_tensor(0.1 * np.sin(np.pi * X) * np.sin(np.pi * Y), **f)
+    mat = MaterialStack.make([Material(rho0=1.0, alpha=1.0, T0=0.0, eta0=1.0, gravity=1.0)], **f)
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=1.0 / math.sqrt(2.1))
+    bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True))
+    return st, pt, geometry, bc, mat, ones((n, n, 1)), ones((n + 1, n + 1, 1)), phi, T
+
+
+def sphere_setup(ni, dtype, dev, air_z=1.0, lz=4.0 / 3.0):
+    """tests/test_variational3d.py's sticky-air sphere: (state, coeffs,
+    geometry, BCs, ρg, G, K, rock ratio, the cell phases)."""
+    geometry = Geometry(ni, (1.0, 1.0, lz))
+    st = StokesState.make(ni, dtype=dtype, device=dev)
+    f = dict(dtype=st.P.dtype, device=st.P.device)
+    x, y, z = geometry.cell_centers_mesh()
+    air = z > air_z
+    sphere = (x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2 < 0.2**2
+    phases = np.where(air, 2, np.where(sphere, 1, 0))
+    pr = phase_ratios_from_field(torch.as_tensor(phases, device=f["device"]), 3, dtype=f["dtype"])
+    phi = update_rock_ratio_3d(pr, air_phase=2)
+    st = st.replace(viscosity=st.viscosity.replace(
+        eta=torch.as_tensor(np.where(sphere, 10.0, 1.0), **f)))
+    rho = torch.as_tensor(np.where(air, 0.0, np.where(sphere, 2.0, 1.0)), **f)
+    z0 = torch.zeros(ni, **f)
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=1.0 / math.sqrt(3.0), eps_rel=1.0e-6)
+    bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True,
+                                                    front=True, back=True))
+    return (st, pt, geometry, bc, (z0, z0, rho), torch.full(ni, math.inf, **f),
+            torch.tensor(math.inf, **f), phi, phases)
+
+
+def masked_vep3d_setup(n, dtype, dev):
+    """The masked 3D VEP solve's set-up of tests/test_torch_variational3d.py
+    at n³: a plastic crust, a stiff sphere and sticky air, elastic;
+    (solve_vep_3d's arguments, the rock ratio)."""
+    ni = (n, n, n)
+    geometry = Geometry(ni, (1.0, 1.0, 1.0))
+    st = StokesState.make(ni, dtype=dtype, device=dev)
+    f = dict(dtype=st.P.dtype, device=st.P.device)
+    x, y, z = geometry.cell_centers_mesh()
+    sphere = (x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.4) ** 2 < 0.3**2
+    phases = np.where(z > 0.7, 2, np.where(sphere, 1, 0))
+    mat = MaterialStack.make([
+        Material(rho0=1.0, eta0=1.0, gravity=1.0, G=1.0, Kb=10.0, is_plastic=1.0, C=0.05,
+                 friction_angle=30.0, eta_reg=1.0e-2),
+        Material(rho0=2.0, eta0=10.0, gravity=1.0, G=1.0, Kb=10.0),
+        Material(rho0=0.0, eta0=1.0e-2, gravity=1.0, G=1.0, Kb=10.0)], **f)
+    pr = phase_ratios_from_field(torch.as_tensor(phases, device=f["device"]), 3, dtype=f["dtype"])
+    st = st.replace(viscosity=st.viscosity.replace(
+        eta=torch.as_tensor(np.choose(phases, [1.0, 10.0, 1.0e-2]), **f)))
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=0.9 / math.sqrt(3.1), eps_rel=1.0e-6)
+    bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True,
+                                                    front=True, back=True))
+    args = (st, pt, geometry, bc, mat, pr.center, (pr.edge_yz, pr.edge_xz, pr.edge_xy), 0.5)
+    return args, update_rock_ratio_3d(pr, air_phase=2)
+
+
+def variational_golden_cases():
+    """Phase 36's goldens: label → (run, checks), each through the default
+    entry points on the card in f64 at its JAX test's size, each check that
+    test's assertion; each reports the variational graph's captures and
+    replays."""
+    from justrelax_tpu_torch.ops.rock_ratio import valid_masks, valid_masks_3d
+    from justrelax_tpu_torch.solvers.stokes2d_variational import solve_variational
+    from justrelax_tpu_torch.solvers.stokes3d_variational import solve_variational_3d
+
+    f64 = torch.float64
+
+    def graphed(fn):
+        def run():
+            with variational_chunks() as rec:
+                g = fn()
+            g.update(replays_summary(rec))
+            return g
+        return run
+
+    def g_phi_one():
+        st, pt, geometry, bc, mat, prc, prv, phi, T = phi_one_setup(16, f64, None)
+        sv, iv = solve_variational(st, pt, geometry, bc, mat, prc, prv, phi, math.inf, T=T,
+                                   iter_max=4000, nout=200)
+        sp, ip = solver_vep.solve_vep(st, pt, geometry, bc, mat, prc, prv, math.inf, T=T,
+                                      iter_max=4000, nout=200, use_kernel=False)
+        return dict(iters=int(iv.iters), iters_vep=int(ip.iters),
+                    Vx_diff=float((sv.V.Vx - sp.V.Vx).abs().max()),
+                    P_diff=float((sv.P - sp.P).abs().max()))
+
+    def g_sticky_air():
+        st, pt, geometry, bc, mat, pr, phi, dt, kw, phase = blob_setup(32, f64, None)
+        s, info = solve_variational(st, pt, geometry, bc, mat, pr.center, pr.vertex, phi, dt,
+                                    **kw)
+        vm = valid_masks(phi)
+        Vy_in = s.V.Vy[1:-1, 1:-1]
+        blob = torch.as_tensor(phase[:, :-1] == 2, device=Vy_in.device)
+        return dict(iters=int(info.iters), err=float(info.err),
+                    air_Vy_max=float(Vy_in[~vm.vy[:, 1:-1]].abs().max()),
+                    blob_Vy_mean=float(Vy_in[blob].mean()))
+
+    def g_phi_one_3d():
+        ni = (8, 8, 8)
+        geometry = Geometry(ni, (1.0, 1.0, 1.0))
+        rng = np.random.default_rng(1)
+        st = StokesState.make(ni, dtype=f64)
+        f = dict(dtype=f64, device=st.P.device)
+        st = st.replace(viscosity=st.viscosity.replace(
+            eta=torch.as_tensor(np.exp(rng.normal(size=ni) * 0.3), **f)))
+        rho = torch.as_tensor(1.0 + 0.1 * rng.normal(size=ni), **f)
+        z0 = torch.zeros(ni, **f)
+        pr = phase_ratios_from_field(torch.zeros(ni, dtype=torch.long, device=f["device"]), 2)
+        phi = update_rock_ratio_3d(pr, air_phase=1)
+        pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=1.0 / math.sqrt(3.0),
+                                 eps_rel=1e-30, eps_abs=1e-30)
+        bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True,
+                                                        bot=True, front=True, back=True))
+        G, K = torch.full(ni, math.inf, **f), torch.tensor(math.inf, **f)
+        sr, _ = solver_ve3d.solve_ve_3d(st, pt, geometry, bc, (z0, z0, rho), G, K, math.inf,
+                                        iter_max=200, nout=100, use_kernel=False)
+        sv, info = solve_variational_3d(st, pt, geometry, bc, (z0, z0, rho), G, K, phi,
+                                        math.inf, iter_max=200, nout=100)
+        return dict(iters=int(info.iters), Vz_diff=float((sv.V.Vz - sr.V.Vz).abs().max()),
+                    P_diff=float((sv.P - sr.P).abs().max()))
+
+    def g_sticky_air_3d():
+        st, pt, geometry, bc, rho_g, G, K, phi, _ = sphere_setup((12, 12, 16), f64, None)
+        s, info = solve_variational_3d(st, pt, geometry, bc, rho_g, G, K, phi, math.inf,
+                                       iter_max=20_000, nout=500)
+        vm = valid_masks_3d(phi)
+        Vz = s.V.Vz
+        return dict(iters=int(info.iters), err=float(info.err), Vz_666=float(Vz[6, 6, 6]),
+                    air_Vz_max=float(Vz[1:-1, 1:-1, 1:-1][~vm.vz[:, :, 1:-1]].abs().max()))
+
+    def g_volcano():
+        st, th, par, chain, phi_m, info = volcano2d.run(nx=16, ny=8, nt=2, dtype=f64)
+        Vy, y, T = st.V.Vy, chain.y, th.T
+        px = par.px[par.active]
+        return dict(iters=int(info.iters), err=float(info.err),
+                    finite=bool(torch.isfinite(Vy).all() and torch.isfinite(y).all()),
+                    Vy_max=float(Vy.abs().max()), y_min=float(y.min()), y_max=float(y.max()),
+                    y_abs_max=float(y.abs().max()), phi_m_max=float(phi_m.max()),
+                    T_min=float(T.min()), T_max=float(T.max()),
+                    active=int(par.active.sum()), px_min=float(px.min()),
+                    px_max=float(px.max()), tauII_max=float(st.tau.II.max()),
+                    upwelling=float(Vy[6:12, 4:6].mean()))
+
+    def g_volcano_dyrel():
+        nx, ny = 16, 8
+        st, th, par, phi_m, info, aux = volcano2d_dyrel.run(nx=nx, ny=ny, nt=2, dtype=f64)
+        geometry = Geometry((nx, ny), (30.0e3, 25.0e3), origin=(0.0, -20.0e3))
+        inv_dx, inv_dy = 1.0 / geometry.di[0], 1.0 / geometry.di[1]
+        tyy, txy, P, rho_gy = st.tau.yy, st.tau.xy, st.P, aux["rho_gy"]
+        Ry = ((tyy[:, 1:] - tyy[:, :-1]) * inv_dy + (txy[1:, 1:-1] - txy[:-1, 1:-1]) * inv_dx
+              - (P[:, 1:] - P[:, :-1]) * inv_dy - 0.5 * (rho_gy[:, 1:] + rho_gy[:, :-1]))
+        Vy = st.V.Vy
+        cmyr = 100.0 * 365.25 * 24 * 3600
+        return dict(iters=int(info.iters), err=float(info.err),
+                    rms=float(torch.linalg.norm(Ry) / math.sqrt(Ry.numel())),
+                    scale=float(rho_gy.abs().mean()), Vy_max_cmyr=float(Vy.max()) * cmyr,
+                    Vy_min_cmyr=float(Vy.min()) * cmyr, T_min=float(th.T.min()),
+                    T_max=float(th.T.max()), phi_m_max=float(phi_m.max()),
+                    finite=bool(torch.isfinite(st.tau.II).all()),
+                    upwelling=float(Vy[6:12, 4:6].mean()))
+
+    def g_rt():
+        st, par, ph, info, vmax, t = rayleigh_taylor.run(nx=32, ny=32, nt=2, dtype=f64)
+        a = par.active
+        counts = [int(((ph == k) & a).sum()) for k in range(3)]
+        return dict(iters=int(info.iters), err=float(info.err), vmax=vmax, counts=counts,
+                    P_max=float(st.P.max()))
+
+    def g_plume():
+        st, par, ph, info, vmax, t = rayleigh_taylor.run_plume(nx=32, ny=32, nt=1, dtype=f64)
+        Vy = st.V.Vy
+        iy = int(torch.argmax(Vy).item()) % Vy.shape[1]
+        return dict(iters=int(info.iters), err=float(info.err), vmax=vmax,
+                    finite=bool(torch.isfinite(Vy).all()), Vx_max=float(st.V.Vx.abs().max()),
+                    iy=iy, ny=Vy.shape[1] - 1)
+
+    def g_plume_var():
+        st, par, ph, info, vmax, t = rayleigh_taylor.run_plume_variational(nx=32, ny=32, nt=2,
+                                                                           dtype=f64)
+        return dict(iters=int(info.iters), err=float(info.err), vmax=vmax,
+                    finite=bool(torch.isfinite(st.V.Vy).all()))
+
+    def g_crameri():
+        st, par, ph, info, h, t = crameri2d.run(nx=32, ny=32, nt=4, dt_max_kyr=5.0, dtype=f64)
+        k = np.polyfit(t, np.log(h), 1)[0]
+        return dict(iters=int(info.iters), err=float(info.err), h=h.tolist(),
+                    t_relax_kyr=-1.0 / k / KYR)
+
+    def g_subduction2d():
+        st, th, info, phases = subduction2d.run(nx=64, ny=24, nt=2, dtype=f64)
+        h = info.err_history.cpu().numpy()
+        valid = h[np.isfinite(h)]
+        Vy = st.V.Vy.cpu().numpy()
+        Vy_c = 0.5 * (Vy[1:-1, :-1] + Vy[1:-1, 1:])
+        slab, air = phases == subduction2d.LITH, phases == subduction2d.AIR
+        return dict(iters=int(info.iters), err=float(info.err), h_first=float(valid[0]),
+                    h_last=float(valid[-1]),
+                    v_cm_yr=float(Vy_c[slab].mean() * 100 * 365.25 * 24 * 3600),
+                    air_max=float(np.abs(Vy_c[air]).max()),
+                    slab_mean_abs=float(np.abs(Vy_c[slab]).mean()),
+                    Vy_max=float(np.abs(Vy).max()), T_mean=float(th.T.mean()))
+
+    def g_subduction3d():
+        st, th, info, phases = subduction3d.run(nx=48, ny=8, nz=16, nt=2, dtype=f64)
+        Vz, Vy = st.V.Vz, st.V.Vy
+        T = th.T[1:-1, 1:-1, 1:-1]
+        return dict(iters=int(info.iters), err=float(info.err),
+                    finite=bool(torch.isfinite(Vz).all()), Vz_min=float(Vz.min()),
+                    Vz_max=float(Vz.max()), Vz_abs_max=float(Vz.abs().max()),
+                    Vy_abs_max=float(Vy.abs().max()), T_min=float(T.min()), T_max=float(T.max()))
+
+    def near(a, b, rtol):
+        return abs(a - b) <= rtol * abs(b)
+
+    cases = {
+        "variational_phi_one": (g_phi_one, lambda g: [
+            ("iters", g["iters"] == g["iters_vep"]),
+            ("vs solve_vep", g["Vx_diff"] <= 1e-12 and g["P_diff"] <= 1e-12)]),
+        "variational_sticky_air": (g_sticky_air, lambda g: [
+            ("err", g["err"] < 1e-4), ("air at rest", g["air_Vy_max"] == 0.0),
+            ("blob sinks", g["blob_Vy_mean"] < 0.0)]),
+        "variational3d_phi_one": (g_phi_one_3d, lambda g: [
+            ("vs solve_ve_3d", g["Vz_diff"] <= 1e-13 and g["P_diff"] <= 1e-13)]),
+        "variational3d_sticky_air": (g_sticky_air_3d, lambda g: [
+            ("iters", g["iters"] < 20_000), ("sphere sinks", g["Vz_666"] < -1.0e-4),
+            ("air at rest", g["air_Vz_max"] == 0.0)]),
+        "volcano2d": (g_volcano, lambda g: [
+            ("err", g["err"] < 1e-4), ("iters", g["iters"] < 100_000), ("finite", g["finite"]),
+            ("topography", g["y_abs_max"] < 2.0e3), ("melt", g["phi_m_max"] > 1e-3),
+            ("T", g["T_min"] > 200.0 and g["T_max"] < 1800.0), ("active", g["active"] > 0),
+            ("in domain", g["px_min"] >= -1.0 and g["px_max"] <= 30.0e3 + 1.0),
+            ("upwelling", g["upwelling"] > 0.0),
+            ("Vy max", near(g["Vy_max"], 1.3946289129149216e-05, 1e-5)),
+            ("y min", near(g["y_min"], -263.5669607300024, 1e-5)),
+            ("y max", near(g["y_max"], 323.05486911291047, 1e-5)),
+            ("phi_m max", near(g["phi_m_max"], 0.7155154808992358, 1e-5)),
+            ("T min", near(g["T_min"], 272.7302522410007, 1e-6)),
+            ("tauII max", near(g["tauII_max"], 18340921.940666106, 1e-5))]),
+        "volcano2d_dyrel": (g_volcano_dyrel, lambda g: [
+            ("err", g["err"] < 1e-4), ("force balance", g["rms"] < 2.0e-4 * g["scale"]),
+            ("Vy max", near(g["Vy_max_cmyr"], 93.196, 2e-2)),
+            ("Vy min", near(g["Vy_min_cmyr"], -94.879, 2e-2)),
+            ("T", g["T_min"] > 250.0 and g["T_max"] <= 1623.0 + 1e-6),
+            ("melt", 0.0 < g["phi_m_max"] <= 1.0), ("finite", g["finite"]),
+            ("upwelling", g["upwelling"] > 0.0)]),
+        "rayleigh_taylor": (g_rt, lambda g: [
+            ("err", math.isfinite(g["err"]) and g["err"] < 1e-2),
+            ("iters", g["iters"] < 50_000), ("growth", g["vmax"][1] > g["vmax"][0] > 0.0),
+            ("phases", g["counts"] == [4069, 3764, 16743]),
+            ("vmax 0", near(g["vmax"][0], 5.318893356245688e-06, 1e-5)),
+            ("vmax 1", near(g["vmax"][1], 1.2842506924408967e-05, 1e-5)),
+            ("P max", near(g["P_max"], 1.5405634554251656e10, 1e-4))]),
+        "run_plume": (g_plume, lambda g: [
+            ("err", math.isfinite(g["err"])), ("finite", g["finite"]),
+            ("vmax", near(g["vmax"][0], 8.132817330884509e-09, 1e-5)),
+            ("Vx max", near(g["Vx_max"], 1.148033224900681e-08, 1e-5)),
+            ("rising", g["iy"] > g["ny"] // 4)]),
+        "run_plume_variational": (g_plume_var, lambda g: [
+            ("err", g["err"] < 1e-4), ("finite", g["finite"]),
+            ("vmax 0", near(g["vmax"][0], 4.9869242014546195e-09, 1e-5)),
+            ("vmax 1", near(g["vmax"][1], 2.8594736096290873e-09, 1e-4))]),
+        "crameri2d": (g_crameri, lambda g: [
+            ("err", g["err"] < 1e-3), ("decay", all(b < a for a, b in zip(g["h"], g["h"][1:]))),
+            ("h0 > 5 km", g["h"][0] > 5.0e3), ("relaxation", 14.0 < g["t_relax_kyr"] < 27.0),
+            ("h first", near(g["h"][0], 5738.77020554, 1e-6)),
+            ("h last", near(g["h"][-1], 2147.6, 5e-3))]),
+        "subduction2d": (g_subduction2d, lambda g: [
+            ("convergence", g["h_last"] < 0.05 * g["h_first"]),
+            ("slab sinks", -100.0 < g["v_cm_yr"] < -0.1),
+            ("air at rest", g["air_max"] < 50 * g["slab_mean_abs"]),
+            ("v slab", near(g["v_cm_yr"], -8.12271522695263, 1e-5)),
+            ("Vy max", near(g["Vy_max"], 2.776206296426089e-08, 1e-5)),
+            ("T mean", near(g["T_mean"], 1561.9627799560321, 1e-6))]),
+        "subduction3d": (g_subduction3d, lambda g: [
+            ("err", g["err"] < 1e-4), ("finite", g["finite"]),
+            ("slab sinks", -20 * CM_YR < g["Vz_min"] < -0.5 * CM_YR),
+            ("T", 250.0 < g["T_min"] and g["T_max"] < 1800.0),
+            ("2D", g["Vy_abs_max"] < 0.05 * g["Vz_abs_max"]),
+            ("Vz min", near(g["Vz_min"], -1.0311600516051363e-09, 1e-5)),
+            ("Vz max", near(g["Vz_max"], 4.863380641192766e-10, 1e-5)),
+            ("T min", near(g["T_min"], 429.1688847185895, 1e-6))]),
+    }
+    return {label: (graphed(fn), checks) for label, (fn, checks) in cases.items()}
+
+
+def block_iteration_times(s, reps=3):
+    """ms per iteration of the solve object ``s``'s first captured graph
+    (``GRAPH_BLOCK`` iterations, or the whole chunk when it is shorter):
+    its replay and the same iterations run eagerly, by CUDA events, each
+    from the same state (the carried fields restored between runs); whether
+    the replay leaves the carried fields bit-equal to the eager iterations;
+    and the kernels one eager iteration launches. The state is left as
+    found."""
+    n = min(s.graph_iterations, GRAPH_BLOCK)
+    saved = [t.clone() for t in s.carried()]
+
+    def restore():
+        for t, v in zip(s.carried(), saved):
+            t.copy_(v)
+
+    def timed(fn):
+        out = []
+        for _ in range(reps):
+            restore()
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b) / n)
+        return out, [t.clone() for t in s.carried()]
+
+    graph_ms, after_graph = timed(s.graphs[0].replay)
+    eager_ms, after_eager = timed(lambda: s.chunk(n))
+    equal = all(torch.equal(a, b) for a, b in zip(after_graph, after_eager))
+    moved = any(not torch.equal(a, b) for a, b in zip(after_eager, saved))
+    restore()
+    launches = dyrel_launches_per_iteration(s)
+    restore()
+    return dict(block_iterations=n, graph_ms_per_iter=graph_ms, eager_ms_per_iter=eager_ms,
+                replay_bit_equal=equal, replay_moved=moved, **launches)
+
+
+def _varying(t):
+    return isinstance(t, torch.Tensor) and t.numel() > 1 and bool(
+        (t != t.reshape(-1)[0]).any())
+
+
+def words_per_cell(carried, read_only, n_cells, itemsize):
+    """Words per cell one iteration must move: each carried field read and
+    written, each read-only input that does not hold one value everywhere
+    read once (a bool mask as a byte), counted from the tensors themselves."""
+    def words(t):
+        return t.numel() * t.element_size() / itemsize / n_cells
+
+    return 2 * sum(words(t) for t in carried) + sum(words(t) for t in read_only if _varying(t))
+
+
+def variational_words(s):
+    """``words_per_cell`` of one 2D variational iteration of the solve
+    object ``s``: its 12 carried fields, and its read-only inputs (P0, Q,
+    the old stresses and moduli, the plastic parameters at centers and
+    vertices, the rock ratio and its masks, the step preconditioner, the
+    buoyancy, the viscosity tables or the phase ratios, T)."""
+    inv = s.inv
+    ro = [s.P0, s.Q, s.pcx, s.pcy, s.rho_gy, s.T, *s.phi, *s.vm]
+    ro += [inv.txx_o, inv.tyy_o, inv.txy_c_o, inv.txy_v_o, inv.txx_ov, inv.tyy_ov,
+           inv.K_c, inv.G_c, inv.K_v, inv.G_v, *inv.ppc, *inv.ppv]
+    ro += list(s.eta_tables) if s.eta_tables is not None else [s.visc_c, s.visc_v]
+    return words_per_cell(s.carried(), [t for t in ro if t is not None], s.P.numel(),
+                          s.P.element_size())
+
+
+def masked_vep3d_words(args, kwargs):
+    """``words_per_cell`` of one masked serial 3D VEP iteration from the
+    solve's inputs: the 19 carried fields (V, P, θ, six center and three
+    edge stresses, η, λ at the centers and edges), and the read-only inputs
+    (P0, Q, τ_o, EII_pl, T, the phase ratios, the rock ratio and its masks)."""
+    from justrelax_tpu_torch.ops.rock_ratio import valid_masks_3d
+
+    st, pr_c, pr_e = args[0], args[5], args[6]
+    tau, to, phi = st.tau, st.tau_o, kwargs["phi"]
+    carried = [st.V.Vx, st.V.Vy, st.V.Vz, st.P, st.P, tau.xx, tau.yy, tau.zz, tau.yz_c,
+               tau.xz_c, tau.xy_c, tau.yz, tau.xz, tau.xy, st.viscosity.eta, st.P,
+               tau.yz, tau.xz, tau.xy]
+    ro = [st.P, st.Q, to.xx, to.yy, to.zz, to.yz_c, to.xz_c, to.xy_c, to.yz, to.xz, to.xy,
+          st.EII_pl, kwargs.get("T"), pr_c, *pr_e, *phi, *valid_masks_3d(phi)]
+    return words_per_cell(carried, [t for t in ro if t is not None], st.P.numel(),
+                          st.P.element_size())
+
+
+def variational_parity_solve(label, d):
+    """Phase 37's card-against-CPU solves on device ``d``, f64:
+    (state, info)."""
+    from justrelax_tpu_torch.solvers.stokes2d_variational import solve_variational
+    from justrelax_tpu_torch.solvers.stokes3d_variational import solve_variational_3d
+
+    f64 = torch.float64
+    if label in ("2d", "2d_free_surface"):
+        st, pt, geometry, bc, mat, pr, phi, dt, kw, _ = blob_setup(
+            16, f64, d, free_surface=label == "2d_free_surface")
+        return solve_variational(st, pt, geometry, bc, mat, pr.center, pr.vertex, phi, dt,
+                                 **dict(kw, iter_max=4_000, nout=200))
+    if label == "3d":
+        st, pt, geometry, bc, rho_g, G, K, phi, _ = sphere_setup((8, 8, 8), f64, d, 0.7, 1.0)
+        return solve_variational_3d(st, pt, geometry, bc, rho_g, G, K, phi, math.inf,
+                                    iter_max=2_000, nout=200)
+    args, phi = masked_vep3d_setup(8, f64, d)
+    return solve_vep_3d(*args, phi=phi, use_kernel=False, iter_max=500, iter_min=100,
+                        nout=100)
+
+
+def variational_field_diffs(a, b):
+    """max |a − b| of every field of two states, over max |b| (the momentum
+    residuals over max |ρg| = 20, RP and ∇·V over max |V|·n, 0 where
+    equal)."""
+    V = [getattr(b.V, k) for k in ("Vx", "Vy", "Vz") if getattr(b.V, k) is not None]
+    vmax = max(float(v.abs().max()) for v in V) * b.P.shape[0]
+    scales = {"R.Rx": 20.0, "R.Ry": 20.0, "R.Rz": 20.0, "R.RP": vmax, "grad_V": vmax}
+    out = {}
+    for name, x, y in flat_state(a, b):
+        d = float((x.cpu() - y).abs().nan_to_num(0.0).max())
+        scale = scales.get(name, float(y.abs().nan_to_num(0.0).max()))
+        out[name] = 0.0 if d == 0.0 else d / scale
+    return out
+
+
+def start_goldens(labels):
+    """One ``--golden LABEL`` process for each of ``labels``, started now."""
+    return {label: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--golden",
+                                     label], cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            for label in labels}
+
+
+def finish_goldens(procs, phase):
+    """Wait for the golden processes ``procs``; their results by label.
+    A failed process fails the phase; none is left running."""
+    results = {}
+    try:
+        for label, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            check(proc.returncode == 0 and lines,
+                  f"{phase} {label}: its process failed ({proc.returncode}):\n{err[-3000:]}")
+            results[label] = json.loads(lines[-1])
+    finally:
+        stop_processes(procs)
+    return results
+
+
+def stop_processes(procs):
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_golden_set(cases, phase, smi, launches, apart=(), apart_results=None):
+    """Run a phase's goldens: those in ``apart`` in processes of their own,
+    started here and run beside the others; those whose results
+    ``apart_results`` already holds (their processes ran earlier); the rest
+    here. Emit each with its checks: its own assertions, the kernel its
+    model routes through launched (its count added to ``launches``) and no
+    other. Returns the results."""
+    done = dict(apart_results or {})
+    procs = start_goldens(apart)
+    try:
+        here = {label: golden_result(label, cases[label][0])
+                for label in cases if label not in procs and label not in done}
+        done.update(finish_goldens(procs, phase))
+    finally:
+        stop_processes(procs)
+    results = {**here, **done}
+    for label, (_, checks) in cases.items():
+        g = results[label]
+        kernel = g["kernel"]
+        emit(phase, case=label, nvidia_smi=smi, apart=label in done, **g)
+        for key, ok in checks(g):
+            check(ok, f"{phase} {label}: {key}")
+        if kernel is not None:
+            launches.setdefault(kernel, {})[f"golden_{label}"] = g["launches"]
+            check(g["launches"] > 0, f"{phase} {label}: {kernel} was not launched")
+        check(g["other_launches"] == 0, f"{phase} {label}: another kernel launched")
+    return results
+
+
+def run_variational(dev, smi, kind, apart_results):
+    """Phases 36-38; returns each kernel's launches per variational golden
+    and production step (all 0: the variational paths run no kernel).
+    ``apart_results`` are the results of phase 36's goldens that ran in
+    processes of their own (``VARIATIONAL_APART``, started before phase 28
+    and collected before phase 29: they share the card while phase 28's
+    goldens wait on the host's dispatch, and no timing is taken meanwhile)."""
+    from justrelax_tpu_torch.solvers.stokes2d_variational import solve_variational
+
+    f64, f32 = torch.float64, torch.float32
+    launches = {}
+
+    # ---- 36. goldens through the default entry points, f64, the JAX tests'
+    # sizes and assertions; four ran in processes of their own
+    cases = {k: v for k, v in variational_golden_cases().items() if k not in VARIATIONAL_MOVED}
+    emit("golden_variational_moved", cases=VARIATIONAL_MOVED,
+         test="tests/test_torch_cuda.py::test_variational_golden_f64 (slow, cuda)")
+    results = run_golden_set(cases, "golden_variational", smi, launches,
+                             apart_results=apart_results)
+    for label, g in results.items():
+        for kernel, n in g["all_launches"].items():
+            launches.setdefault(kernel, {})[f"golden_{label}"] = n
+
+    # ---- 37. the graph against the eager chunk, bit for bit, from the same
+    # mid-solve sticky-air state (2D at 64^2 with and without the
+    # free-surface term, 3D at 16^3); then the card's solves against the CPU
+    from justrelax_tpu_torch.solvers.stokes3d_variational import solve_variational_3d
+
+    for label in ("2d", "2d_free_surface", "3d"):
+        if label == "3d":
+            st, pt, geometry, bc, rho_g, G, K, phi, _ = sphere_setup((16, 16, 16), f64, dev,
+                                                                     0.7, 1.0)
+            st, _ = solve_variational_3d(st, pt, geometry, bc, rho_g, G, K, phi, math.inf,
+                                         iter_max=100, nout=100)
+            with variational_chunks() as rec:
+                solve_variational_3d(st, pt, geometry, bc, rho_g, G, K, phi, math.inf,
+                                     iter_max=100, nout=100)
+        else:
+            st, pt, geometry, bc, mat, pr, phi, dt, kw, _ = blob_setup(
+                64, f64, dev, free_surface=label == "2d_free_surface")
+            kw = dict(kw, iter_max=200, iter_min=0, nout=200)
+            st, _ = solve_variational(st, pt, geometry, bc, mat, pr.center, pr.vertex, phi, dt,
+                                      **kw)
+            with variational_chunks() as rec:
+                solve_variational(st, pt, geometry, bc, mat, pr.center, pr.vertex, phi, dt,
+                                  **kw)
+        s = rec["solves"][-1]
+        n = s.graph_iterations
+        saved = [t.clone() for t in s.carried()]
+        s.chunk(n)
+        eager = [t.clone() for t in s.carried()]
+        for t, v in zip(s.carried(), saved):
+            t.copy_(v)
+        s.replay()
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(s.carried(), eager))
+        moved = any(not torch.equal(a, b) for a, b in zip(eager, saved))
+        diff = max(float((a - b).abs().max()) for a, b in zip(s.carried(), eager))
+        emit("variational_graph_parity", case=label, grid=list(st.P.shape), iterations=n,
+             bit_equal=equal, moved=moved, max_abs_diff=diff)
+        check(equal, f"variational_graph_parity {label}: the replay differs from the eager chunk")
+        check(moved, f"variational_graph_parity {label}: the chunk did not move the state")
+    for label in ("2d", "2d_free_surface", "3d", "vep3d_masked"):
+        (sc, ic), (sh, ih) = (variational_parity_solve(label, d)
+                              for d in (dev, torch.device("cpu")))
+        worst = variational_field_diffs(sc, sh)
+        over = {k: v for k, v in worst.items() if v > 1e-10}
+        emit("variational_card_vs_cpu", case=label, iters_card=int(ic.iters),
+             iters_cpu=int(ih.iters), err_card=float(ic.err), err_cpu=float(ih.err),
+             max_rel_diff=max(worst.values()), worst_field=max(worst, key=worst.get),
+             per_field=worst)
+        check(int(ic.iters) == int(ih.iters), f"variational_card_vs_cpu {label}: iterations")
+        check(not over, f"variational_card_vs_cpu {label}: over 1e-10: {over}")
+
+    # ---- 38. the production steps, f32, through the default entry points
+    # the Rayleigh-Taylor overturn at 1024^2 (its own particles and caps)
+    names = ("advect_rk2", "move_particles", "inject_particles", "phase_ratios_from_particles")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with particle_step_timers(rayleigh_taylor, names) as prec, \
+            timed_solves(rayleigh_taylor, "solve_variational") as solves, \
+            variational_chunks() as rec:
+        st, par, ph, info, vmax, _ = rayleigh_taylor.run(dtype=f32, **PROD["rayleigh_taylor"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    c = counts()
+    stokes_split = solves_summary(solves)
+    stokes_s = sum(x["seconds"] for x in stokes_split)
+    split = {name: events_s(prec[name]) for name in names}
+    s = rec["solves"][-1]
+    per_iter = block_iteration_times(s)
+    words = variational_words(s)
+    n_cells = st.P.numel()
+    finite = all(bool(torch.isfinite(t).all()) for t in (st.V.Vx, st.V.Vy, st.P, par.px))
+    emit("main_path_variational", case="rayleigh-taylor-1024-f32", grid=PROD["rayleigh_taylor"],
+         dtype="float32", wall_s=wall, stokes=stokes_split, stokes_s=stokes_s,
+         particles_s=split, init_particles_s=prec.get("init_s"),
+         rest_s=wall - stokes_s - sum(split.values()), **replays_summary(rec),
+         vmax=vmax, peak_memory_GiB=peak, words=words,
+         bound_ms=bound_ms(words, n_cells, 4, kind), finite=finite,
+         active_after=int(par.active.sum()), launches=c, nvidia_smi=smi, **per_iter)
+    check(finite, "main_path_variational rayleigh_taylor: non-finite fields")
+    check(per_iter["replay_bit_equal"] and per_iter["replay_moved"],
+          "main_path_variational rayleigh_taylor: the replay is not bit-equal to the eager chunk")
+    check(sum(c.values()) == 0, "main_path_variational rayleigh_taylor: a kernel launched")
+    for kernel, n in c.items():
+        launches.setdefault(kernel, {})["production_rayleigh_taylor"] = n
+    del st, par, ph, s, rec
+    torch.cuda.empty_cache()
+
+    # the 3D subduction at 252x96x84 (2.03 M cells), its Stokes cap one nout
+    calls = []
+    solve = subduction3d.solve_vep_3d
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with timed_solves(subduction3d, "solve_vep_3d") as solves, \
+            timed_solves(subduction3d, "heatdiffusion_PT") as thermal_solves:
+        timed = subduction3d.solve_vep_3d
+
+        def cap_stokes(*a, **k):  # the cap, seen by the timing as the call's own
+            k = dict(k, iter_max=SUBDUCTION3D_STOKES_CAP)
+            if not calls:
+                calls.append((a, k))
+            return timed(*a, **k)
+
+        subduction3d.solve_vep_3d = cap_stokes  # the timing's exit restores the solver
+        st, th, info, _ = subduction3d.run(dtype=f32, **PROD["subduction3d"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    c = counts()
+    stokes_split = solves_summary(solves)
+    stokes_s = sum(x["seconds"] for x in stokes_split)
+    thermal_s = events_s([(a, b) for a, b, _, _ in thermal_solves])
+    thermal_iters = [int(x[2].iters) for x in thermal_solves]
+    # one eager masked iteration on the step's own inputs: the difference of
+    # a 10- and a 5-iteration solve (one chunk each), its time by CUDA events
+    # and its launches by torch.profiler (the step warmed everything up)
+    args, kwargs = calls[0]
+
+    def short(k):
+        return lambda: solve(*args, **dict(kwargs, iter_max=k, iter_min=0, nout=k))
+
+    eager_ms = (cuda_time_ms(short(10), repeats=1) - cuda_time_ms(short(5), repeats=1)) / 5
+    n10, n5 = (profiled_launches(short(k), warm_up=False) for k in (10, 5))
+    words = masked_vep3d_words(args, kwargs)
+    n_cells = st.P.numel()
+    finite = all(bool(torch.isfinite(t).all()) for t in (st.V.Vx, st.V.Vy, st.V.Vz, st.P, th.T))
+    emit("main_path_variational", case="subduction3d-252x96x84-f32",
+         grid=dict(PROD["subduction3d"], stokes_iter_max=SUBDUCTION3D_STOKES_CAP),
+         dtype="float32", wall_s=wall, stokes=stokes_split,
+         stokes_s=stokes_s, thermal_s=thermal_s, thermal_iters=thermal_iters,
+         rest_s=wall - stokes_s - thermal_s, eager_ms_per_iter=eager_ms,
+         launches_per_iter=None if None in (n10, n5) else (n10 - n5) / 5,
+         words=words, bound_ms=bound_ms(words, n_cells, 4, kind), peak_memory_GiB=peak,
+         finite=finite, err=float(info.err), launches=c, nvidia_smi=smi)
+    check(finite, "main_path_variational subduction3d: non-finite fields")
+    check(sum(c.values()) == 0, "main_path_variational subduction3d: a kernel launched")
+    for kernel, n in c.items():
+        launches.setdefault(kernel, {})["production_subduction3d"] = n
+    return launches
+
+
+def profiled_launches(fn, warm_up=True):
+    """The kernels ``fn()`` launches on the card (memory copies and sets
+    left out), counted by ``torch.profiler`` (after one warm-up call);
+    ``None`` where the profiler recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm_up:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset")))
+    return n or None
 
 
 def flat_state(a, b, prefix=""):

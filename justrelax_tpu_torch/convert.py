@@ -3,11 +3,12 @@
 The JAX package's containers turn into nested dicts of arrays with
 ``flax.serialization.to_state_dict`` (done by the caller, so this module
 needs no JAX). ``stokes_state_from_dict``, ``thermal_state_from_dict``, ``material_from_dict``,
-``phase_ratios_from_dict``, ``particles_from_dict`` and
-``marker_chain_from_dict`` build the port's :class:`StokesState`,
-:class:`ThermalState`, :class:`MaterialStack`, :class:`PhaseRatios` /
-:class:`PhaseRatios3D`, :class:`Particles` / :class:`Particles3D` and
-:class:`MarkerChain` from such dicts on a given device (the card unless
+``phase_ratios_from_dict``, ``particles_from_dict``,
+``marker_chain_from_dict`` and ``rock_ratio_from_dict`` build the port's
+:class:`StokesState`, :class:`ThermalState`, :class:`MaterialStack`,
+:class:`PhaseRatios` / :class:`PhaseRatios3D`, :class:`Particles` /
+:class:`Particles3D`, :class:`MarkerChain` and :class:`RockRatio` /
+:class:`RockRatio3D` from such dicts on a given device (the card unless
 given) and dtype; ``to_state_dict`` turns a port container back
 into the same nested dict of numpy arrays (``None`` where the JAX container
 has an unused 3D field).
@@ -23,6 +24,7 @@ import torch
 
 from justrelax_tpu_torch.core.device import resolve_device
 from justrelax_tpu_torch.core.state import StokesState, ThermalState
+from justrelax_tpu_torch.ops.rock_ratio import RockRatio, RockRatio3D
 from justrelax_tpu_torch.particles.marker_chain import MarkerChain
 from justrelax_tpu_torch.particles.particles import Particles
 from justrelax_tpu_torch.particles.particles3d import Particles3D
@@ -31,7 +33,7 @@ from justrelax_tpu_torch.rheology.phases import PhaseRatios, PhaseRatios3D
 
 __all__ = ["stokes_state_from_dict", "thermal_state_from_dict", "material_from_dict",
            "phase_ratios_from_dict", "particles_from_dict", "marker_chain_from_dict",
-           "to_state_dict"]
+           "rock_ratio_from_dict", "to_state_dict"]
 
 
 def _build(cls, d, dtype, device):
@@ -98,6 +100,17 @@ def marker_chain_from_dict(d, device=None, dtype=None) -> MarkerChain:
     device = resolve_device(device)
     return MarkerChain(*(torch.tensor(np.array(d[k]), dtype=dtype, device=device)
                          for k in MarkerChain._fields))
+
+
+def rock_ratio_from_dict(d, device=None, dtype=None):
+    """Port ``RockRatio`` (2D) or ``RockRatio3D`` (3D, told by a ``Vz``
+    field) from a mapping of the JAX rock ratio's field names to arrays
+    (its ``_asdict()``, or numpy arrays; ``dtype=None`` keeps their own
+    dtype)."""
+    cls = RockRatio3D if "Vz" in d else RockRatio
+    device = resolve_device(device)
+    return cls(**{f: torch.tensor(np.array(d[f]), dtype=dtype, device=device)
+                  for f in cls._fields})
 
 
 def to_state_dict(obj):

@@ -17,11 +17,12 @@ pressure iterations around inner damped dynamic-relaxation velocity solves:
 
 The inner solve runs in chunks of ``nout`` DR iterations with one host read
 per chunk (and one per outer iteration). A chunk updates the solve's static
-tensors in place (:meth:`_DyrelSolve.chunk`). On the CPU it runs eagerly; on
-the card ``solve_dyrel`` captures it once per call as a CUDA graph and
-replays the graph for every chunk: the counterpart of the JAX package's
-device-resident ``fori_loop``, without one host launch per operation. A
-failed capture raises; there is no eager fallback on the card.
+tensors in place (:meth:`_DyrelSolve.iteration`). On the CPU it runs
+eagerly; on the card ``solve_dyrel`` captures it once per call as CUDA
+graphs and replays them for every chunk (``solvers/graphed_chunk.py``): the
+counterpart of the JAX package's device-resident ``fori_loop``, without one
+host launch per operation. A failed capture raises; there is no eager
+fallback on the card.
 
 Within a call the material's constants are read to the host once, in the
 field's dtype, and every per-phase quantity that depends only on them, on
@@ -48,7 +49,8 @@ from justrelax_tpu_torch.rheology.plasticity import (
     second_invariant_staggered,
 )
 from justrelax_tpu_torch.rheology.viscosity import compute_viscosity_fields
-from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm
+from justrelax_tpu_torch.solvers.graphed_chunk import GraphedChunk
+from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm, nonuniform_error
 
 __all__ = ["solve_dyrel", "compute_bulk_viscosity_and_penalty", "gershgorin_schur_2d"]
 
@@ -60,12 +62,6 @@ ALL = tuple(range(11))
 
 def _clamped_av(A):
     return av_a(expand_edges(A))
-
-
-def _nonuniform_error():
-    return ValueError(
-        "DYREL on a nonuniform grid needs NonuniformGeometry, which the PyTorch "
-        "port does not have yet")
 
 
 # --- penalty / preconditioner ----------------------------------------------
@@ -90,7 +86,7 @@ def gershgorin_schur_2d(eta, eta_v, gamma_eff, pr_center, pr_vertex, material,
     the velocity Schur complement on a uniform grid. ``spacings`` (the
     nonuniform grid's families) raises ``ValueError``."""
     if spacings is not None:
-        raise _nonuniform_error()
+        raise nonuniform_error("DYREL")
     _dx_x = _dx_y = 1.0 / di[0]
     _dy_x = _dy_y = 1.0 / di[1]
     c43, c23 = 4.0 / 3.0, 2.0 / 3.0
@@ -337,10 +333,12 @@ def _flow_bcs_(Vx, Vy, bc):
         _free_slip_velocity_2d(Vx, Vy, bc.free_slip)
 
 
-class _DyrelSolve:
+class _DyrelSolve(GraphedChunk):
     """One ``solve_dyrel`` call's static state: the carried fields of the
-    inner solve (updated in place by :meth:`chunk`), the tuning fields, and
-    the constants of the call and of the current inner solve."""
+    inner solve (updated in place by :meth:`iteration`; a chunk of them
+    replayed as CUDA graphs on the card, ``solvers/graphed_chunk.py``), the
+    tuning fields, and the constants of the call and of the current inner
+    solve."""
 
     def __init__(self, stokes, geometry, flow_bc, material, pr_center, pr_vertex, dt,
                  rho_g, gfact, lambda_relax, linear_viscosity, viscosity_relaxation,
@@ -394,7 +392,6 @@ class _DyrelSolve:
             [torch.zeros_like(self.dVy) for _ in range(3)]
         self.P = torch.empty_like(stokes.P)
         self._p = None  # the constants of the current inner solve
-        self.graph = None
 
     # ---- the operators of the solve -------------------------------------
     def strain(self, Vx, Vy):
@@ -518,44 +515,9 @@ class _DyrelSolve:
             self.eta.copy_(eta_n)
             self.eta_v.copy_(eta_vn)
 
-    def chunk(self, nout):
-        """``nout`` DR iterations on the carried fields, in place, with the
-        current tuning and P: the part of the solve the card replays as a
-        CUDA graph."""
-        for _ in range(nout):
-            self.iteration()
-
-    def _carried(self):
+    def carried(self):
         return [self.Vx, self.Vy, self.lam, self.lam_v, self.dVx, self.dVy, self.Rx,
                 self.Ry, self.eta, self.eta_v]
-
-    def capture(self, nout):
-        """Capture :meth:`chunk` as a CUDA graph (after one warm-up
-        iteration on a side stream, whose effect on the carried fields is
-        undone). Raises if the capture fails."""
-        saved = [t.clone() for t in self._carried()]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.iteration()
-        torch.cuda.current_stream().wait_stream(side)
-        for t, s in zip(self._carried(), saved):
-            t.copy_(s)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.chunk(nout)
-        self.graph = graph
-        return graph
-
-    def run_chunk(self, nout):
-        """One chunk: the graph's replay on the card (captured at the first
-        chunk of the call), the eager chunk on the CPU."""
-        if self.Vx.device.type != "cuda":
-            self.chunk(nout)
-            return
-        if self.graph is None:
-            self.capture(nout)
-        self.graph.replay()
 
 
 def _copy_into(old, new):
@@ -609,7 +571,7 @@ def solve_dyrel(
     raises ``ValueError``; a bare ``Material`` is stacked once on the
     state's device and in its dtype."""
     if hasattr(geometry, "di_center"):
-        raise _nonuniform_error()
+        raise nonuniform_error("DYREL")
     material = _as_stack(material, stokes.P)
     dtype = stokes.P.dtype
     s = _DyrelSolve(stokes, geometry, flow_bc, material, pr_center, pr_vertex, dt, rho_g,

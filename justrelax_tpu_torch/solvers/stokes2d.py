@@ -37,6 +37,13 @@ def _norm(x):
     return torch.linalg.vector_norm(x.reshape(-1))
 
 
+def nonuniform_error(solver):
+    """The error a solver raises on a nonuniform grid."""
+    return ValueError(
+        f"{solver} on a nonuniform grid needs NonuniformGeometry, which the PyTorch port "
+        "does not have yet")
+
+
 def _ratio(err, err1):
     """err/err₁ in IEEE arithmetic, as the JAX loop takes it: 0/0 is nan
     (a state that is already exact stops after one chunk), x/0 is ±∞."""

@@ -63,7 +63,13 @@ from justrelax_tpu_torch.rheology.viscosity import (
     phase_viscosity,
     shared_powerlaw_exponent,
 )
-from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm, _ratio
+from justrelax_tpu_torch.ops.rock_ratio import valid_masks_3d
+from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _ratio
+from justrelax_tpu_torch.solvers.stokes3d_variational import (
+    masked_momentum_3d,
+    masked_velocity_update_3d,
+    variational_norms_3d,
+)
 
 __all__ = ["solve_vep_3d", "canvas_chunk_inputs"]
 
@@ -190,9 +196,13 @@ def solve_vep_3d(
     faces (``ValueError`` otherwise), and a linear or shared-exponent
     power-law creep table; ``pallas_visc_m`` is that exponent minus one
     (``"auto"`` resolves it). A bare ``Material`` is stacked once, on the
-    state's device and in its dtype. ``phi`` (the variational mask) and a
-    nonuniform grid are not ported and raise ``NotImplementedError`` on the
-    serial route.
+    state's device and in its dtype. ``phi`` (a
+    :class:`~justrelax_tpu_torch.ops.rock_ratio.RockRatio3D`) makes the solve
+    the masked variational VEP solve of ``solvers/stokes3d_variational.py``'s
+    masking with the fused plastic return mapping; it runs on the serial
+    route only (``use_kernel=False``), as the JAX package's ``use_pallas``
+    refuses it. A nonuniform grid is not ported and raises
+    ``NotImplementedError``.
     """
     material = _as_stack(material, stokes.P)
     route = resolve_use_kernel(use_kernel, stokes.P, allowed=ROUTES)
@@ -211,16 +221,12 @@ def solve_vep_3d(
             raise ValueError(f"use_kernel={route!r} {reason}; pass use_kernel=False")
         if pallas_visc_m == "auto":
             pallas_visc_m = _visc_exponent(material)
-    if phi is not None:
-        raise NotImplementedError(
-            "phi (the variational masked VEP solve) needs ops/rock_ratio.py, which the "
-            "PyTorch port does not have yet (ROADMAP item 7)")
     return _solve_vep_3d(
         stokes, pt_stokes, geometry, flow_bc, material, phase_ratios_center,
         phase_ratios_edges, dt, T=T, iter_max=iter_max, iter_min=iter_min, nout=nout,
         viscosity_relaxation=viscosity_relaxation, lambda_relaxation=lambda_relaxation,
         viscosity_cutoff=viscosity_cutoff, route=route,
-        visc_m=None if pallas_visc_m == "auto" else pallas_visc_m)
+        visc_m=None if pallas_visc_m == "auto" else pallas_visc_m, phi=phi)
 
 
 class _Carry(NamedTuple):
@@ -236,7 +242,7 @@ class _Carry(NamedTuple):
 
 def _solve_vep_3d(stokes, pt_stokes, geometry, flow_bc, material, phase_ratios_center,
                   phase_ratios_edges, dt, T, iter_max, iter_min, nout, viscosity_relaxation,
-                  lambda_relaxation, viscosity_cutoff, route, visc_m):
+                  lambda_relaxation, viscosity_cutoff, route, visc_m, phi=None):
     nx, ny, nz = stokes.P.shape
     inv_di, inv_di_v, mom_spacings = k3.spacing_families_3d(geometry)
     r, theta_dtau, etadtau = pt_stokes.r, pt_stokes.theta_dtau, pt_stokes.etadtau
@@ -273,6 +279,22 @@ def _solve_vep_3d(stokes, pt_stokes, geometry, flow_bc, material, phase_ratios_c
         eta_n = continuation_linear(eta_n, eta_old, viscosity_relaxation)
         return torch.clamp(eta_n, viscosity_cutoff[0], viscosity_cutoff[1])
 
+    # the masked solve: air carries no equations (phi, the variational mask)
+    vm = None if phi is None else valid_masks_3d(phi)
+
+    def mask(A, m):
+        return A if vm is None else torch.where(m, A, 0.0)
+
+    def mask_tau(tau_c, tau_e):
+        if vm is None:
+            return tau_c, tau_e
+        return (tuple(torch.where(vm.c, x, 0.0) for x in tau_c),
+                tuple(torch.where(m, x, 0.0) for m, x in zip((vm.yz, vm.xz, vm.xy), tau_e)))
+
+    def momentum(P, tau6, fz):
+        # fx and fy are zero: the masked residuals leave their terms out
+        return masked_momentum_3d(P, tau6, (None, None, fz * phi.center), inv_di, phi, vm)
+
     def one_iteration(c: _Carry):
         Vx, Vy, Vz = c.V
         eta_tau = maxloc(c.eta, window=1)
@@ -281,30 +303,39 @@ def _solve_vep_3d(stokes, pt_stokes, geometry, flow_bc, material, phase_ratios_c
         fx, fy, fz = rho_g_fields(c.P)
         exx, eyy, ezz, eyz, exz, exy = k3.compute_strain_rate_3d(grad_V, Vx, Vy, Vz, inv_di,
                                                                  inv_di_v)
+        if vm is not None:
+            exx, eyy, ezz = mask(exx, vm.c), mask(eyy, vm.c), mask(ezz, vm.c)
+            eyz, exz, exy = mask(eyz, vm.yz), mask(exz, vm.xz), mask(exy, vm.xy)
+            theta, RP = mask(theta, vm.c), mask(RP, vm.c)
         res = update_stresses_center_edges_3d(
             (exx, eyy, ezz), (eyz, exz, exy), c.tau_c, c.tau_e, tau_o_c6, tau_o_e3,
             theta, c.eta, c.lam, c.lam_e, EII_pl, material, pr_c, phase_ratios_edges,
             lambda_relaxation, dt, theta_dtau, params=vep_params)
         eta = refresh_viscosity(c.eta, res.tau_c)
-        tau6 = tuple(res.tau_c[:3]) + tuple(res.tau_e)
-        Vx, Vy, Vz, _, _, _ = k3.compute_V_3d(Vx, Vy, Vz, res.P_corrected, tau6, fx, fy, fz,
-                                              eta_tau, etadtau, inv_di, spacings=mom_spacings)
-        V = flow_bcs((Vx, Vy, Vz), flow_bc)
-        core = _Carry(V=tuple(V), P=res.P_corrected, theta=theta, tau_c=res.tau_c,
-                      tau_e=res.tau_e, eta=eta, lam=res.lam, lam_e=res.lam_e)
+        tau_c, tau_e = mask_tau(res.tau_c, res.tau_e)
+        P_corr = res.P_corrected if vm is None else mask(res.P_corrected, vm.c)
+        tau6 = tuple(tau_c[:3]) + tuple(tau_e)
+        if vm is None:
+            Vx, Vy, Vz, _, _, _ = k3.compute_V_3d(Vx, Vy, Vz, P_corr, tau6, fx, fy, fz,
+                                                  eta_tau, etadtau, inv_di,
+                                                  spacings=mom_spacings)
+            V = flow_bcs((Vx, Vy, Vz), flow_bc)
+        else:
+            V = tuple(v.clone() for v in c.V)
+            masked_velocity_update_3d(V, momentum(P_corr, tau6, fz), eta_tau, etadtau, vm,
+                                      flow_bc)
+        core = _Carry(V=tuple(V), P=P_corr, theta=theta, tau_c=tau_c, tau_e=tau_e, eta=eta,
+                      lam=res.lam, lam_e=res.lam_e)
         return core, res, RP
 
     def residual_norms(c: _Carry, RP):
         fx, fy, fz = rho_g_fields(c.P)
         tau6 = tuple(c.tau_c[:3]) + tuple(c.tau_e)
-        Rx, Ry, Rz = k3.momentum_residuals_3d(c.P, tau6, fx, fy, fz, inv_di)
-        norms = torch.stack([
-            _norm(Rx[1:-1, 1:-1, 1:-1]) / ((nx - 2) * (ny - 1) * (nz - 1)),
-            _norm(Ry[1:-1, 1:-1, 1:-1]) / ((nx - 1) * (ny - 2) * (nz - 1)),
-            _norm(Rz[1:-1, 1:-1, 1:-1]) / ((nx - 1) * (ny - 1) * (nz - 2)),
-            _norm(RP) / (nx * ny * nz),
-        ])
-        return norms, (Rx, Ry, Rz)
+        if vm is None:
+            R = k3.momentum_residuals_3d(c.P, tau6, fx, fy, fz, inv_di)
+        else:
+            R = momentum(c.P, tau6, fz)
+        return variational_norms_3d(R, RP), R
 
     if route:
         _, co_canvas, packed = canvas_chunk_inputs(

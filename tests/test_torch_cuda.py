@@ -31,6 +31,7 @@ from chip_smoke import (
     TOL_VE3D_NOUT1,
     TOL_VE3D_NOUT200,
     TOL_VE_NOUT1,
+    VARIATIONAL_MOVED,
     VE3D_CASES,
     VE_CASES,
     chunk_case,
@@ -825,7 +826,7 @@ def test_dyrel_graph_replay_matches_eager_chunk(cuda, linear):
     eager = [t.clone() for t in fields]
     for t, v in zip(fields, saved):
         t.copy_(v)
-    s.graph.replay()
+    s.replay()
     torch.cuda.synchronize()
     for k, a, b in zip(DYREL_CARRIED, fields, eager):
         assert torch.equal(a, b), k
@@ -885,6 +886,25 @@ def test_layered_convection3d_golden_f64(cuda):
 
     run, checks = particle_golden_cases()["layered_convection3d"]
     g = golden_result("layered_convection3d", run)
+    for key, ok in checks(g):
+        assert ok, (key, g)
+    assert g["other_launches"] == 0
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("label", VARIATIONAL_MOVED)
+def test_variational_golden_f64(cuda, label):
+    """Phase 36's goldens that run here for their time (chip_smoke.py's
+    VARIATIONAL_MOVED: the 3D subduction at 48×8×16 and the plume at 32²,
+    whose masked 3D VEP and plain VEP solves dispatch each iteration's
+    operations from the host; the 2D subduction at 64×24, whose solves run
+    to their 80 000 cap; Crameri's relaxation at 32², 130 000 graphed
+    iterations), on the card through the default entry points, on the JAX
+    tests' assertions; no kernel of the port launched."""
+    from chip_smoke import golden_result, variational_golden_cases
+
+    run, checks = variational_golden_cases()[label]
+    g = golden_result(label, run)
     for key, ok in checks(g):
         assert ok, (key, g)
     assert g["other_launches"] == 0

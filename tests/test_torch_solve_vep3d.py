@@ -43,7 +43,9 @@ from justrelax_tpu_torch.models import shearband3d
 from justrelax_tpu_torch.ops import bc as pbc
 from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc
 from justrelax_tpu_torch.ops import hopper_vep3d_edges as he
+from justrelax_tpu_torch.ops.rock_ratio import update_rock_ratio_3d
 from justrelax_tpu_torch.rheology.materials import MaterialStack
+from justrelax_tpu_torch.rheology.phases import phase_ratios_from_field
 from justrelax_tpu_torch.solvers.stokes3d_vep import solve_vep_3d
 
 torch.set_num_threads(1)
@@ -169,8 +171,15 @@ def test_edge_route_refuses_unsupported_materials():
 
 def test_not_ported_and_refused():
     args = _port_problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        solve_vep_3d(*args, phi=object(), use_kernel=False, **_KW)
+    # phi runs the masked solve on the serial route: all rock, it is the
+    # unmasked solve (tests/test_torch_variational3d.py holds it to JAX)
+    rock = update_rock_ratio_3d(phase_ratios_from_field(torch.zeros(NI, dtype=torch.long), 2), 1)
+    masked, mi = solve_vep_3d(*args, phi=rock, use_kernel=False, **_KW)
+    plain, pi = solve_vep_3d(*args, use_kernel=False, **_KW)
+    assert int(mi.iters) == int(pi.iters)
+    for a, b in ((masked.V.Vx, plain.V.Vx), (masked.V.Vz, plain.V.Vz), (masked.P, plain.P),
+                 (masked.tau.xz, plain.tau.xz)):
+        assert float((a - b).abs().max()) <= 1e-13 * float(b.abs().max())
     with pytest.raises(ValueError, match="use_kernel"):
         solve_vep_3d(*args, use_kernel="fused", **_KW)
     for route in ("edges", "edges_split", "canvas", "blocked"):
