@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-(``--golden LABEL`` runs one of phase 28's, 30's, 33's or 36's goldens and
-prints its result: phases 28, 30 and 33 start three each that way, and
-phase 36 four, in processes of their own.)
+(``--golden LABEL`` runs one of phase 28's, 30's, 33's, 36's or 39's
+goldens and prints its result: phases 28, 30 and 33 start three each that
+way, and phase 36 four, in processes of their own.)
 
 Run from the root of a checkout. Phases, each printing JSON lines:
 
@@ -187,7 +187,7 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               dyrel_card_vs_cpu: solve_dyrel at 16^2 f64 on the card against
               the CPU (equal iterations, fields within 1e-10).
 32. main_path_dyrel: the DYREL band at 1024^2 f32, one step, at most
-              20 000 DR iterations (PROD); wall time, iterations, err, the
+              10 000 DR iterations (PROD); wall time, iterations, err, the
               graph's capture time, ms per DR iteration by CUDA events
               around the replays, and on the solve's final state the
               graphs', the chunk captured as one graph's (the capture before
@@ -256,7 +256,7 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               (equal iterations, fields within 1e-10).
 38. main_path_variational: one f32 step of the Rayleigh-Taylor overturn at
               1024^2 (its own particles, nout and iter_min; Stokes cap
-              10 000) and of the 3D subduction at 252x96x84 (Stokes cap one
+              6 000) and of the 3D subduction at 252x96x84 (Stokes cap one
               nout, 1 000) through the default entry points: wall time split
               by CUDA events into the Stokes solve (iterations, err,
               converged; the graph's capture seconds and ms per replayed
@@ -267,6 +267,28 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               eager iteration launches (torch.profiler), and the eager ms per
               masked 3D VEP iteration, beside the bytes bound
               (variational_words, masked_vep3d_words); peak device memory.
+39. nonuniform: every ported solver on a tanh-stretched grid
+              (NonuniformGeometry) of a few hundred cells, f64, a fixed
+              count of iterations, on the card against the CPU
+              (nonuniform_solve: solve_ve, solve_vep, heatdiffusion_PT, the
+              explicit step, solve_dyrel, solve_variational, the stretched
+              Taylor-Green's solve_ve_3d, solve_vep_3d without and with
+              phi, solve_variational_3d; equal iterations, fields within
+              1e-12 of their max), every graphed chunk's replay against its
+              eager chunk bit for bit, the refined shear band's first three
+              steps at 32^2 on the analytic curve and the JAX model's frozen
+              values (its full n=32 golden is the slow cuda test
+              test_shearband_refined_golden_f64), and each kernel route
+              asked for on a stretched grid raising ValueError naming
+              use_kernel=False; no kernel launched. It takes no timing, so
+              it runs while phase 28's golden processes run on.
+40. main_path_nonuniform: one f32 step of the refined shear band at 1024^2
+              (shearband-refined-1024-f32, plain by contract, Stokes cap
+              2 000), after phase 38: wall time, ms per iteration, the
+              kernels one eager iteration launches (torch.profiler), the
+              bytes bound
+              (vep_chunk_words plus the spacing vectors), and the uniform
+              flagship's B2/B3 per iteration measured again beside it.
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
 the run's own inputs (hopper_stokes_vep.vep_chunk_words and
@@ -277,7 +299,7 @@ fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
 Then the script's seconds (the line "elapsed"), the kernels line (each
 entry with its launches on the main path it
-was first ported for, and launches_models: its launches in phases 28-38),
+was first ported for, and launches_models: its launches in phases 28-40),
 and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
 printing any result. With --parent DIR (a parent commit's
@@ -308,7 +330,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from justrelax_tpu_torch.core.grid import Geometry  # noqa: E402
+from justrelax_tpu_torch.core.grid import Geometry, NonuniformGeometry  # noqa: E402
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs, PTThermalCoeffs  # noqa: E402
 from justrelax_tpu_torch.core.state import StokesState, ThermalState  # noqa: E402
 from justrelax_tpu_torch.models import (  # noqa: E402
@@ -341,6 +363,7 @@ from justrelax_tpu_torch.models import (  # noqa: E402
 from justrelax_tpu_torch.models import (  # noqa: E402
     crameri2d,
     rayleigh_taylor,
+    shearband_refined,
     subduction2d,
     subduction3d,
     volcano2d,
@@ -370,6 +393,7 @@ from justrelax_tpu_torch.solvers import thermal as solver_thermal  # noqa: E402
 from justrelax_tpu_torch.solvers.stokes3d import kernel_chunk_inputs  # noqa: E402
 from justrelax_tpu_torch.solvers.thermal import heatdiffusion_PT  # noqa: E402
 from justrelax_tpu_torch.ops.stencil import av_vertex_to_center, expand_edges, maxloc  # noqa: E402
+from justrelax_tpu_torch.ops.stokes import spacing_families_2d  # noqa: E402
 from justrelax_tpu_torch.ops.stokes3d_canvas import pack_carry, ve3d_canvas_coefficients  # noqa: E402
 from justrelax_tpu_torch.ops.stokes3d_vep_canvas import (  # noqa: E402
     VEP3DCanvasCarry,
@@ -1208,19 +1232,25 @@ def main():
     b8_line = run_vep3d_chunk(dev, smi, kind, bench, tau_edges)
     r_line = run_window_copy(dev, smi, kind)
     # phase 36's longest goldens run in processes of their own beside phase
-    # 28's, whose processes wait on the host's dispatch
-    var_procs = start_goldens(VARIATIONAL_APART)
-    var_apart = {}
+    # 28's, whose processes wait on the host's dispatch; phase 39 runs in
+    # this process while they do (phase 40, a timing, after phase 38)
+    procs = start_goldens(VARIATIONAL_APART)
+    apart, nonuniform_launches = {}, {}
     try:
-        model_launches = run_models(dev, smi, before_29=lambda: var_apart.update(
-            finish_goldens(var_procs, "golden_variational")))
+        model_launches = run_models(
+            dev, smi, before_29=lambda: apart.update(finish_goldens(procs, "golden_variational")),
+            beside_28=lambda: nonuniform_launches.update(run_nonuniform_parity(dev, smi)))
     finally:
-        stop_processes(var_procs)
+        stop_processes(procs)
     for kernel, by_phase in run_dyrel(dev, smi, kind).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
     for kernel, by_phase in run_particles(dev, smi).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
-    for kernel, by_phase in run_variational(dev, smi, kind, var_apart).items():
+    for kernel, by_phase in run_variational(dev, smi, kind, apart).items():
+        model_launches.setdefault(kernel, {}).update(by_phase)
+    for kernel, by_phase in nonuniform_launches.items():
+        model_launches.setdefault(kernel, {}).update(by_phase)
+    for kernel, by_phase in run_nonuniform_production(dev, smi, kind).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
     lines = [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line, b8_line, r_line]
     per_iter = launches_per_iteration(dev)
@@ -2810,13 +2840,13 @@ DIFFUSION3D_T = {(15, 15, 15): 1813.2470160788096, (16, 16, 16): 1831.2568044653
 YR = 3600.0 * 24.0 * 365.25
 # production runs and their cuts: the sinking block on the flagship's
 # budget (40 000 iterations, the model's own cap 150 000); the thermal
-# stresses' plain alpha_dT Stokes solve capped at 20 000 (the model's
-# 100 000: ~1 ms per iteration on the host's dispatch); one time step of
-# each model (the JAX tests run 2, 3 and 10); the models' other caps as
-# they are
+# stresses' plain alpha_dT Stokes solve capped at 6 000 (the model's
+# 100 000: ~1.2-1.8 ms per iteration on the host's dispatch; 20 000 until
+# the nonuniform phases needed the script's time); one time step of each
+# model (the JAX tests run 2, 3 and 10); the models' other caps as they are
 PROD = {
     "sinking_block": dict(n=1024, iter_max=40_000, nout=1_000),
-    "thermal_stresses": dict(nx=1024, ny=1024, nt=1, stokes_iter_max=20_000),
+    "thermal_stresses": dict(nx=1024, ny=1024, nt=1, stokes_iter_max=6_000),
     "shearheating3d": dict(nx=126, ny=126, nz=126, nt=1),
     "diffusion3d": dict(n=126, ttot=50 * diffusion3d.KYR),
 }
@@ -2961,7 +2991,7 @@ def golden_apart(label):
     for mod in (hv, hs, ht, h3):
         mod._library()  # built by the phase's process
     cases = {**golden_cases(), **dyrel_golden_cases(), **particle_golden_cases(),
-             **variational_golden_cases()}
+             **variational_golden_cases(), **nonuniform_golden_cases()}
     print(json.dumps(golden_result(label, cases[label][0])), flush=True)
 
 
@@ -3004,9 +3034,10 @@ def solves_summary(calls):
     return out
 
 
-def run_models(dev, smi, before_29=None):
+def run_models(dev, smi, before_29=None, beside_28=None):
     """Phases 27-29; returns the launches of each kernel per model phase.
-    ``before_29`` is called between phases 28 and 29."""
+    ``beside_28`` is called while phase 28's golden processes run on, after
+    its goldens here; ``before_29`` between phases 28 and 29."""
     f64, f32 = torch.float64, torch.float32
     launches = {}
 
@@ -3035,7 +3066,8 @@ def run_models(dev, smi, before_29=None):
     # host's dispatch of plain PyTorch iterations holds longest run in
     # processes of their own beside the others (the card has room to spare;
     # phase 29's timings start after every one has ended)
-    run_golden_set(golden_cases(), "golden_models", smi, launches, apart=GOLDENS_APART)
+    run_golden_set(golden_cases(), "golden_models", smi, launches, apart=GOLDENS_APART,
+                   beside=beside_28)
 
     if before_29 is not None:
         before_29()
@@ -3126,11 +3158,12 @@ MODEL_KERNEL.update({
     "dyrel_nonlinear": None,
     "shearband_displacement": "stokes_vep_chunk",
 })
-# the DYREL band at the flagship's grid, one step, at most 20 000 DR
-# iterations (the model's caps are 50 000 each): total_iter_max is checked
-# between inner solves, so each inner solve is capped at 10 000 and a second
-# one starts only below 10 000 in all
-PROD["shearband_dyrel"] = dict(n=1024, nt=1, iter_max=10_000, total_iter_max=10_000)
+# the DYREL band at the flagship's grid, one step, at most 10 000 DR
+# iterations (the model's caps are 50 000 each; 20 000 until the nonuniform
+# phases needed the script's time): total_iter_max is checked between inner
+# solves, so each inner solve is capped at 5 000 and a second one starts
+# only below 5 000 in all
+PROD["shearband_dyrel"] = dict(n=1024, nt=1, iter_max=5_000, total_iter_max=5_000)
 # phase 30's goldens in processes of their own: the longest replays
 DYREL_APART = ("thermal_stresses_dyrel", "dyrel_nonlinear", "sinking_block_dyrel")
 DYREL_CARRIED = ("Vx", "Vy", "lam", "lam_v", "dVx", "dVy", "Rx", "Ry", "eta", "eta_v")
@@ -3323,6 +3356,10 @@ def dyrel_chunks():
     CUDA events around each replay. Yields a dict with ``solves`` (the
     objects, in order), ``capture_s`` and ``replays`` ((start, end, nout))."""
     rec = {"solves": [], "capture_s": [], "replays": []}
+    # run_chunk is GraphedChunk's: the exit deletes the shim rather than
+    # pinning that function on the class, which would hide it from
+    # variational_chunks' wrapper
+    own = "run_chunk" in vars(solver_dyrel._DyrelSolve)
     orig = solver_dyrel._DyrelSolve.run_chunk
 
     def shim(self, nout):
@@ -3343,7 +3380,10 @@ def dyrel_chunks():
     try:
         yield rec
     finally:
-        solver_dyrel._DyrelSolve.run_chunk = orig
+        if own:
+            solver_dyrel._DyrelSolve.run_chunk = orig
+        else:
+            del solver_dyrel._DyrelSolve.run_chunk
 
 
 def dyrel_carried(s):
@@ -3539,7 +3579,7 @@ def run_dyrel(dev, smi, kind):
         check(ic.iters == ih.iters, f"dyrel_card_vs_cpu {label}: iterations differ")
         check(not over, f"dyrel_card_vs_cpu {label}: over the limit: {over}")
 
-    # ---- 32. the DYREL band at 1024^2 f32, one step, 20 000 DR iterations at
+    # ---- 32. the DYREL band at 1024^2 f32, one step, 10 000 DR iterations at
     # most; then the per-iteration numbers at 32^2 f64 (the goldens' grid)
     for n, dtype, kw in ((1024, f32, PROD["shearband_dyrel"]), (32, f64, dict(n=32, nt=1))):
         torch.cuda.synchronize()
@@ -4087,10 +4127,12 @@ VARIATIONAL_APART = ("volcano2d", "volcano2d_dyrel", "run_plume_variational",
 # solves (130 000 graphed iterations) took 293 s as a fifth process and put
 # the script past 800 s
 VARIATIONAL_MOVED = ("subduction3d", "run_plume", "subduction2d", "crameri2d")
-# phase 38's two production steps and their cuts: one step each; the 3D
-# subduction's Stokes cap cut to one nout (1 000; the model's 60 000), set
-# on its solve_vep_3d calls
-PROD["rayleigh_taylor"] = dict(nx=1024, ny=1024, nt=1, iter_max=10_000)
+# phase 38's two production steps and their cuts: one step each; the
+# overturn's Stokes cap 6 000 (three of its 2 000-iteration chunks; the
+# model's 50 000; 10 000 until the nonuniform phases needed the script's
+# time); the 3D subduction's Stokes cap cut to one nout (1 000; the model's
+# 60 000), set on its solve_vep_3d calls
+PROD["rayleigh_taylor"] = dict(nx=1024, ny=1024, nt=1, iter_max=6_000)
 PROD["subduction3d"] = dict(nx=252, ny=96, nz=84, nt=1)
 SUBDUCTION3D_STOKES_CAP = 1_000
 CM_YR = 1.0e-2 / (365.25 * 24 * 3600)
@@ -4215,12 +4257,14 @@ def sphere_setup(ni, dtype, dev, air_z=1.0, lz=4.0 / 3.0):
             torch.tensor(math.inf, **f), phi, phases)
 
 
-def masked_vep3d_setup(n, dtype, dev):
+def masked_vep3d_setup(n, dtype, dev, geometry=None):
     """The masked 3D VEP solve's set-up of tests/test_torch_variational3d.py
-    at n³: a plastic crust, a stiff sphere and sticky air, elastic;
-    (solve_vep_3d's arguments, the rock ratio)."""
-    ni = (n, n, n)
-    geometry = Geometry(ni, (1.0, 1.0, 1.0))
+    at n³ on the unit cube, or on ``geometry``: a plastic crust, a stiff
+    sphere and sticky air, elastic; (solve_vep_3d's arguments, the rock
+    ratio)."""
+    if geometry is None:
+        geometry = Geometry((n, n, n), (1.0, 1.0, 1.0))
+    ni = geometry.ni
     st = StokesState.make(ni, dtype=dtype, device=dev)
     f = dict(dtype=st.P.dtype, device=st.P.device)
     x, y, z = geometry.cell_centers_mesh()
@@ -4623,18 +4667,21 @@ def stop_processes(procs):
             proc.wait()
 
 
-def run_golden_set(cases, phase, smi, launches, apart=(), apart_results=None):
+def run_golden_set(cases, phase, smi, launches, apart=(), apart_results=None, beside=None):
     """Run a phase's goldens: those in ``apart`` in processes of their own,
     started here and run beside the others; those whose results
     ``apart_results`` already holds (their processes ran earlier); the rest
-    here. Emit each with its checks: its own assertions, the kernel its
-    model routes through launched (its count added to ``launches``) and no
-    other. Returns the results."""
+    here, and then ``beside()`` while the processes run on. Emit each with
+    its checks: its own assertions, the kernel its model routes through
+    launched (its count added to ``launches``) and no other. Returns the
+    results."""
     done = dict(apart_results or {})
     procs = start_goldens(apart)
     try:
         here = {label: golden_result(label, cases[label][0])
                 for label in cases if label not in procs and label not in done}
+        if beside is not None:
+            beside()
         done.update(finish_goldens(procs, phase))
     finally:
         stop_processes(procs)
@@ -4817,6 +4864,429 @@ def run_variational(dev, smi, kind, apart_results):
     check(sum(c.values()) == 0, "main_path_variational subduction3d: a kernel launched")
     for kernel, n in c.items():
         launches.setdefault(kernel, {})["production_subduction3d"] = n
+    return launches
+
+
+# ---- nonuniform grids: phases 39-40 -------------------------------------------
+# The nonuniform paths run plain PyTorch by contract (every kernel needs a
+# uniform grid), so no kernel of the port launches in them.
+MODEL_KERNEL.update({"shearband_refined": None, "shearband_refined_preyield": None})
+# the refined band's full golden (n=32, nt=10: 528 s of plain iterations,
+# each the host's dispatch of ~480 kernels) runs as the slow cuda test
+# test_shearband_refined_golden_f64; phase 39 keeps its first three steps
+# (65 s alone)
+NONUNIFORM_MOVED = ("shearband_refined",)
+# frozen f64 values of the JAX model (justrelax_tpu/models/shearband_refined.py,
+# run(n=32, nt=3) on the CPU with x64): the last step's iterations and err,
+# max τxx per step, τII's extrema and max |P|
+REFINED_PREYIELD = dict(
+    iters=3700, err=2.2797733028405224e-08,
+    tau_max=(0.4285850368787478, 0.7679284703691031, 1.0363118316654834),
+    tII_min=0.7022053935743188, tII_max=1.0359814777587428, P_max=0.2788397853490647)
+# phase 40: one step of the refined band at the flagship's grid, its Stokes
+# cap cut to 2 000 (the model's 50 000) through a wrapper of its solver
+PROD["shearband_refined"] = dict(n=1024, nt=1)
+SHEARBAND_REFINED_STOKES_CAP = 2_000
+NONUNIFORM_LABELS = ("ve", "vep", "thermal", "explicit", "dyrel", "variational", "ve3d",
+                     "vep3d", "vep3d_phi", "variational3d")
+NONUNIFORM_CARD_VS_CPU = 1e-12  # of each field's max (the residuals: their terms' scale)
+
+
+def tanh_vertices(n, length=1.0, beta=1.5):
+    """n + 1 tanh-clustered vertices on [0, length], refined at the center."""
+    s = np.linspace(-1.0, 1.0, n + 1)
+    return 0.5 * length * (np.tanh(beta * s) / np.tanh(beta) + 1.0)
+
+
+def nonuniform_solve(label, d):
+    """Phase 39's solve ``label`` on device ``d`` in f64, on a tanh-stretched
+    grid of a few hundred cells (24 × 20 in 2D, 8 × 7 × 6 in 3D), a fixed
+    count of iterations (``iter_max = nout``; DYREL three outer iterations
+    of one 50-iteration chunk each; the explicit step ten steps, no info):
+    (state, info, the residuals' scale: the momentum residuals' body force,
+    or the thermal residual's terms ρCp·T/dt + ∇·q)."""
+    from justrelax_tpu_torch.models import taylor_green
+    from justrelax_tpu_torch.solvers import thermal_explicit as te
+    from justrelax_tpu_torch.solvers.stokes2d_variational import solve_variational
+    from justrelax_tpu_torch.solvers.stokes3d_variational import solve_variational_3d
+
+    f = dict(dtype=torch.float64, device=d)
+    t = functools.partial(torch.as_tensor, **f)
+    faces2 = Faces(left=True, right=True, top=True, bot=True)
+    faces3 = Faces(left=True, right=True, top=True, bot=True, front=True, back=True)
+    if label in ("ve3d", "vep3d", "vep3d_phi", "variational3d"):
+        g = NonuniformGeometry((tanh_vertices(8, 1.0, 1.2), tanh_vertices(7, 1.0, 1.5),
+                                tanh_vertices(6, 1.0, 1.0)))
+    else:
+        g = NonuniformGeometry((tanh_vertices(24), tanh_vertices(20, 1.0, 2.0)))
+    ni = g.ni
+    X, Y = g.cell_centers_mesh()[:2]
+    if label == "ve":
+        st = StokesState.make(ni, **f)
+        eta = 1.0 + 0.5 * np.cos(2.0 * np.pi * X) * np.cos(np.pi * Y)
+        st = st.replace(viscosity=st.viscosity.replace(eta=t(eta)))
+        rho = np.where(Y > 0.7, 0.1, 1.0 + 0.3 * np.sin(np.pi * X))
+        pt = PTStokesCoeffs.make(g.li, g.di, CFL=1.0 / math.sqrt(2.1))
+        st, info = solver_ve.solve_ve(
+            st, pt, g, VelocityBoundaryConditions(free_slip=faces2), (t(0 * rho), t(rho)),
+            t(np.ones(ni)), t(np.full(ni, 10.0)), 0.05, iter_max=500, nout=500,
+            free_surface=True, use_kernel=False)
+        return st, info, 1.3
+    if label == "vep":  # pure shear round a softer inclusion, yielding in the second step
+        common = dict(Kb=4.0, eta0=1.0, is_plastic=1.0, C=0.6 / math.cos(math.radians(30.0)),
+                      friction_angle=30.0, eta_reg=8.0e-3)
+        mat = MaterialStack.make([Material(G=1.0, **common), Material(G=0.5, **common)], **f)
+        pr_c = t(_circle_phase_ratios(g.xci[0], g.xci[1], (0.45, 0.55), 0.15))
+        pr_v = t(_circle_phase_ratios(g.xvi[0], g.xvi[1], (0.45, 0.55), 0.15))
+        st = StokesState.make(ni, **f)
+        bc = VelocityBoundaryConditions(free_slip=faces2)
+        Vx = t(np.broadcast_to(g.xvi[0][:, None], (ni[0] + 1, ni[1] + 2)).copy())
+        Vy = t(np.broadcast_to(-g.xvi[1][None, :], (ni[0] + 2, ni[1] + 1)).copy())
+        Vx, Vy = flow_bcs((Vx, Vy), bc)
+        st = st.replace(V=st.V.replace(Vx=Vx, Vy=Vy),
+                        viscosity=st.viscosity.replace(eta=t(np.ones(ni))))
+        pt = PTStokesCoeffs.make(g.li, g.di, eps_rel=1.0e-8, eps_abs=1.0e-8,
+                                 CFL=0.9 / math.sqrt(2.1))
+        for _ in range(2):
+            st, info = solver_vep.solve_vep(st, pt, g, bc, mat, pr_c, pr_v, 0.25, iter_max=200,
+                                            iter_min=100, nout=200, use_kernel=False)
+        return st, info, 1.0
+    if label in ("thermal", "explicit"):
+        rng = np.random.default_rng(4)
+        bc = TemperatureBoundaryConditions(no_flux=Faces(left=True, right=True),
+                                           constant_value=Faces(top=0.0, bot=1.0))
+        T = thermal_bcs(t(rng.random((ni[0] + 2, ni[1] + 2))), bc)
+        K, rc = t(rng.uniform(0.5, 2.0, ni)), t(rng.uniform(0.8, 1.2, ni))
+        th = ThermalState.make(ni, **f).replace(T=T, Told=T, H=t(0.1 * rng.random(ni)))
+        if label == "thermal":
+            pt = PTThermalCoeffs.make(K, rc, 0.05, g.di, g.li)
+            th, info = heatdiffusion_PT(th, pt, bc, 0.05, g, K=K, rho_Cp=rc, iter_max=500,
+                                        nout=500, use_kernel=False)
+            # ResT's terms: ρCp·T/dt and ∇·q (max |q| over the narrowest cell)
+            scale = (float(rc.max() * th.T.abs().max()) / 0.05
+                     + max(float(q.abs().max()) for q in (th.qTx2, th.qTy2)) / min(g.di))
+            return th, info, scale
+        params = te.ThermalParameters.make(K, rc)
+        V = tuple(t(rng.standard_normal(tuple(n + 1 if a == c else n + 2
+                                              for a, n in enumerate(ni)))) for c in range(2))
+        th = te.solve_explicit(th, params, g, bc, 0.5 * te.stable_dt_explicit(params, g.di), 10,
+                               V=V)
+        return th, None, None
+    if label == "dyrel":  # the DYREL shear band's two phases, one step
+        common = dict(rho0=0.0, Kb=5.0, eta0=1.0, is_plastic=1.0,
+                      C=1.6 / math.cos(math.radians(30.0)), friction_angle=30.0, eta_reg=8e-3)
+        mat = MaterialStack.make([Material(G=1.0, **common), Material(G=0.5, **common)], **f)
+        bc = VelocityBoundaryConditions(free_slip=faces2)
+        st = StokesState.make(ni, **f)
+        Vx = t(np.broadcast_to(g.xvi[0][:, None], (ni[0] + 1, ni[1] + 2)).copy())
+        Vy = t(np.broadcast_to(-g.xvi[1][None, :], (ni[0] + 2, ni[1] + 1)).copy())
+        Vx, Vy = flow_bcs((Vx, Vy), bc)
+        st = st.replace(V=st.V.replace(Vx=Vx, Vy=Vy))
+        pr_c = t(_circle_phase_ratios(g.xci[0], g.xci[1], (0.5, 0.5), 0.15))
+        pr_v = t(_circle_phase_ratios(g.xvi[0], g.xvi[1], (0.5, 0.5), 0.15))
+        st, info = solver_dyrel.solve_dyrel(st, g, bc, mat, pr_c, pr_v, 0.25, eps=1e-30,
+                                            nout=50, iter_max=50, max_ph=3)
+        return st, info, 1.0
+    if label == "variational":  # a dense blob under sticky air
+        phase = np.zeros(ni, dtype=int)
+        phase[Y > 0.75] = 1
+        phase[(X - 0.5) ** 2 + (Y - 0.4) ** 2 <= 0.15**2] = 2
+        pr = phase_ratios_from_field(torch.as_tensor(phase, device=d), 3, dtype=f["dtype"])
+        mat = MaterialStack.make([Material(rho0=1.0, eta0=1.0, gravity=10.0),
+                                  Material(rho0=0.0, eta0=1.0e-3, gravity=10.0),
+                                  Material(rho0=2.0, eta0=1.0, gravity=10.0)], **f)
+        pt = PTStokesCoeffs.make(g.li, g.di, eps_rel=1e-6, CFL=1.0 / math.sqrt(2.1))
+        st, info = solve_variational(
+            StokesState.make(ni, **f), pt, g, VelocityBoundaryConditions(free_slip=faces2), mat,
+            pr.center, pr.vertex, update_rock_ratio(pr, air_phase=1), math.inf, iter_max=300,
+            nout=300)
+        return st, info, 20.0
+    if label == "ve3d":  # the stretched Taylor-Green
+        _, st, info = taylor_green.run(iter_max=200, nout=200, geometry=g, dtype=f["dtype"],
+                                       device=d)
+        return st, info, 36.0 * math.pi**2
+    x, y, z = g.cell_centers_mesh()
+    bc = VelocityBoundaryConditions(free_slip=faces3)
+    st = StokesState.make(ni, **f)
+    if label == "variational3d":  # a sphere under sticky air
+        phases = np.where(z > 0.7, 2, np.where((x - 0.5) ** 2 + (y - 0.5) ** 2
+                                               + (z - 0.4) ** 2 < 0.25**2, 1, 0))
+        pr = phase_ratios_from_field(torch.as_tensor(phases, device=d), 3, dtype=f["dtype"])
+        st = st.replace(viscosity=st.viscosity.replace(eta=t(np.where(phases == 1, 10.0, 1.0))))
+        rho = t(np.where(phases == 2, 0.0, np.where(phases == 1, 2.0, 1.0)))
+        pt = PTStokesCoeffs.make(g.li, g.di, CFL=1.0 / math.sqrt(3.0), eps_rel=1.0e-6)
+        inf = t(np.full(ni, math.inf))
+        st, info = solve_variational_3d(st, pt, g, bc, (0 * rho, 0 * rho, rho), inf,
+                                        t(math.inf), update_rock_ratio_3d(pr, air_phase=2),
+                                        math.inf, iter_max=200, nout=200)
+        return st, info, 2.0
+    pt = PTStokesCoeffs.make(g.li, g.di, CFL=0.9 / math.sqrt(3.1), eps_rel=1.0e-6)
+    kw = dict(iter_max=100, iter_min=100, nout=100, use_kernel=False)
+    if label == "vep3d_phi":  # a plastic crust, a stiff sphere and sticky air
+        args, phi = masked_vep3d_setup(None, f["dtype"], d, geometry=g)
+        st, info = solve_vep_3d(*args, phi=phi, **kw)
+        return st, info, 2.0
+    # pure shear in x-z round a softer sphere, two steps
+    phases = ((x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.4) ** 2 < 0.25**2).astype(int)
+    pr = phase_ratios_from_field(torch.as_tensor(phases, device=d), 2, dtype=f["dtype"])
+    common = dict(rho0=0.0, Kb=4.0, eta0=1.0, is_plastic=1.0,
+                  C=0.6 / math.cos(math.radians(30.0)), friction_angle=30.0, eta_reg=8.0e-3)
+    mat = MaterialStack.make([Material(G=1.0, **common), Material(G=0.5, **common)], **f)
+    Vx = np.broadcast_to(g.xvi[0][:, None, None], (ni[0] + 1, ni[1] + 2, ni[2] + 2))
+    Vz = np.broadcast_to(-g.xvi[2][None, None, :], (ni[0] + 2, ni[1] + 2, ni[2] + 1))
+    st = st.replace(V=st.V.replace(Vx=t(Vx.copy()), Vz=t(Vz.copy())),
+                    viscosity=st.viscosity.replace(eta=t(np.ones(ni))))
+    for _ in range(2):
+        st, info = solve_vep_3d(st, pt, g, bc, mat, pr.center,
+                                (pr.edge_yz, pr.edge_xz, pr.edge_xy), 0.25, **kw)
+    return st, info, 1.0
+
+
+def nonuniform_field_diffs(a, b, res_scale):
+    """max |a − b| of every field of two states over max |b|; the momentum
+    residuals over their terms' scale (max |P|, |τ| times the cells per
+    axis, plus ``res_scale``, max |ρg|), RP and ∇·V over max |V| times the
+    cells per axis, the thermal residual over ``res_scale`` (0 where
+    equal)."""
+    scales = {} if res_scale is None else {"ResT": res_scale}
+    if hasattr(b, "V"):
+        n = max(b.P.shape)
+        V = [getattr(b.V, k) for k in ("Vx", "Vy", "Vz") if getattr(b.V, k) is not None]
+        vmax = max(float(v.abs().max()) for v in V) * n * 4
+        terms = max(float(x.abs().max()) for x in (b.P, b.tau.xx, b.tau.yy, b.tau.xy))
+        scales = {"R.Rx": terms * n * 4 + res_scale, "R.Ry": terms * n * 4 + res_scale,
+                  "R.Rz": terms * n * 4 + res_scale, "R.RP": vmax, "grad_V": vmax}
+    out = {}
+    for name, x, y in flat_state(a, b):
+        d = float((x.cpu() - y).abs().nan_to_num(0.0).max())
+        scale = scales.get(name, float(y.abs().nan_to_num(0.0).max()))
+        out[name] = 0.0 if d == 0.0 else d / scale
+    return out
+
+
+def nonuniform_golden_cases():
+    """Phase 39's goldens: the refined shear band through its entry point on
+    the card, f64, n=32, on tests/test_shearband_refined.py's assertions:
+    its first three (pre-yield) steps here, held also to the JAX model's
+    frozen values (REFINED_PREYIELD); all ten as the slow cuda test."""
+    f64 = torch.float64
+
+    def g_refined(nt):
+        def run():
+            st, info, tau_max, sol, tII = shearband_refined.run(n=32, nt=nt, dtype=f64)
+            return dict(iters=int(info.iters), err=float(info.err), tau_max=tau_max, sol=sol,
+                        tII_min=float(tII.min()), tII_max=float(tII.max()),
+                        P_max=float(st.P.abs().max()))
+        return run
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    return {
+        "shearband_refined_preyield": (g_refined(3), lambda g: [
+            ("err", g["err"] < 1e-6),
+            ("analytic curve", all(abs(a - s) <= 4e-2 * abs(s)
+                                   for a, s in zip(g["tau_max"], g["sol"]))),
+            ("iterations as JAX", g["iters"] == REFINED_PREYIELD["iters"]),
+            ("tau_max as JAX", all(rel(a, b) <= 1e-9 for a, b in
+                                   zip(g["tau_max"], REFINED_PREYIELD["tau_max"]))),
+            ("tauII and P as JAX", all(rel(g[k], REFINED_PREYIELD[k]) <= 1e-9
+                                       for k in ("tII_min", "tII_max", "P_max")))]),
+        "shearband_refined": (g_refined(10), lambda g: [
+            ("err", g["err"] < 1e-6),
+            ("analytic curve", all(abs(a - s) <= 4e-2 * abs(s)
+                                   for a, s in zip(g["tau_max"][:5], g["sol"][:5]))),
+            ("tauII min", abs(g["tII_min"] - 1.51336) <= 2e-3),
+            ("tauII max", abs(g["tII_max"] - 1.63926) <= 2e-3),
+            ("tauII min uniform", abs(g["tII_min"] - 1.49798) <= 2e-2),
+            ("tauII max uniform", abs(g["tII_max"] - 1.64485) <= 1e-2),
+            ("txx max last", abs(g["tau_max"][-1] - 1.64586) <= 2e-3)]),
+    }
+
+
+def stretched_refusals(dev):
+    """Each kernel route asked for on a stretched grid, on the card: the
+    error's text, by route (``None`` where nothing was raised)."""
+    f = dict(dtype=torch.float64, device=dev)
+    g2 = NonuniformGeometry((tanh_vertices(8), tanh_vertices(6)))
+    g3 = NonuniformGeometry((tanh_vertices(6), tanh_vertices(5), tanh_vertices(4)))
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+
+    st2, z2 = StokesState.make(g2.ni, **f), torch.zeros(g2.ni, **f)
+    pt2 = PTStokesCoeffs.make(g2.li, g2.di)
+    bc2 = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True))
+    mat = MaterialStack.make([Material(G=1.0, Kb=4.0)], **f)
+    th = ThermalState.make(g2.ni, **f)
+    tbc = TemperatureBoundaryConditions(constant_value=Faces(top=0.0, bot=1.0))
+    one = torch.ones(g2.ni, **f)
+    for route in (None, True, "blocked"):
+        attempt(f"solve_ve[{route}]", lambda: solver_ve.solve_ve(
+            st2, pt2, g2, bc2, (z2, z2), z2 + math.inf, math.inf, math.inf, iter_max=10,
+            nout=10, use_kernel=route))
+        attempt(f"solve_vep[{route}]", lambda: solver_vep.solve_vep(
+            st2, pt2, g2, bc2, mat, None, None, 0.25, iter_max=10, nout=10, use_kernel=route))
+    for route in (None, True):
+        attempt(f"heatdiffusion_PT[{route}]", lambda: heatdiffusion_PT(
+            th, PTThermalCoeffs.make(one, one, 0.3, g2.di, g2.li), tbc, 0.3, g2, K=one,
+            rho_Cp=one, iter_max=10, nout=10, use_kernel=route))
+    st3, z3 = StokesState.make(g3.ni, **f), torch.zeros(g3.ni, **f)
+    pt3 = PTStokesCoeffs.make(g3.li, g3.di)
+    bc3 = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True,
+                                                     front=True, back=True))
+    for route in (None, True, "blocked"):
+        attempt(f"solve_ve_3d[{route}]", lambda: solver_ve3d.solve_ve_3d(
+            st3, pt3, g3, bc3, (z3, z3, z3), z3 + math.inf, z3 + math.inf, math.inf,
+            iter_max=10, nout=10, use_kernel=route))
+    for route in (None, True, "edges", "edges_split", "blocked", "canvas"):
+        attempt(f"solve_vep_3d[{route}]", lambda: solve_vep_3d(
+            st3, pt3, g3, bc3, mat, None, (None, None, None), 0.25, iter_max=10, nout=10,
+            use_kernel=route))
+    return out
+
+
+def record_counts(launches, key):
+    """Each kernel's launch count into ``launches[kernel][key]``."""
+    for kernel, n in counts().items():
+        launches.setdefault(kernel, {})[key] = n
+
+
+def run_nonuniform_parity(dev, smi):
+    """Phase 39; returns each kernel's launches per case (all 0: the
+    nonuniform paths run plain by contract). It takes no timing, so it runs
+    while phase 28's golden processes wait on the host."""
+    launches = {}
+
+    # ---- 39. nonuniform goldens, f64: every ported solver on a stretched
+    # grid, card against CPU with equal iterations
+    for label in NONUNIFORM_LABELS:
+        reset_counts()
+        t0 = time.perf_counter()
+        with variational_chunks() as rec:
+            sc, ic, res_scale = nonuniform_solve(label, dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        record_counts(launches, f"nonuniform_{label}")
+        sh, ih, _ = nonuniform_solve(label, torch.device("cpu"))
+        worst = nonuniform_field_diffs(sc, sh, res_scale)
+        over = {k: v for k, v in worst.items() if v > NONUNIFORM_CARD_VS_CPU}
+        iters = (None, None) if ic is None else (int(ic.iters), int(ih.iters))
+        emit("nonuniform_card_vs_cpu", case=label, grid=list(sc.P.shape if hasattr(sc, "P")
+                                                              else sc.T.shape),
+             iters_card=iters[0], iters_cpu=iters[1], card_s=card_s,
+             max_rel_diff=max(worst.values()), worst_field=max(worst, key=worst.get),
+             bit_equal=max(worst.values()) == 0.0, launches=counts(), per_field=worst,
+             **replays_summary(rec))
+        check(iters[0] == iters[1], f"nonuniform_card_vs_cpu {label}: iterations")
+        check(not over, f"nonuniform_card_vs_cpu {label}: over {NONUNIFORM_CARD_VS_CPU}: {over}")
+        check(sum(counts().values()) == 0, f"nonuniform_card_vs_cpu {label}: a kernel launched")
+        # every graphed chunk: its replay against the chunk run eagerly from
+        # the same state, bit for bit
+        if label in ("dyrel", "variational", "variational3d"):
+            check(len(rec["solves"]) == 1, f"nonuniform_graph_parity {label}: no graph recorded")
+        for s in rec["solves"]:
+            n = s.graph_iterations
+            saved = [x.clone() for x in s.carried()]
+            s.chunk(n)
+            eager = [x.clone() for x in s.carried()]
+            for x, v in zip(s.carried(), saved):
+                x.copy_(v)
+            s.replay()
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(s.carried(), eager))
+            moved = any(not torch.equal(a, b) for a, b in zip(eager, saved))
+            emit("nonuniform_graph_parity", case=label, solve=type(s).__name__, iterations=n,
+                 bit_equal=equal, moved=moved)
+            check(equal, f"nonuniform_graph_parity {label}: the replay differs from the eager "
+                         "chunk")
+            check(moved, f"nonuniform_graph_parity {label}: the chunk did not move the state")
+    cases = {k: v for k, v in nonuniform_golden_cases().items() if k not in NONUNIFORM_MOVED}
+    emit("golden_nonuniform_moved", cases=NONUNIFORM_MOVED,
+         test="tests/test_torch_cuda.py::test_shearband_refined_golden_f64 (slow, cuda)")
+    results = run_golden_set(cases, "golden_nonuniform", smi, launches)
+    for label, g in results.items():
+        for kernel, n in g["all_launches"].items():
+            launches.setdefault(kernel, {})[f"golden_{label}"] = n
+    refusals = stretched_refusals(dev)
+    emit("nonuniform_refusals", **refusals)
+    for key, msg in refusals.items():
+        check(msg is not None and "use_kernel=False" in msg,
+              f"nonuniform_refusals {key}: {msg!r}")
+    return launches
+
+
+def run_nonuniform_production(dev, smi, kind):
+    """Phase 40; returns each kernel's launches in it (all 0)."""
+    f32 = torch.float32
+    launches = {}
+
+    # ---- 40. shearband-refined-1024-f32: one step at the flagship's grid on
+    # the plain path, beside the uniform flagship's B2/B3 per iteration
+    calls = []
+    solve = shearband_refined.solve_vep
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with timed_solves(shearband_refined, "solve_vep") as solves:
+        timed = shearband_refined.solve_vep
+
+        def cap_stokes(*a, **k):  # the cap, seen by the timing as the call's own
+            k = dict(k, iter_max=SHEARBAND_REFINED_STOKES_CAP)
+            calls.append((a, k))
+            return timed(*a, **k)
+
+        shearband_refined.solve_vep = cap_stokes  # the timing's exit restores the solver
+        st, info, tau_max, _, tII = shearband_refined.run(dtype=f32, device=dev,
+                                                          **PROD["shearband_refined"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    record_counts(launches, "production_shearband_refined")
+    split = solves_summary(solves)
+    iters = int(info.iters)
+    args, kwargs = calls[0]
+
+    def short(k):
+        return lambda: solve(*args, **dict(kwargs, iter_max=k, iter_min=0, nout=k))
+
+    n10, n5 = (profiled_launches(short(k), warm_up=False) for k in (10, 5))
+    st0, pt, geometry, material, pr_c, pr_v, dt = (args[0], args[1], args[2], args[4],
+                                                   args[5], args[6], args[7])
+    words = hv.vep_chunk_words(*chunk_inputs_from_state(st0, material, pr_c, pr_v, geometry,
+                                                        pt, dt))
+    inv_dx, inv_dy, strain_v, mom = spacing_families_2d(geometry, st0.P)
+    spacing_bytes = sum(x.numel() * x.element_size()
+                        for x in (inv_dx, inv_dy, *strain_v.values(), *mom))
+    n_cells = st.P.numel()
+    bound = (words * n_cells * 4 + spacing_bytes) / HBM_PEAK[kind] * 1e3
+    # the uniform flagship's B2/B3 per iteration, measured again here
+    n = PROD["shearband_refined"]["n"]
+    geometry_u, material_u, pr_cu, pr_vu, st_u, pt_u, _ = shearband._setup(
+        n, dict(rho0=0.0, Kb=4.0, eta0=1.0, is_plastic=1.0,
+                C=1.6 / math.cos(math.radians(30.0)), friction_angle=30.0,
+                eta_reg=8.0e-3), 0.5, f32, dev, eps_rel=1.0e-6, CFL=0.75 / math.sqrt(2.1))
+    uargs = chunk_inputs_from_state(st_u, material_u, pr_cu, pr_vu, geometry_u, pt_u, 0.25)
+    saved = counts()
+    b23_ms = [cuda_time_ms(lambda: hv.stokes_vep_chunk(*uargs, nout=500)) / 500
+              for _ in range(2)]
+    restore_counts(saved)
+    finite = all(bool(torch.isfinite(x).all()) for x in (st.V.Vx, st.V.Vy, st.P, tII))
+    emit("main_path_nonuniform", case="shearband-refined-1024-f32",
+         grid=dict(PROD["shearband_refined"], stokes_iter_max=SHEARBAND_REFINED_STOKES_CAP),
+         dtype="float32", wall_s=wall, stokes=split,
+         iters=iters, err=float(info.err), ms_per_iter=split[0]["seconds"] * 1e3 / iters,
+         launches_per_iter=None if None in (n10, n5) else (n10 - n5) / 5, words=words,
+         spacing_bytes=spacing_bytes, bound_ms=bound, tau_max=tau_max,
+         tauII_max=float(tII.max()), finite=finite, launches=c,
+         uniform_b23_ms_per_iter=b23_ms, nvidia_smi=smi)
+    check(finite, "main_path_nonuniform: non-finite fields")
+    check(sum(c.values()) == 0, "main_path_nonuniform: a kernel launched")
     return launches
 
 

@@ -11,7 +11,8 @@ needs no JAX). ``stokes_state_from_dict``, ``thermal_state_from_dict``, ``materi
 :class:`RockRatio3D` from such dicts on a given device (the card unless
 given) and dtype; ``to_state_dict`` turns a port container back
 into the same nested dict of numpy arrays (``None`` where the JAX container
-has an unused 3D field).
+has an unused 3D field). ``geometry_from_dict`` rebuilds a grid from the
+JAX geometry's fields (``vars(geometry)``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from justrelax_tpu_torch.core.device import resolve_device
+from justrelax_tpu_torch.core.grid import Geometry, NonuniformGeometry
 from justrelax_tpu_torch.core.state import StokesState, ThermalState
 from justrelax_tpu_torch.ops.rock_ratio import RockRatio, RockRatio3D
 from justrelax_tpu_torch.particles.marker_chain import MarkerChain
@@ -33,7 +35,7 @@ from justrelax_tpu_torch.rheology.phases import PhaseRatios, PhaseRatios3D
 
 __all__ = ["stokes_state_from_dict", "thermal_state_from_dict", "material_from_dict",
            "phase_ratios_from_dict", "particles_from_dict", "marker_chain_from_dict",
-           "rock_ratio_from_dict", "to_state_dict"]
+           "rock_ratio_from_dict", "geometry_from_dict", "to_state_dict"]
 
 
 def _build(cls, d, dtype, device):
@@ -111,6 +113,17 @@ def rock_ratio_from_dict(d, device=None, dtype=None):
     device = resolve_device(device)
     return cls(**{f: torch.tensor(np.array(d[f]), dtype=dtype, device=device)
                   for f in cls._fields})
+
+
+def geometry_from_dict(d):
+    """Port ``Geometry`` from a mapping of the JAX geometry's field names to
+    values (``ni``, ``li`` and ``origin``), or ``NonuniformGeometry`` where
+    it has the nonuniform spacing families (from the vertex vectors
+    ``xvi``)."""
+    if "di_center" in d:
+        return NonuniformGeometry(tuple(np.asarray(v, dtype=float) for v in d["xvi"]))
+    return Geometry(tuple(int(n) for n in d["ni"]), tuple(float(v) for v in d["li"]),
+                    tuple(float(o) for o in d["origin"]))
 
 
 def to_state_dict(obj):

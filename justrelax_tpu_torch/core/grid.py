@@ -1,10 +1,11 @@
-"""Staggered Cartesian grid geometry (uniform grid).
+"""Staggered Cartesian grid geometry, uniform and nonuniform.
 
-Counterpart of ``justrelax_tpu/core/grid.py::Geometry``: cell counts, domain
-lengths, origin, spacings and the coordinate vectors of cell centers,
-vertices and the ghosted velocity grids. Geometry is host-side metadata
-(plain floats and numpy arrays); solvers read ``di`` from it and never move it
-to the device.
+Counterpart of ``justrelax_tpu/core/grid.py``: cell counts, domain lengths,
+origin, spacings and the coordinate vectors of cell centers, vertices and
+the ghosted velocity grids. Geometry is host-side metadata (plain floats and
+numpy arrays); a uniform grid's solvers read ``di`` from it, a nonuniform
+grid's (``NonuniformGeometry``) turn its spacing families into tensors once
+per solve, in the state's dtype and on its device.
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["Geometry", "velocity_grids"]
+__all__ = ["Geometry", "NonuniformGeometry", "spacing_tensors", "velocity_grids"]
 
 
 def _lazy_grid(di, ni, li, origin):
@@ -120,3 +122,89 @@ class Geometry:
 
     def vertices_mesh(self, indexing: str = "ij"):
         return np.meshgrid(*self.xvi, indexing=indexing)
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class NonuniformGeometry(Geometry):
+    """A staggered grid with per-axis vector spacing, built from the vertex
+    coordinate vectors of each axis. Besides the uniform grid's fields it
+    holds two spacing families (tuples of floats per axis):
+
+    - ``di_center[d]`` (ni[d],): the cell widths xv[i+1] − xv[i], for the
+      divergences and cell updates;
+    - ``di_vertex[d]`` (ni[d]+1,): the face spacings xc[i] − xc[i−1],
+      clamped to the edge cell width at the two boundary faces, for the
+      gradients and fluxes.
+
+    ``di`` is the minimum spacing per axis (the CFL and PT coefficients);
+    the ghost nodes of ``xi_vel`` sit one edge cell width outside. Equality
+    and hash go by (ni, origin, di_center)."""
+
+    di_center: Tuple[Tuple[float, ...], ...]
+    di_vertex: Tuple[Tuple[float, ...], ...]
+
+    def __init__(self, vertex_coords):
+        xvi = tuple(np.asarray(v, dtype=float) for v in vertex_coords)
+        ndim = len(xvi)
+        if ndim not in (2, 3):
+            raise ValueError(f"NonuniformGeometry supports 2D/3D, got {ndim}")
+        for v in xvi:
+            if v.ndim != 1 or v.size < 2 or np.any(np.diff(v) <= 0):
+                raise ValueError("vertex coordinates must be strictly increasing 1D vectors")
+        ni = tuple(int(v.size - 1) for v in xvi)
+        xci = tuple(0.5 * (v[1:] + v[:-1]) for v in xvi)
+        dc = tuple(np.diff(v) for v in xvi)
+        dv = tuple(np.concatenate(([d[0]], np.diff(c), [d[-1]])) for c, d in zip(xci, dc))
+        ghosted = tuple(np.concatenate(([c[0] - d[0]], c, [c[-1] + d[-1]]))
+                        for c, d in zip(xci, dc))
+        xi_vel = tuple(tuple(xvi[d] if d == comp else ghosted[d] for d in range(ndim))
+                       for comp in range(ndim))
+        object.__setattr__(self, "ni", ni)
+        object.__setattr__(self, "li", tuple(float(v[-1] - v[0]) for v in xvi))
+        object.__setattr__(self, "origin", tuple(float(v[0]) for v in xvi))
+        object.__setattr__(self, "di", tuple(float(d.min()) for d in dc))
+        object.__setattr__(self, "xci", xci)
+        object.__setattr__(self, "xvi", xvi)
+        object.__setattr__(self, "xi_vel", xi_vel)
+        object.__setattr__(self, "di_center", tuple(tuple(map(float, d)) for d in dc))
+        object.__setattr__(self, "di_vertex", tuple(tuple(map(float, d)) for d in dv))
+
+    def __hash__(self):
+        return hash((self.ni, self.di_center, self.origin))
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, NonuniformGeometry)
+            and self.ni == other.ni
+            and self.origin == other.origin
+            and self.di_center == other.di_center
+        )
+
+    def _bcast(self, vecs):
+        """Each axis's vector shaped to broadcast along that axis, float64."""
+        ndim = len(self.ni)
+        return tuple(np.asarray(v, dtype=float).reshape([len(v) if a == d else 1
+                                                         for a in range(ndim)])
+                     for d, v in enumerate(vecs))
+
+    @property
+    def inv_flux_di(self):
+        """Broadcastable 1/spacing arrays of the face gradients (fluxes)."""
+        return tuple(1.0 / a for a in self._bcast(self.di_vertex))
+
+    @property
+    def inv_div_di(self):
+        """Broadcastable 1/spacing arrays of the cell divergences."""
+        return tuple(1.0 / a for a in self._bcast(self.di_center))
+
+
+def spacing_tensors(geometry, like):
+    """``(inv_flux_di, inv_div_di)`` of a ``NonuniformGeometry`` (the
+    broadcastable reciprocal face spacings and cell widths, taken in float64
+    numpy as the JAX package takes them) made tensors once, in ``like``'s
+    dtype and on its device; ``None`` on a uniform grid. Every solver's
+    spacing families are these or views of them."""
+    if not isinstance(geometry, NonuniformGeometry):
+        return None
+    return tuple(tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device) for a in arrays)
+                 for arrays in (geometry.inv_flux_di, geometry.inv_div_di))

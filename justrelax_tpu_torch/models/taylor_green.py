@@ -70,16 +70,14 @@ def _boundary_velocity(geometry, dtype, device):
 
 def run(n=16, iter_max=100_000, nout=1_000, dtype=None, geometry=None, device=None):
     """The Taylor-Green solve on the plain path; returns (geometry, stokes,
-    info). ``geometry`` overrides the uniform unit-cube grid; a
-    ``NonuniformGeometry`` is not ported and raises
-    ``NotImplementedError``. ``device`` defaults to the card."""
+    info). ``geometry`` overrides the uniform unit-cube grid: a
+    ``NonuniformGeometry`` runs the same manufactured solution on its
+    vector spacings, the forcing and the boundary values sampled on its own
+    coordinates (the ghost nodes one ``di``, the minimum spacing, outside,
+    as the JAX model places them). ``device`` defaults to the card."""
     if geometry is None:
         ni = (n, n, n)
         geometry = Geometry(ni, (1.0, 1.0, 1.0))
-    elif hasattr(geometry, "di_center"):
-        raise NotImplementedError(
-            "taylor_green on a nonuniform grid needs NonuniformGeometry, which "
-            "the PyTorch port does not have yet")
     else:
         ni = geometry.ni
     device = resolve_device(device)

@@ -167,7 +167,7 @@ def _thermal_setup(ni, T_c0, f):
 
 def _dirichlet(phases_c, T_c0, f):
     hot = (phases_c == CHAMBER) | (phases_c == MAGMA)
-    return (torch.as_tensor(hot, device=f["device"]),
+    return (torch.as_tensor(hot.astype(float), **f),
             torch.as_tensor(np.where(hot, T_c0, 0.0), **f))
 
 

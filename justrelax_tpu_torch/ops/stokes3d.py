@@ -2,8 +2,10 @@
 velocity update with the momentum residuals, and the staggered second
 invariant.
 
-Counterpart of ``justrelax_tpu/ops/stokes3d.py`` on a uniform grid, with the
-same staggered shapes (``core/state.py``); axis order (x, y, z). Shear
+Counterpart of ``justrelax_tpu/ops/stokes3d.py``, with the same staggered
+shapes (``core/state.py``); axis order (x, y, z). A ``NonuniformGeometry``
+passes its spacing families as broadcastable tensors
+(``spacing_families_3d``). Shear
 components live on cell edges: εyz/τyz ``(nx, ny+1, nz+1)``, εxz/τxz
 ``(nx+1, ny, nz+1)``, εxy/τxy ``(nx+1, ny+1, nz)``. The pressure update is
 the 2D one, ``ops/stokes.py::compute_P``.
@@ -11,8 +13,10 @@ the 2D one, ``ops/stokes.py::compute_P``.
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
+from justrelax_tpu_torch.core.grid import spacing_tensors
 from justrelax_tpu_torch.ops.stencil import expand_edges
 
 __all__ = [
@@ -20,21 +24,30 @@ __all__ = [
     "compute_strain_rate_3d",
     "compute_tau_ve_3d",
     "compute_V_3d",
+    "momentum_families_3d",
     "momentum_residuals_3d",
     "spacing_families_3d",
     "tensor_invariant_staggered_3d",
 ]
 
 
-def spacing_families_3d(geometry):
-    """``(inv_di, inv_di_v, mom_spacings)`` for the 3D functions: on a
-    uniform grid the scalar reciprocals, ``None`` and ``None``. The
-    nonuniform families (``NonuniformGeometry``) are not ported."""
-    if hasattr(geometry, "di_center"):
-        raise NotImplementedError(
-            "3D spacing families on a nonuniform grid need NonuniformGeometry, "
-            "which the PyTorch port does not have yet")
-    return tuple(1.0 / d for d in geometry.di), None, None
+def spacing_families_3d(geometry, like):
+    """``(inv_di, inv_di_v, mom_spacings)`` for the 3D functions. On a
+    uniform grid: the scalar reciprocals, ``None`` and ``None``. On a
+    ``NonuniformGeometry``: per axis, broadcastable reciprocals of the
+    center family (cell widths: divergence and normal strain rates), of the
+    vertex family (center-to-center distances, boundary-clamped: the edge
+    shear strain rates), and the momentum bundle ``(inv_dv_in, inv_dc)`` of
+    :func:`compute_V_3d` (the vertex family on the interior faces of each
+    component's own axis, and the center family). They are views of
+    ``core/grid.py::spacing_tensors``, in ``like``'s dtype and on its
+    device."""
+    tensors = spacing_tensors(geometry, like)
+    if tensors is None:
+        return tuple(1.0 / d for d in geometry.di), None, None
+    inv_dv, inv_dc = tensors
+    inv_dv_in = tuple(v.narrow(d, 1, v.shape[d] - 2) for d, v in enumerate(inv_dv))
+    return inv_dc, inv_dv, (inv_dv_in, inv_dc)
 
 
 def compute_grad_V_3d(Vx, Vy, Vz, inv_di):
@@ -163,30 +176,43 @@ def compute_tau_ve_3d(tau, tau_o, eps, eta, G, theta_dtau, dt, boundary_shear=Fa
     return txx, tyy, tzz, tyz, txz, txy
 
 
-def momentum_residuals_3d(P, tau, fx, fy, fz, inv_di):
+def momentum_families_3d(inv_di, spacings=None):
+    """``((∂x, ∂y, ∂z) center family, (∂x, ∂y, ∂z) interior vertex family)``
+    of the momentum residuals: the normal-stress and pressure gradients of
+    a component's own axis span adjacent centers (vertex family), the
+    shear-stress gradients adjacent edges (center family). Both are
+    ``inv_di`` on a uniform grid (``spacings`` ``None``)."""
+    if spacings is None:
+        return tuple(inv_di), tuple(inv_di)
+    inv_dv_in, inv_dc = spacings
+    return tuple(inv_dc), tuple(inv_dv_in)
+
+
+def momentum_residuals_3d(P, tau, fx, fy, fz, inv_di, spacings=None):
     """Momentum residuals Rx (nx-1, ny, nz), Ry (nx, ny-1, nz) and Rz (nx,
-    ny, nz-1) on the interior faces: ∇·τ − ∇P − ρg."""
-    _dx, _dy, _dz = inv_di
+    ny, nz-1) on the interior faces: ∇·τ − ∇P − ρg. ``spacings`` is the
+    nonuniform momentum bundle (``spacing_families_3d``)."""
+    (_dx, _dy, _dz), (_dxv, _dyv, _dzv) = momentum_families_3d(inv_di, spacings)
     txx, tyy, tzz, tyz, txz, txy = tau
     Rx = (
-        (txx[1:, :, :] - txx[:-1, :, :]) * _dx
+        (txx[1:, :, :] - txx[:-1, :, :]) * _dxv
         + (txy[1:-1, 1:, :] - txy[1:-1, :-1, :]) * _dy
         + (txz[1:-1, :, 1:] - txz[1:-1, :, :-1]) * _dz
-        - (P[1:, :, :] - P[:-1, :, :]) * _dx
+        - (P[1:, :, :] - P[:-1, :, :]) * _dxv
         - 0.5 * (fx[1:, :, :] + fx[:-1, :, :])
     )
     Ry = (
         (txy[1:, 1:-1, :] - txy[:-1, 1:-1, :]) * _dx
-        + (tyy[:, 1:, :] - tyy[:, :-1, :]) * _dy
+        + (tyy[:, 1:, :] - tyy[:, :-1, :]) * _dyv
         + (tyz[:, 1:-1, 1:] - tyz[:, 1:-1, :-1]) * _dz
-        - (P[:, 1:, :] - P[:, :-1, :]) * _dy
+        - (P[:, 1:, :] - P[:, :-1, :]) * _dyv
         - 0.5 * (fy[:, 1:, :] + fy[:, :-1, :])
     )
     Rz = (
         (txz[1:, :, 1:-1] - txz[:-1, :, 1:-1]) * _dx
         + (tyz[:, 1:, 1:-1] - tyz[:, :-1, 1:-1]) * _dy
-        + (tzz[:, :, 1:] - tzz[:, :, :-1]) * _dz
-        - (P[:, :, 1:] - P[:, :, :-1]) * _dz
+        + (tzz[:, :, 1:] - tzz[:, :, :-1]) * _dzv
+        - (P[:, :, 1:] - P[:, :, :-1]) * _dzv
         - 0.5 * (fz[:, :, 1:] + fz[:, :, :-1])
     )
     return Rx, Ry, Rz
@@ -195,13 +221,9 @@ def momentum_residuals_3d(P, tau, fx, fy, fz, inv_di):
 def compute_V_3d(Vx, Vy, Vz, P, tau, fx, fy, fz, eta_tau, etadtau, inv_di,
                  spacings=None):
     """Fused residual and damped velocity update on the interior faces.
-    ``spacings`` (the nonuniform momentum bundle) is not ported and must be
-    ``None``. Returns (Vx, Vy, Vz, Rx, Ry, Rz)."""
-    if spacings is not None:
-        raise NotImplementedError(
-            "compute_V_3d on a nonuniform grid needs NonuniformGeometry, which "
-            "the PyTorch port does not have yet")
-    Rx, Ry, Rz = momentum_residuals_3d(P, tau, fx, fy, fz, inv_di)
+    ``spacings`` is the nonuniform momentum bundle ``(inv_dv_in, inv_dc)``
+    of ``spacing_families_3d``. Returns (Vx, Vy, Vz, Rx, Ry, Rz)."""
+    Rx, Ry, Rz = momentum_residuals_3d(P, tau, fx, fy, fz, inv_di, spacings)
     etax = 0.5 * (eta_tau[1:, :, :] + eta_tau[:-1, :, :])
     etay = 0.5 * (eta_tau[:, 1:, :] + eta_tau[:, :-1, :])
     etaz = 0.5 * (eta_tau[:, :, 1:] + eta_tau[:, :, :-1])

@@ -283,8 +283,11 @@ def vep_iteration(
     dt, inv_dx, inv_dy, r, theta_dtau, etadtau,
     rel_lambda, viscosity_relaxation, viscosity_cutoff,
     flow_bc, free_surface_dt=None, eta_tables=None, visc_plastic_tau=False,
+    strain_v=None, spacings=None,
 ):
-    """One array-path VEP PT iteration. ``eta_tables`` are the
+    """One array-path VEP PT iteration. ``strain_v`` and ``spacings`` are a
+    nonuniform grid's vertex family and momentum bundle
+    (``ops/stokes.py::spacing_families_2d``). ``eta_tables`` are the
     ``linear_viscosity_tables`` of a linear creep table (``None``
     evaluates the creep law every iteration). ``visc_plastic_tau``
     series-composes the regularized plastic element into the τII-mode
@@ -298,7 +301,8 @@ def vep_iteration(
         c.theta, P0, grad_V, Q, eta_tau, inv.K_c, inv.G_c, dt, r, theta_dtau
     )
     rho_gx, rho_gy = rho_g_fields(material, T, c.P, phase_ratios_center)
-    exx, eyy, exy = kernels.compute_strain_rate(grad_V, c.Vx, c.Vy, inv_dx, inv_dy)
+    exx, eyy, exy = kernels.compute_strain_rate(grad_V, c.Vx, c.Vy, inv_dx, inv_dy,
+                                                **(strain_v or {}))
     res = _update_stresses(
         exx, eyy, exy, c.txx, c.tyy, c.txy_c, c.txy_v,
         theta, c.eta, c.lam, c.lam_v, inv, rel_lambda, dt, theta_dtau,
@@ -325,7 +329,7 @@ def vep_iteration(
     Vx, Vy = kernels.compute_V(
         c.Vx, c.Vy, res.P_corrected, res.txx, res.tyy, res.txy_v,
         etadtau, rho_gx, rho_gy, eta_tau, inv_dx, inv_dy,
-        free_surface_dt=free_surface_dt,
+        free_surface_dt=free_surface_dt, spacings=spacings,
     )
     Vx, Vy = flow_bcs((Vx, Vy), flow_bc)
     carry = VEPCarry(

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from justrelax_tpu_torch.core.grid import spacing_tensors
 from justrelax_tpu_torch.ops.bc import Faces
 from justrelax_tpu_torch.ops.stencil import interior_set
 from justrelax_tpu_torch.rheology import materials as mat
@@ -31,6 +32,7 @@ from justrelax_tpu_torch.rheology import materials as mat
 Tensor = torch.Tensor
 
 __all__ = [
+    "thermal_spacings",
     "compute_flux",
     "update_T",
     "check_res",
@@ -38,6 +40,18 @@ __all__ = [
     "face_average_y",
     "face_average_z",
 ]
+
+
+def thermal_spacings(geometry, like):
+    """``(inv_flux_di, inv_div_di)``: the reciprocal spacings of the face
+    gradients and of the cell divergences. On a uniform grid both are the
+    scalar ``1/di``; on a ``NonuniformGeometry`` they are
+    ``core/grid.py::spacing_tensors``."""
+    tensors = spacing_tensors(geometry, like)
+    if tensors is None:
+        inv_di = tuple(1.0 / d for d in geometry.di)
+        return inv_di, inv_di
+    return tensors
 
 
 def _pad_edge(A, axis):
@@ -196,7 +210,8 @@ def update_T(
     dirichlet=None,
 ):
     """Damped PT temperature update; returns the new ghosted T (ghosts as
-    they were). ``dirichlet = (mask, value)`` pins masked cells."""
+    they were). ``dirichlet = (mask, value)`` pins the cells where the bool
+    mask is set."""
     T_in = _interior(T)
     Told_in = _interior(Told)
     if rho_Cp is None:
@@ -227,8 +242,8 @@ def check_res(
     adiabatic: Optional[Tensor] = None,
     dirichlet=None,
 ):
-    """Physical residual of the heat equation at the cell centers (0 on
-    Dirichlet-masked cells)."""
+    """Physical residual of the heat equation at the cell centers (0 where
+    the bool Dirichlet mask is set)."""
     T_in = _interior(T)
     Told_in = _interior(Told)
     if rho_Cp is None:

@@ -35,10 +35,13 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from justrelax_tpu_torch.core.grid import NonuniformGeometry
 from justrelax_tpu_torch.ops.bc import _free_slip_velocity_2d, _no_slip_velocity_2d
 from justrelax_tpu_torch.ops.stencil import av_a, expand_edges
+from justrelax_tpu_torch.ops.stokes import spacing_families_2d
 from justrelax_tpu_torch.rheology.materials import (
     _as_stack,
     get_bulk_modulus,
@@ -50,7 +53,7 @@ from justrelax_tpu_torch.rheology.plasticity import (
 )
 from justrelax_tpu_torch.rheology.viscosity import compute_viscosity_fields
 from justrelax_tpu_torch.solvers.graphed_chunk import GraphedChunk
-from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm, nonuniform_error
+from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm
 
 __all__ = ["solve_dyrel", "compute_bulk_viscosity_and_penalty", "gershgorin_schur_2d"]
 
@@ -80,15 +83,41 @@ def compute_bulk_viscosity_and_penalty(material, pr_center, eta, gfact, dt):
     return Kbdt, gamma_eff
 
 
+def _gershgorin_factors(di, inv_spacings, like):
+    """The inverse spacings of the Gershgorin bound: (1/dx at the x faces,
+    1/dy at the x faces, 1/dy at the y faces, 1/dx at the y faces). With
+    ``inv_spacings = (1/dcx, 1/dcy, 1/dvx, 1/dvy)`` (a nonuniform grid's
+    reciprocal cell widths and face spacings, broadcastable float64 arrays)
+    each is the per-face maximum over both families touching the row, as
+    the JAX package takes it: the momentum rows mix center and vertex
+    spacings, so the bound must majorize every product. Taken in float64
+    numpy and made tensors in ``like``'s dtype and on its device."""
+    if inv_spacings is None:
+        return 1.0 / di[0], 1.0 / di[1], 1.0 / di[1], 1.0 / di[0]
+    inv_dcx, inv_dcy, inv_dvx, inv_dvy = inv_spacings
+    factors = (
+        np.maximum(inv_dvx[1:-1], np.maximum(inv_dcx[:-1], inv_dcx[1:])),  # (nx-1, 1)
+        np.maximum(inv_dcy, np.maximum(inv_dvy[:, :-1], inv_dvy[:, 1:])),  # (1, ny)
+        np.maximum(inv_dvy[:, 1:-1], np.maximum(inv_dcy[:, :-1], inv_dcy[:, 1:])),  # (1, ny-1)
+        np.maximum(inv_dcx, np.maximum(inv_dvx[:-1], inv_dvx[1:])),  # (nx, 1)
+    )
+    return tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device) for a in factors)
+
+
 def gershgorin_schur_2d(eta, eta_v, gamma_eff, pr_center, pr_vertex, material,
                         di, dt, spacings=None):
     """Diagonal preconditioners (Dx, Dy) and Gershgorin λmax estimates for
-    the velocity Schur complement on a uniform grid. ``spacings`` (the
-    nonuniform grid's families) raises ``ValueError``."""
-    if spacings is not None:
-        raise nonuniform_error("DYREL")
-    _dx_x = _dx_y = 1.0 / di[0]
-    _dy_x = _dy_y = 1.0 / di[1]
+    the velocity Schur complement. ``spacings = (dcx, dcy, dvx, dvy)`` (a
+    nonuniform grid's spacing families as float64 arrays) takes the
+    per-face bound of :func:`_gershgorin_factors`."""
+    inv_spacings = None if spacings is None else tuple(
+        1.0 / np.asarray(a, dtype=float) for a in spacings)
+    return _gershgorin(eta, eta_v, gamma_eff, pr_center, pr_vertex, material, dt,
+                       _gershgorin_factors(di, inv_spacings, eta))
+
+
+def _gershgorin(eta, eta_v, gamma_eff, pr_center, pr_vertex, material, dt, factors):
+    _dx_x, _dy_x, _dy_y, _dx_y = factors
     c43, c23 = 4.0 / 3.0, 2.0 / 3.0
 
     G_c = get_shear_modulus(material, pr_center, like=eta)
@@ -349,8 +378,13 @@ class _DyrelSolve(GraphedChunk):
         self.material, self.pr_center, self.pr_vertex = material, pr_center, pr_vertex
         self.lambda_relax, self.linear = lambda_relax, linear_viscosity
         self.viscosity_relaxation, self.viscosity_cutoff = viscosity_relaxation, viscosity_cutoff
-        di = geometry.di
-        self.inv_dx, self.inv_dy = 1.0 / di[0], 1.0 / di[1]
+        # the spacing families (tensors on a nonuniform grid, made before any
+        # capture); mom: ∂x and ∂y at the x faces, ∂y and ∂x at the y faces
+        self.inv_dx, self.inv_dy, strain_v, self.mom = spacing_families_2d(geometry, stokes.P)
+        self.inv_dx_v, self.inv_dy_v = strain_v.values()
+        inv_spacings = (geometry.inv_div_di + geometry.inv_flux_di
+                        if isinstance(geometry, NonuniformGeometry) else None)
+        self.gersh = _gershgorin_factors(geometry.di, inv_spacings, stokes.P)
         self.v_dofs = ((nx - 2) * (ny - 1), (nx - 1) * (ny - 2))
         self.p_dof = nx * ny
 
@@ -366,8 +400,8 @@ class _DyrelSolve(GraphedChunk):
         self.rho_y = 0.5 * (rho_gy[:, 1:] + rho_gy[:, :-1])
         self.etab, self.gamma_eff = compute_bulk_viscosity_and_penalty(
             material, pr_center, eta, gfact, dt)
-        Dx, Dy, lmx, lmy = gershgorin_schur_2d(
-            eta, eta_v, self.gamma_eff, pr_center, pr_vertex, material, di, dt)
+        Dx, Dy, lmx, lmy = _gershgorin(eta, eta_v, self.gamma_eff, pr_center, pr_vertex,
+                                       material, dt, self.gersh)
         self.rp_src = self.Q / dt if alpha_dT is None else (self.Q + alpha_dT) / dt
         self.T = T
         self.T_v = None if T is None else _clamped_av(T)
@@ -399,7 +433,8 @@ class _DyrelSolve(GraphedChunk):
         eyy = (Vy[1:-1, 1:] - Vy[1:-1, :-1]) * self.inv_dy
         div = exx + eyy
         third = div / 3.0
-        exy = 0.5 * ((Vx[:, 1:] - Vx[:, :-1]) * self.inv_dy + (Vy[1:, :] - Vy[:-1, :]) * self.inv_dx)
+        exy = 0.5 * ((Vx[:, 1:] - Vx[:, :-1]) * self.inv_dy_v
+                     + (Vy[1:, :] - Vy[:-1, :]) * self.inv_dx_v)
         return exx - third, eyy - third, exy, div
 
     def strain_RP(self, Vx, Vy, P):
@@ -422,12 +457,13 @@ class _DyrelSolve(GraphedChunk):
         return out_c, out_v
 
     def momentum_residual(self, dPx, dPy, theta_c, txx, tyy, txy):
-        Ptot_x = (dPx + theta_c[1:, :] - theta_c[:-1, :]) * self.inv_dx
-        Rx = ((txx[1:, :] - txx[:-1, :]) * self.inv_dx
-              + (txy[1:-1, 1:] - txy[1:-1, :-1]) * self.inv_dy - Ptot_x - self.rho_x)
-        Ptot_y = (dPy + theta_c[:, 1:] - theta_c[:, :-1]) * self.inv_dy
-        Ry = ((tyy[:, 1:] - tyy[:, :-1]) * self.inv_dy
-              + (txy[1:, 1:-1] - txy[:-1, 1:-1]) * self.inv_dx - Ptot_y - self.rho_y)
+        dx_x, dy_x, dy_y, dx_y = self.mom
+        Ptot_x = (dPx + theta_c[1:, :] - theta_c[:-1, :]) * dx_x
+        Rx = ((txx[1:, :] - txx[:-1, :]) * dx_x
+              + (txy[1:-1, 1:] - txy[1:-1, :-1]) * dy_x - Ptot_x - self.rho_x)
+        Ptot_y = (dPy + theta_c[:, 1:] - theta_c[:, :-1]) * dy_y
+        Ry = ((tyy[:, 1:] - tyy[:, :-1]) * dy_y
+              + (txy[1:, 1:-1] - txy[:-1, 1:-1]) * dx_y - Ptot_y - self.rho_y)
         return Rx, Ry
 
     def residual(self, P, out_c, out_v, theta_c):
@@ -567,11 +603,10 @@ def solve_dyrel(
     and the Gershgorin bounds after every chunk. ``alpha_dT = α·ΔT`` adds
     the thermal-stress source α·ΔT/dt to the pressure residual. ``T``
     enters the viscosity refresh. The solve runs on the state's device; on
-    the card every chunk is a CUDA graph replay. A nonuniform geometry
-    raises ``ValueError``; a bare ``Material`` is stacked once on the
-    state's device and in its dtype."""
-    if hasattr(geometry, "di_center"):
-        raise nonuniform_error("DYREL")
+    the card every chunk is a CUDA graph replay. On a ``NonuniformGeometry``
+    the operators take its spacing families and the Gershgorin bound their
+    per-face maximum. A bare ``Material`` is stacked once on the state's
+    device and in its dtype."""
     material = _as_stack(material, stokes.P)
     dtype = stokes.P.dtype
     s = _DyrelSolve(stokes, geometry, flow_bc, material, pr_center, pr_vertex, dt, rho_g,
@@ -624,9 +659,9 @@ def solve_dyrel(
                 s.Ry0.copy_(s.Ry)
                 s.run_chunk(nout_i)
                 if not linear_viscosity:
-                    Dx2, Dy2, lmx2, lmy2 = gershgorin_schur_2d(
-                        s.eta, s.eta_v, s.gamma_eff, pr_center, pr_vertex, material,
-                        geometry.di, dt)
+                    Dx2, Dy2, lmx2, lmy2 = _gershgorin(
+                        s.eta, s.eta_v, s.gamma_eff, pr_center, pr_vertex, material, dt,
+                        s.gersh)
                     s.Dx_f.copy_(Dx2)
                     s.Dy_f.copy_(Dy2)
                     s.lmx, s.lmy = lmx2, lmy2

@@ -37,13 +37,6 @@ def _norm(x):
     return torch.linalg.vector_norm(x.reshape(-1))
 
 
-def nonuniform_error(solver):
-    """The error a solver raises on a nonuniform grid."""
-    return ValueError(
-        f"{solver} on a nonuniform grid needs NonuniformGeometry, which the PyTorch port "
-        "does not have yet")
-
-
 def _ratio(err, err1):
     """err/err₁ in IEEE arithmetic, as the JAX loop takes it: 0/0 is nan
     (a state that is already exact stops after one chunk), x/0 is ±∞."""
@@ -83,18 +76,16 @@ def solve_ve(
     a state on the card and runs the array path for one on the CPU;
     ``False`` asks for the array path. The kernel needs all-free-slip BCs,
     a uniform serial grid, no free surface and no ``alpha_dT``; asked for
-    elsewhere it raises ``ValueError``. The distributed arguments
-    (``halo_exchange``, ``reduce_norm``) and a nonuniform grid are not
-    ported and raise ``NotImplementedError``.
+    elsewhere (a ``NonuniformGeometry`` included) it raises ``ValueError``.
+    On a nonuniform grid the array path takes the spacing families of
+    ``ops/stokes.py::spacing_families_2d``. The distributed arguments
+    (``halo_exchange``, ``reduce_norm``) are not ported and raise
+    ``NotImplementedError``.
     """
     if halo_exchange is not None or reduce_norm is not None:
         raise NotImplementedError(
             "halo_exchange/reduce_norm belong to the distributed layer, which "
             "the PyTorch port does not have yet")
-    if hasattr(geometry, "di_center"):
-        raise NotImplementedError(
-            "solve_ve on a nonuniform grid needs NonuniformGeometry, which the "
-            "PyTorch port does not have yet")
     use_kernel = resolve_use_kernel(use_kernel, stokes.P)
     if use_kernel:
         reason = ve_chunk_unsupported(geometry, flow_bc, free_surface, halo_exchange,
@@ -104,7 +95,7 @@ def solve_ve(
                              "for the plain path")
 
     nx, ny = stokes.P.shape
-    inv_dx, inv_dy = 1.0 / geometry.di[0], 1.0 / geometry.di[1]
+    inv_dx, inv_dy, strain_v, mom_spacings = kernels.spacing_families_2d(geometry, stokes.P)
     r, theta_dtau, etadtau = pt_stokes.r, pt_stokes.theta_dtau, pt_stokes.etadtau
     eps_rel, eps_abs = pt_stokes.eps_rel, pt_stokes.eps_abs
     nout = int(nout)
@@ -124,7 +115,7 @@ def solve_ve(
         RP, _ = kernels.compute_P(P, P0, grad_V, Q, eta_tau, K, G, dt, r, theta_dtau,
                                   alpha_dT=alpha_dT)
         Rx, Ry = kernels.compute_Res(P, txx, tyy, txy, rho_gx, rho_gy, inv_dx, inv_dy,
-                                     Vy=Vy, free_surface_dt=fs_dt)
+                                     Vy=Vy, free_surface_dt=fs_dt, spacings=mom_spacings)
         nRx = _norm(Rx[1:-1, 1:-1]) / math.sqrt((nx - 2) * (ny - 1))
         nRy = _norm(Ry[1:-1, 1:-1]) / math.sqrt((nx - 1) * (ny - 2))
         nRP = _norm(RP) / math.sqrt(nx * ny)
@@ -143,7 +134,7 @@ def solve_ve(
                 c = kernels.ve_iteration(
                     *c, *fields, G, K, P0, Q, tau_o, dt, inv_dx, inv_dy, r,
                     theta_dtau, etadtau, flow_bc=flow_bc, free_surface_dt=fs_dt,
-                    alpha_dT=alpha_dT)
+                    alpha_dT=alpha_dT, strain_v=strain_v, spacings=mom_spacings)
         nRx, nRy, nRP, _, _, _ = residual_norms(*c)
         err_t = torch.maximum(torch.maximum(nRx, nRy), nRP)
         hist[chunk] = torch.stack([nRx, nRy, nRP])
@@ -155,7 +146,7 @@ def solve_ve(
     # final diagnostics + state assembly
     Vx, Vy, P, txx, tyy, txy = c
     grad_V = kernels.compute_grad_V(Vx, Vy, inv_dx, inv_dy)
-    exx, eyy, exy = kernels.compute_strain_rate(grad_V, Vx, Vy, inv_dx, inv_dy)
+    exx, eyy, exy = kernels.compute_strain_rate(grad_V, Vx, Vy, inv_dx, inv_dy, **strain_v)
     _, _, _, RP, Rx, Ry = residual_norms(*c)
     txy_c = av_vertex_to_center(txy)
     exy_c = av_vertex_to_center(exy)
@@ -164,7 +155,7 @@ def solve_ve(
     tau_o = stokes.tau_o.replace(xx=txx, yy=tyy, xy=txy, xy_c=txy_c)
     eps = stokes.eps.replace(xx=exx, yy=eyy, xy=exy, xy_c=exy_c,
                              II=kernels.tensor_invariant_2d(exx, eyy, exy_c))
-    omega = stokes.omega.replace(xy=kernels.compute_vorticity(Vx, Vy, inv_dx, inv_dy))
+    omega = stokes.omega.replace(xy=kernels.compute_vorticity(Vx, Vy, *strain_v.values()))
     new_stokes = stokes.replace(
         P=P,
         V=stokes.V.replace(Vx=Vx, Vy=Vy),

@@ -46,12 +46,7 @@ from justrelax_tpu_torch.rheology.viscosity import (
 )
 from justrelax_tpu_torch.solvers.graphed_chunk import GraphedChunk
 from justrelax_tpu_torch.solvers.stokes2d_vep import _gather4
-from justrelax_tpu_torch.solvers.stokes2d import (
-    StokesSolveInfo,
-    _norm,
-    _ratio,
-    nonuniform_error,
-)
+from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm, _ratio
 
 __all__ = ["solve_variational"]
 
@@ -66,7 +61,11 @@ class _VariationalSolve(GraphedChunk):
     def __init__(self, stokes, pt_stokes, geometry, flow_bc, material, pr_c, pr_v,
                  phi: RockRatio, dt, T, viscosity_relaxation, lambda_relaxation,
                  viscosity_cutoff, air_phase, mask_step_floor, free_surface):
-        self.inv_dx, self.inv_dy = 1.0 / geometry.di[0], 1.0 / geometry.di[1]
+        # the spacing families (tensors on a nonuniform grid, made before any
+        # capture): center, vertex (the shear strain rate) and momentum,
+        # (∂x, ∂y) at the x faces and (∂y, ∂x) at the y faces
+        self.inv_dx, self.inv_dy, self.strain_v, self.mom = kernels.spacing_families_2d(
+            geometry, stokes.P)
         self.r, self.theta_dtau = pt_stokes.r, pt_stokes.theta_dtau
         self.etadtau = pt_stokes.etadtau
         self.flow_bc, self.dt, self.phi = flow_bc, dt, phi
@@ -126,7 +125,8 @@ class _VariationalSolve(GraphedChunk):
         vm = self.vm
         grad_V = kernels.compute_grad_V(Vx, Vy, self.inv_dx, self.inv_dy)
         grad_V = torch.where(vm.c, grad_V, 0.0)
-        exx, eyy, exy = kernels.compute_strain_rate(grad_V, Vx, Vy, self.inv_dx, self.inv_dy)
+        exx, eyy, exy = kernels.compute_strain_rate(grad_V, Vx, Vy, self.inv_dx, self.inv_dy,
+                                                    **self.strain_v)
         return (grad_V, torch.where(vm.c, exx, 0.0), torch.where(vm.c, eyy, 0.0),
                 torch.where(vm.v, exy, 0.0))
 
@@ -137,7 +137,7 @@ class _VariationalSolve(GraphedChunk):
         compute_Vy!, the damper of the piston mode an open surface leaves
         undamped in pseudo-time)."""
         phi, vm = self.phi, self.vm
-        sx, sy = self.inv_dx, self.inv_dy
+        sxx, sxy, syy, syx = self.mom
         Pw = P * phi.center
         txxw = txx * phi.center
         tyyw = tyy * phi.center
@@ -145,18 +145,19 @@ class _VariationalSolve(GraphedChunk):
         gyw = rho_gy * phi.center
         # ρg_x is zero: the x residual has no buoyancy term
         Rx = (
-            (txxw[1:, :] - txxw[:-1, :]) * sx
-            + (txyw[1:-1, 1:] - txyw[1:-1, :-1]) * sy
-            - (Pw[1:, :] - Pw[:-1, :]) * sx
+            (txxw[1:, :] - txxw[:-1, :]) * sxx
+            + (txyw[1:-1, 1:] - txyw[1:-1, :-1]) * sxy
+            - (Pw[1:, :] - Pw[:-1, :]) * sxx
         )
         Ry = (
-            (tyyw[:, 1:] - tyyw[:, :-1]) * sy
-            + (txyw[1:, 1:-1] - txyw[:-1, 1:-1]) * sx
-            - (Pw[:, 1:] - Pw[:, :-1]) * sy
+            (tyyw[:, 1:] - tyyw[:, :-1]) * syy
+            + (txyw[1:, 1:-1] - txyw[:-1, 1:-1]) * syx
+            - (Pw[:, 1:] - Pw[:, :-1]) * syy
             - 0.5 * (gyw[:, 1:] + gyw[:, :-1])
         )
         if self.free_surface:
-            drho = (gyw[:, 1:] - gyw[:, :-1]) * sy
+            # ∂(φρg)/∂y spans adjacent centers, the family of ∂P/∂y
+            drho = (gyw[:, 1:] - gyw[:, :-1]) * syy
             Ry = Ry + Vy[1:-1, 1:-1] * drho * self.dt
         return torch.where(vm.vx[1:-1, :], Rx, 0.0), torch.where(vm.vy[:, 1:-1], Ry, 0.0)
 
@@ -245,10 +246,9 @@ def solve_variational(
     only. ``air_phase`` leaves the air out of the viscosity's phase blend.
     The solve runs on the state's device; on the card the chunks' core
     iterations are CUDA graph replays. A bare ``Material`` is stacked once
-    on the state's device and in its dtype. A nonuniform geometry raises
-    ``ValueError``."""
-    if hasattr(geometry, "di_center"):
-        raise nonuniform_error("solve_variational")
+    on the state's device and in its dtype. On a ``NonuniformGeometry``
+    the operators take its spacing families
+    (``ops/stokes.py::spacing_families_2d``)."""
     material = _as_stack(material, stokes.P)
     nx, ny = stokes.P.shape
     eps_rel, eps_abs = pt_stokes.eps_rel, pt_stokes.eps_abs

@@ -73,9 +73,11 @@ def solve_vep(
     element composed into the τII-mode viscosity) runs on the plain path
     only: the kernel carries the base convention, and JAX's kernel route
     mixes the two (its chunk's last iteration alone takes the variant), so
-    the kernel asked for with it raises ``ValueError``. A bare
-    ``Material`` is stacked once, on the state's device and in its dtype.
-    Keyword arguments as :func:`_solve_vep`."""
+    the kernel asked for with it raises ``ValueError``. So does the kernel
+    asked for on a ``NonuniformGeometry``; the plain path takes its spacing
+    families (``ops/stokes.py::spacing_families_2d``). A bare ``Material``
+    is stacked once, on the state's device and in its dtype. Keyword
+    arguments as :func:`_solve_vep`."""
     material = _as_stack(material, stokes.P)
     use_kernel = resolve_use_kernel(use_kernel, stokes.P)
     has_cap, visc_m = False, None
@@ -127,7 +129,7 @@ def _solve_vep(
     visc_plastic_tau: bool = False,
 ):
     nx, ny = stokes.P.shape
-    inv_dx, inv_dy = 1.0 / geometry.di[0], 1.0 / geometry.di[1]
+    inv_dx, inv_dy, strain_v, mom_spacings = kernels.spacing_families_2d(geometry, stokes.P)
     eps_rel, eps_abs = pt_stokes.eps_rel, pt_stokes.eps_abs
     nout_i = int(nout)
     max_chunks = max(1, int(math.ceil(iter_max / nout_i)))
@@ -157,14 +159,14 @@ def _solve_vep(
             pt_stokes.r, pt_stokes.theta_dtau, pt_stokes.etadtau,
             lambda_relaxation, viscosity_relaxation, viscosity_cutoff,
             flow_bc, free_surface_dt=fs_dt, eta_tables=eta_tables,
-            visc_plastic_tau=visc_plastic_tau,
+            visc_plastic_tau=visc_plastic_tau, strain_v=strain_v, spacings=mom_spacings,
         )
 
     def residual_norms(c, RP):
         rho_gx, rho_gy = rho_g_fields(material, T, c.P, phase_ratios_center)
         Rx, Ry = kernels.compute_Res(
             c.P, c.txx, c.tyy, c.txy_v, rho_gx, rho_gy, inv_dx, inv_dy,
-            Vy=c.Vy, free_surface_dt=fs_dt,
+            Vy=c.Vy, free_surface_dt=fs_dt, spacings=mom_spacings,
         )
         nRx = _norm(Rx[1:-1, 1:-1]) / math.sqrt((nx - 2) * (ny - 1))
         nRy = _norm(Ry[1:-1, 1:-1]) / math.sqrt((nx - 1) * (ny - 2))
@@ -212,9 +214,10 @@ def _solve_vep(
 
     # --- post-loop diagnostics & state assembly ----------------------------
     grad_V = kernels.compute_grad_V(c.Vx, c.Vy, inv_dx, inv_dy)
-    exx, eyy, exy = kernels.compute_strain_rate(grad_V, c.Vx, c.Vy, inv_dx, inv_dy)
+    exx, eyy, exy = kernels.compute_strain_rate(grad_V, c.Vx, c.Vy, inv_dx, inv_dy,
+                                                **strain_v)
     _, _, _, Rx, Ry = residual_norms(c, RP)
-    omega_xy = kernels.compute_vorticity(c.Vx, c.Vy, inv_dx, inv_dy)
+    omega_xy = kernels.compute_vorticity(c.Vx, c.Vy, *strain_v.values())
 
     EII_new = EII_pl + second_invariant_staggered(
         eps_pl_xx, eps_pl_yy, _gather4(eps_pl_xy_v)

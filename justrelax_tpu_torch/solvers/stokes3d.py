@@ -62,7 +62,7 @@ def kernel_chunk_inputs(stokes, pt_stokes, geometry, rho_g, G, K, dt):
     V = stokes.V
     carry = pack_carry(V.Vx, V.Vy, V.Vz, stokes.P, *_tensor6(stokes.tau))
     packed = pack_coeffs(co, derive_from=(eta, eta_tau, (r / theta_dtau, theta_dtau, etadtau)))
-    return carry, packed, k3.spacing_families_3d(geometry)[0]
+    return carry, packed, k3.spacing_families_3d(geometry, stokes.P)[0]
 
 
 def solve_ve_3d(
@@ -100,20 +100,21 @@ def solve_ve_3d(
     the kernel for a state on the card and the array path for one on the
     CPU; ``False`` asks for the array path. The kernel needs a uniform grid,
     free slip on all six faces and none of ``mean_free_RP``,
-    ``boundary_shear`` and ``alpha_dT``; asked for elsewhere it raises
-    ``ValueError``.
+    ``boundary_shear`` and ``alpha_dT``; asked for elsewhere (a
+    ``NonuniformGeometry`` included) it raises ``ValueError``. On a
+    nonuniform grid the array path takes the spacing families of
+    ``ops/stokes3d.py::spacing_families_3d``.
 
     ``pallas_lean`` chose a TPU lowering of the viscous limit and has no
     effect here; ``True`` with finite or non-constant ``G``, ``K`` or ``dt``
-    raises ``ValueError`` as in the JAX package. A nonuniform grid is not
-    ported and raises ``NotImplementedError``.
+    raises ``ValueError`` as in the JAX package.
     """
     if pallas_lean and not (_static_all_inf(G) and _static_all_inf(K) and _static_all_inf(dt)):
         raise ValueError(
             "pallas_lean=True requires statically infinite G, K and dt "
             "(viscous incompressible limit); got finite/traced moduli. "
             "Use pallas_lean=None for auto-detection.")
-    inv_di, _, mom_spacings = k3.spacing_families_3d(geometry)
+    inv_di, inv_di_v, mom_spacings = k3.spacing_families_3d(geometry, stokes.P)
     use_kernel = resolve_use_kernel(use_kernel, stokes.P)
     if use_kernel:
         reason = ve3d_chunk_unsupported(geometry, flow_bc, mean_free_RP, boundary_shear,
@@ -140,7 +141,7 @@ def solve_ve_3d(
         if mean_free_RP:
             grad_V = grad_V - grad_V.mean()
         RP, P = compute_P(P, P0, grad_V, Q, eta, K, G, dt, r, theta_dtau, alpha_dT=alpha_dT)
-        eps = k3.compute_strain_rate_3d(grad_V, *V, inv_di)
+        eps = k3.compute_strain_rate_3d(grad_V, *V, inv_di, inv_di_v)
         tau = k3.compute_tau_ve_3d(tau, tau_o, eps, eta, G, theta_dtau, dt,
                                    boundary_shear=boundary_shear)
         *V, Rx, Ry, Rz = k3.compute_V_3d(*V, P, tau, fx, fy, fz, eta_tau, etadtau, inv_di,

@@ -27,44 +27,40 @@ from justrelax_tpu_torch.ops.rock_ratio import RockRatio3D, valid_masks_3d
 from justrelax_tpu_torch.ops.stencil import maxloc
 from justrelax_tpu_torch.ops.stokes import compute_P
 from justrelax_tpu_torch.solvers.graphed_chunk import GraphedChunk
-from justrelax_tpu_torch.solvers.stokes2d import (
-    StokesSolveInfo,
-    _norm,
-    _ratio,
-    nonuniform_error,
-)
+from justrelax_tpu_torch.solvers.stokes2d import StokesSolveInfo, _norm, _ratio
 
 __all__ = ["solve_variational_3d", "masked_momentum_3d", "masked_velocity_update_3d",
            "variational_norms_3d"]
 
 
-def masked_momentum_3d(P, tau6, fw, inv_di, phi: RockRatio3D, vm):
+def masked_momentum_3d(P, tau6, fw, inv_di, phi: RockRatio3D, vm, spacings=None):
     """φ-weighted momentum residuals at the interior faces, zero at the
     invalid ones. ``fw`` holds the φ-weighted body forces (fx·φ, fy·φ,
-    fz·φ at the centers; ``None`` for a zero component)."""
-    _dx, _dy, _dz = inv_di
+    fz·φ at the centers; ``None`` for a zero component); ``spacings`` the
+    nonuniform momentum bundle (``ops/stokes3d.py::spacing_families_3d``)."""
+    (_dx, _dy, _dz), (_dxv, _dyv, _dzv) = k3.momentum_families_3d(inv_di, spacings)
     txx, tyy, tzz, tyz, txz, txy = tau6
     Pw = P * phi.center
     txxw, tyyw, tzzw = txx * phi.center, tyy * phi.center, tzz * phi.center
     tyzw, txzw, txyw = tyz * phi.yz, txz * phi.xz, txy * phi.xy
     fxw, fyw, fzw = fw
     Rx = (
-        (txxw[1:, :, :] - txxw[:-1, :, :]) * _dx
+        (txxw[1:, :, :] - txxw[:-1, :, :]) * _dxv
         + (txyw[1:-1, 1:, :] - txyw[1:-1, :-1, :]) * _dy
         + (txzw[1:-1, :, 1:] - txzw[1:-1, :, :-1]) * _dz
-        - (Pw[1:, :, :] - Pw[:-1, :, :]) * _dx
+        - (Pw[1:, :, :] - Pw[:-1, :, :]) * _dxv
     )
     Ry = (
         (txyw[1:, 1:-1, :] - txyw[:-1, 1:-1, :]) * _dx
-        + (tyyw[:, 1:, :] - tyyw[:, :-1, :]) * _dy
+        + (tyyw[:, 1:, :] - tyyw[:, :-1, :]) * _dyv
         + (tyzw[:, 1:-1, 1:] - tyzw[:, 1:-1, :-1]) * _dz
-        - (Pw[:, 1:, :] - Pw[:, :-1, :]) * _dy
+        - (Pw[:, 1:, :] - Pw[:, :-1, :]) * _dyv
     )
     Rz = (
         (txzw[1:, :, 1:-1] - txzw[:-1, :, 1:-1]) * _dx
         + (tyzw[:, 1:, 1:-1] - tyzw[:, :-1, 1:-1]) * _dy
-        + (tzzw[:, :, 1:] - tzzw[:, :, :-1]) * _dz
-        - (Pw[:, :, 1:] - Pw[:, :, :-1]) * _dz
+        + (tzzw[:, :, 1:] - tzzw[:, :, :-1]) * _dzv
+        - (Pw[:, :, 1:] - Pw[:, :, :-1]) * _dzv
     )
     # a zero body force adds nothing (x − 0 is x), so it is left out
     if fxw is not None:
@@ -117,7 +113,9 @@ class _Variational3DSolve(GraphedChunk):
     updated in place by :meth:`iteration`) and the constants of the call."""
 
     def __init__(self, stokes, pt_stokes, geometry, flow_bc, rho_g, G, K, phi, dt):
-        self.inv_di = k3.spacing_families_3d(geometry)[0]
+        # the spacing families (tensors on a nonuniform grid, made before any
+        # capture)
+        self.inv_di, self.inv_di_v, self.mom = k3.spacing_families_3d(geometry, stokes.P)
         self.r, self.theta_dtau = pt_stokes.r, pt_stokes.theta_dtau
         self.etadtau = pt_stokes.etadtau
         self.flow_bc, self.phi, self.G, self.K, self.dt = flow_bc, phi, G, K, dt
@@ -143,7 +141,7 @@ class _Variational3DSolve(GraphedChunk):
         Vx, Vy, Vz = self.V
         grad_V = torch.where(vm.c, k3.compute_grad_V_3d(Vx, Vy, Vz, self.inv_di), 0.0)
         exx, eyy, ezz, eyz, exz, exy = k3.compute_strain_rate_3d(grad_V, Vx, Vy, Vz,
-                                                                 self.inv_di)
+                                                                 self.inv_di, self.inv_di_v)
         eps = (torch.where(vm.c, exx, 0.0), torch.where(vm.c, eyy, 0.0),
                torch.where(vm.c, ezz, 0.0), torch.where(vm.yz, eyz, 0.0),
                torch.where(vm.xz, exz, 0.0), torch.where(vm.xy, exy, 0.0))
@@ -156,7 +154,7 @@ class _Variational3DSolve(GraphedChunk):
         tau = (torch.where(vm.c, txx, 0.0), torch.where(vm.c, tyy, 0.0),
                torch.where(vm.c, tzz, 0.0), torch.where(vm.yz, tyz, 0.0),
                torch.where(vm.xz, txz, 0.0), torch.where(vm.xy, txy, 0.0))
-        R = masked_momentum_3d(P, tau, self.fw, self.inv_di, self.phi, vm)
+        R = masked_momentum_3d(P, tau, self.fw, self.inv_di, self.phi, vm, self.mom)
         masked_velocity_update_3d(self.V, R, self.eta_tau, self.etadtau, vm, self.flow_bc)
         self.P.copy_(P)
         for t, new in zip(self.tau, tau):
@@ -180,9 +178,8 @@ def solve_variational_3d(
     """One masked 3D VE Stokes solve; returns ``(stokes, info)`` as the JAX
     package does. ``rho_g`` is the (fx, fy, fz) body force at the centers;
     ``G``/``K`` may be ∞. On the card the chunks' core iterations are CUDA
-    graph replays. A nonuniform geometry raises ``ValueError``."""
-    if hasattr(geometry, "di_center"):
-        raise nonuniform_error("solve_variational_3d")
+    graph replays. On a ``NonuniformGeometry`` the operators take its
+    spacing families (``ops/stokes3d.py::spacing_families_3d``)."""
     eps_rel, eps_abs = pt_stokes.eps_rel, pt_stokes.eps_abs
     nout_i = int(nout)
     max_chunks = max(1, int(math.ceil(iter_max / nout_i)))

@@ -201,8 +201,8 @@ def solve_vep_3d(
     the masked variational VEP solve of ``solvers/stokes3d_variational.py``'s
     masking with the fused plastic return mapping; it runs on the serial
     route only (``use_kernel=False``), as the JAX package's ``use_pallas``
-    refuses it. A nonuniform grid is not ported and raises
-    ``NotImplementedError``.
+    refuses it; so does a ``NonuniformGeometry``, whose spacing families
+    (``ops/stokes3d.py::spacing_families_3d``) the serial route takes.
     """
     material = _as_stack(material, stokes.P)
     route = resolve_use_kernel(use_kernel, stokes.P, allowed=ROUTES)
@@ -244,7 +244,7 @@ def _solve_vep_3d(stokes, pt_stokes, geometry, flow_bc, material, phase_ratios_c
                   phase_ratios_edges, dt, T, iter_max, iter_min, nout, viscosity_relaxation,
                   lambda_relaxation, viscosity_cutoff, route, visc_m, phi=None):
     nx, ny, nz = stokes.P.shape
-    inv_di, inv_di_v, mom_spacings = k3.spacing_families_3d(geometry)
+    inv_di, inv_di_v, mom_spacings = k3.spacing_families_3d(geometry, stokes.P)
     r, theta_dtau, etadtau = pt_stokes.r, pt_stokes.theta_dtau, pt_stokes.etadtau
     eps_rel, eps_abs = pt_stokes.eps_rel, pt_stokes.eps_abs
     nout_i = int(nout)
@@ -293,7 +293,8 @@ def _solve_vep_3d(stokes, pt_stokes, geometry, flow_bc, material, phase_ratios_c
 
     def momentum(P, tau6, fz):
         # fx and fy are zero: the masked residuals leave their terms out
-        return masked_momentum_3d(P, tau6, (None, None, fz * phi.center), inv_di, phi, vm)
+        return masked_momentum_3d(P, tau6, (None, None, fz * phi.center), inv_di, phi, vm,
+                                  mom_spacings)
 
     def one_iteration(c: _Carry):
         Vx, Vy, Vz = c.V
@@ -332,7 +333,7 @@ def _solve_vep_3d(stokes, pt_stokes, geometry, flow_bc, material, phase_ratios_c
         fx, fy, fz = rho_g_fields(c.P)
         tau6 = tuple(c.tau_c[:3]) + tuple(c.tau_e)
         if vm is None:
-            R = k3.momentum_residuals_3d(c.P, tau6, fx, fy, fz, inv_di)
+            R = k3.momentum_residuals_3d(c.P, tau6, fx, fy, fz, inv_di, mom_spacings)
         else:
             R = momentum(c.P, tau6, fz)
         return variational_norms_3d(R, RP), R

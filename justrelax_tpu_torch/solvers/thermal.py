@@ -60,28 +60,27 @@ def heatdiffusion_PT(
     Pass ``K`` and ``rho_Cp`` center tensors, or a ``material`` (with ``P``
     and optional phase ratios; a bare ``Material`` is stacked once on the
     state's device and in its dtype). ``dirichlet = (mask, value)`` pins
-    cells. Returns the updated :class:`ThermalState` (T, Told, dT, fluxes,
-    ResT) and a :class:`ThermalSolveInfo`.
+    the cells where the mask (bool or float) is nonzero. Returns the
+    updated :class:`ThermalState` (T, Told, dT, fluxes, ResT) and a
+    :class:`ThermalSolveInfo`.
 
     ``use_kernel=True`` runs the chunks through
     ``ops/hopper_thermal.py::thermal_chunk``; the default ``None`` does so
     for a state on the card and runs the array path for one on the CPU;
     ``False`` asks for the array path. The kernel covers the K/ρCp path
-    with constant_value / no_flux BCs (an adiabatic term included); asked
-    for with a material, a Dirichlet mask, or constant_flux or periodic BCs
-    it raises ``ValueError``, and so it does on a 3D state: a 3D caller on
-    the card passes ``use_kernel=False``. The distributed arguments
-    (``halo_exchange``, ``reduce_norm``) and a nonuniform grid are not
-    ported and raise ``NotImplementedError``.
+    with constant_value / no_flux BCs (an adiabatic term included) on a
+    uniform grid; asked for with a material, a Dirichlet mask, constant_flux
+    or periodic BCs, or on a ``NonuniformGeometry`` it raises
+    ``ValueError``, and so it does on a 3D state: such a caller on the card
+    passes ``use_kernel=False``. On a nonuniform grid the fluxes take the
+    face spacings (``inv_flux_di``), the divergence and update the cell
+    widths (``inv_div_di``). The distributed arguments (``halo_exchange``,
+    ``reduce_norm``) are not ported and raise ``NotImplementedError``.
     """
     if halo_exchange is not None or reduce_norm is not None:
         raise NotImplementedError(
             "halo_exchange/reduce_norm belong to the distributed layer, which "
             "the PyTorch port does not have yet")
-    if hasattr(geometry, "inv_flux_di"):
-        raise NotImplementedError(
-            "heatdiffusion_PT on a nonuniform grid needs NonuniformGeometry, "
-            "which the PyTorch port does not have yet")
     use_kernel = resolve_use_kernel(use_kernel, thermal.T)
     if use_kernel:
         reason = thermal_chunk_unsupported(thermal_bc, geometry, K, rho_Cp, material,
@@ -91,8 +90,11 @@ def heatdiffusion_PT(
                              "for the plain path")
     if material is not None:
         material = _as_stack(material, thermal.T)
+    if dirichlet is not None:
+        # any nonzero entry pins its cell, as jnp.where reads a float mask
+        dirichlet = (dirichlet[0] != 0, dirichlet[1])
 
-    inv_di = tuple(1.0 / d for d in geometry.di)
+    inv_flux_di, inv_div_di = kernels.thermal_spacings(geometry, thermal.T)
     inv_dt = 1.0 / dt
     nout = int(nout)
     max_chunks = max(1, int(math.ceil(iter_max / nout)))
@@ -104,10 +106,10 @@ def heatdiffusion_PT(
                    adiabatic=adiabatic, dirichlet=dirichlet)
 
     def one_iteration(T, q, q2):
-        q, q2 = kernels.compute_flux(q, q2, T, inv_di, theta_r_dtau, thermal_bc.constant_flux,
-                                     K=K, material=material, P=P,
+        q, q2 = kernels.compute_flux(q, q2, T, inv_flux_di, theta_r_dtau,
+                                     thermal_bc.constant_flux, K=K, material=material, P=P,
                                      phase_ratios_faces=phase_ratios_faces)
-        T = kernels.update_T(T, Told, q, H, sh, inv_dt, inv_di, dtau_rho, **cell_kw)
+        T = kernels.update_T(T, Told, q, H, sh, inv_dt, inv_div_di, dtau_rho, **cell_kw)
         return thermal_bcs(T, thermal_bc), q, q2
 
     ndim = thermal.T.ndim
@@ -119,7 +121,8 @@ def heatdiffusion_PT(
     while err > eps and chunk < max_chunks:
         if use_kernel:
             T, qx, qy = thermal_chunk(T, q[0], q[1], Told, K, rho_Cp, H + sh, dtau_rho,
-                                      theta_r_dtau, inv_dt, inv_di[0], inv_di[1], thermal_bc,
+                                      theta_r_dtau, inv_dt, inv_div_di[0], inv_div_di[1],
+                                      thermal_bc,
                                       adiabatic=adiabatic, nout=nout - 1)
             q = (qx, qy)
         else:
@@ -127,13 +130,13 @@ def heatdiffusion_PT(
                 T, q, _ = one_iteration(T, q, q2)
         # the chunk's last iteration on the array path refreshes q2
         T, q, q2 = one_iteration(T, q, q2)
-        res = kernels.check_res(T, Told, q2, H, sh, inv_dt, inv_di, **cell_kw)
+        res = kernels.check_res(T, Told, q2, H, sh, inv_dt, inv_div_di, **cell_kw)
         err_t = torch.linalg.vector_norm(res.reshape(-1)) * inv_sqrt_n
         hist[chunk] = err_t
         err = float(err_t)  # the one host read per chunk
         chunk += 1
 
-    res = kernels.check_res(T, Told, q2, H, sh, inv_dt, inv_di, **cell_kw)
+    res = kernels.check_res(T, Told, q2, H, sh, inv_dt, inv_div_di, **cell_kw)
     new_thermal = thermal.replace(
         T=T, Told=Told, dT=T - Told, qTx=q[0], qTy=q[1], qTx2=q2[0], qTy2=q2[1], ResT=res,
         qTz=q[2] if ndim == 3 else None, qTz2=q2[2] if ndim == 3 else None)

@@ -6,8 +6,9 @@ Counterpart of ``justrelax_tpu/solvers/thermal_explicit.py``:
 face-averaged κ fluxes of the ghosted T, their divergence and optionally
 the first-order upwind advection by cell-centered velocities, then applies
 the thermal BCs. The time loops are Python loops; ``solve_pt_1d`` reads its
-residual on the host once per chunk of ``nout`` iterations. Uniform grids
-only: a nonuniform geometry raises ``ValueError``.
+residual on the host once per chunk of ``nout`` iterations. On a
+``NonuniformGeometry`` the fluxes and the upwind differences take the face
+spacings, the divergence the cell widths.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from justrelax_tpu_torch.ops.bc import Faces, TemperatureBoundaryConditions, thermal_bcs
+from justrelax_tpu_torch.ops.thermal import thermal_spacings
 
 __all__ = [
     "ThermalParameters",
@@ -71,21 +73,21 @@ def _interior_slab(T, axis: int, sl: slice):
     return T[_sl(T.ndim, axis, sl, slice(1, -1))]
 
 
-def _diffusive_fluxes(T, kappa_faces, inv_di):
+def _diffusive_fluxes(T, kappa_faces, inv_flux_di):
     """q_axis = −κ_face ∂T/∂axis on all n_axis + 1 cell faces."""
     q = []
     for axis in range(T.ndim):
         dT = _interior_slab(T, axis, slice(1, None)) - _interior_slab(T, axis, slice(0, -1))
-        q.append(-kappa_faces[axis] * dT * inv_di[axis])
+        q.append(-kappa_faces[axis] * dT * inv_flux_di[axis])
     return tuple(q)
 
 
-def _div(q, inv_di):
+def _div(q, inv_div_di):
     out = 0.0
     n = len(q)
     for axis in range(n):
         out = out + (q[axis][_sl(n, axis, slice(1, None))]
-                     - q[axis][_sl(n, axis, slice(0, -1))]) * inv_di[axis]
+                     - q[axis][_sl(n, axis, slice(0, -1))]) * inv_div_di[axis]
     return out
 
 
@@ -98,7 +100,7 @@ def _center_velocities(V):
         for axis, Vc in enumerate(V))
 
 
-def _upwind_advection(T, V, inv_di):
+def _upwind_advection(T, V, inv_flux_di):
     """First-order upwind −V·∇T at cell centers, donor-cell differences
     picked by the velocity's sign."""
     Vc = _center_velocities(V)
@@ -107,19 +109,20 @@ def _upwind_advection(T, V, inv_di):
         T_c = _interior_slab(T, axis, slice(1, -1))
         T_m = _interior_slab(T, axis, slice(0, -2))
         T_p = _interior_slab(T, axis, slice(2, None))
-        dm = (T_c - T_m) * inv_di[axis]
-        dp = (T_p - T_c) * inv_di[axis]
+        dm = (T_c - T_m) * _donor_spacing(inv_flux_di[axis], axis, "lo")
+        dp = (T_p - T_c) * _donor_spacing(inv_flux_di[axis], axis, "hi")
         v = Vc[axis]
         adv = adv + torch.where(v > 0, v * dm, 0.0) + torch.where(v < 0, v * dp, 0.0)
     return -adv
 
 
-def _inv_di(geometry):
-    if hasattr(geometry, "inv_flux_di"):
-        raise ValueError(
-            "the explicit thermal solver on a nonuniform grid needs "
-            "NonuniformGeometry, which the PyTorch port does not have yet")
-    return tuple(1.0 / d for d in geometry.di)
+def _donor_spacing(inv_face, axis: int, side: str):
+    """The upwind spacing per cell: a uniform grid's scalar as it is; a
+    nonuniform grid's face spacings (n + 1 along ``axis``) sliced to the n
+    cells, the donor side's face."""
+    if not isinstance(inv_face, torch.Tensor):
+        return inv_face
+    return inv_face[_sl(inv_face.ndim, axis, slice(0, -1) if side == "lo" else slice(1, None))]
 
 
 def explicit_diffusion_step(thermal, params: ThermalParameters, geometry,
@@ -128,13 +131,13 @@ def explicit_diffusion_step(thermal, params: ThermalParameters, geometry,
     """One forward-Euler step: Told ← T; q = −κ∇T; dT/dt = −∇·q (− V·∇T
     upwind with ``V``); T_interior += dT/dt·dt; thermal BCs. Returns a new
     ``ThermalState`` with ΔT, dT/dt and the fluxes filled."""
-    inv_di = _inv_di(geometry)
     T = thermal.T
+    inv_flux_di, inv_div_di = thermal_spacings(geometry, T)
     Told = T
-    q = _diffusive_fluxes(T, _face_kappa(params.kappa), inv_di)
-    dT_dt = -_div(q, inv_di)
+    q = _diffusive_fluxes(T, _face_kappa(params.kappa), inv_flux_di)
+    dT_dt = -_div(q, inv_div_di)
     if V is not None:
-        dT_dt = dT_dt + _upwind_advection(T, V, inv_di)
+        dT_dt = dT_dt + _upwind_advection(T, V, inv_flux_di)
     T = T + F.pad(dT_dt * dt, (1, 1) * T.ndim)
     T = thermal_bcs(T, bcs)
     new = thermal.replace(T=T, Told=Told, dT=T - Told, dT_dt=dT_dt, qTx=q[0], qTy=q[1])

@@ -389,16 +389,29 @@ def test_explicit_gaussian_and_advection():
 
 
 def test_explicit_nonuniform_raises():
-    class Nonuniform(Geometry):
-        inv_flux_di = ((1.0,), (1.0,))
+    """A nonuniform grid, refused before ``NonuniformGeometry`` was ported:
+    now the step on a stretched grid against JAX's (1e-14)."""
+    from justrelax_tpu.core.grid import NonuniformGeometry as JNG
+    from justrelax_tpu_torch.core.grid import NonuniformGeometry as PNG
 
+    s = np.linspace(-1.0, 1.0, 5)
+    xv = 0.5 * (np.tanh(1.5 * s) / np.tanh(1.5) + 1.0)
+    vectors = (xv, np.linspace(0.0, 1.0, 5))
+    T = np.random.default_rng(2).random((6, 6))
     th = convert.thermal_state_from_dict(
-        serialization.to_state_dict(JThermalState.make((4, 4))), device="cpu")
+        serialization.to_state_dict(JThermalState.make((4, 4)).replace(T=jnp.asarray(T))),
+        device="cpu")
     params = pte.ThermalParameters.make(torch.ones(4, 4, dtype=torch.float64),
                                         torch.ones(4, 4, dtype=torch.float64))
-    with pytest.raises(ValueError, match="NonuniformGeometry"):
-        pte.explicit_diffusion_step(th, params, Nonuniform((4, 4), (1.0, 1.0)),
-                                    pbc.TemperatureBoundaryConditions(), 0.1)
+    out = pte.explicit_diffusion_step(th, params, PNG(vectors),
+                                      pbc.TemperatureBoundaryConditions(), 0.01)
+    jth = JThermalState.make((4, 4)).replace(T=jnp.asarray(T))
+    jout = jte.explicit_diffusion_step(
+        jth, jte.ThermalParameters.make(jnp.ones((4, 4)), jnp.ones((4, 4))), JNG(vectors),
+        jbc.TemperatureBoundaryConditions(), 0.01)
+    for k in ("T", "dT_dt", "qTx", "qTy"):
+        np.testing.assert_allclose(getattr(out, k).numpy(), np.asarray(getattr(jout, k)),
+                                   rtol=0.0, atol=1e-14)
 
 
 @pytest.mark.parametrize("case", ["steady", "transient"])

@@ -908,3 +908,50 @@ def test_variational_golden_f64(cuda, label):
     for key, ok in checks(g):
         assert ok, (key, g)
     assert g["other_launches"] == 0
+
+
+@pytest.mark.parametrize("label", ["vep", "vep3d"])
+def test_nonuniform_card_matches_cpu(cuda, label):
+    """A 2D and a 3D solve on a tanh-stretched grid (chip_smoke.py's phase
+    39 set-ups, f64, a fixed count of iterations): the card against the
+    CPU, equal iterations, fields within 1e-12 of their max; no kernel of
+    the port launched."""
+    from chip_smoke import (
+        NONUNIFORM_CARD_VS_CPU,
+        counts,
+        nonuniform_field_diffs,
+        nonuniform_solve,
+        reset_counts,
+    )
+
+    reset_counts()
+    sc, ic, res_scale = nonuniform_solve(label, cuda)
+    assert sum(counts().values()) == 0
+    sh, ih, _ = nonuniform_solve(label, torch.device("cpu"))
+    assert int(ic.iters) == int(ih.iters)
+    worst = nonuniform_field_diffs(sc, sh, res_scale)
+    assert max(worst.values()) <= NONUNIFORM_CARD_VS_CPU, worst
+
+
+def test_nonuniform_kernel_refusals(cuda):
+    """Every kernel route asked for on a stretched grid (the default on the
+    card among them) raises ValueError naming use_kernel=False."""
+    from chip_smoke import stretched_refusals
+
+    for key, msg in stretched_refusals(cuda).items():
+        assert msg is not None and "use_kernel=False" in msg, (key, msg)
+
+
+@pytest.mark.slow
+def test_shearband_refined_golden_f64(cuda):
+    """tests/test_shearband_refined.py's golden (n=32, nt=10) on the card
+    through the model's entry point (plain by contract): phase 39's case,
+    moved here for its time (~10^5 plain iterations, each the host's
+    dispatch); no kernel of the port launched."""
+    from chip_smoke import golden_result, nonuniform_golden_cases
+
+    run, checks = nonuniform_golden_cases()["shearband_refined"]
+    g = golden_result("shearband_refined", run)
+    for key, ok in checks(g):
+        assert ok, (key, g)
+    assert g["other_launches"] == 0

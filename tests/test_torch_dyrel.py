@@ -15,7 +15,7 @@ float64:
   held to its terms' scale: ``R.*`` to max |V| for the preconditioned
   momentum residuals and max |∇·V| for RP, err (the outer residual norms
   over their first values, so 1 at the start) to 1;
-- a nonuniform geometry raises ``ValueError``.
+- the Gershgorin bound on a stretched grid's spacing families.
 """
 
 import math
@@ -399,16 +399,28 @@ def test_solve_dyrel_no_forcing():
 
 
 def test_nonuniform_raises():
-    class Nonuniform(Geometry):
-        di_center = ((0.1,), (0.1,))
-
-    from justrelax_tpu_torch.core.state import StokesState
-
-    g = Nonuniform((8, 8), (1.0, 1.0))
-    mat = pm.MaterialStack.make([pm.Material(G=1.0, Kb=4.0)], device="cpu")
-    with pytest.raises(ValueError, match="NonuniformGeometry"):
-        pd.solve_dyrel(StokesState.make((8, 8), device="cpu"), g,
-                       pbc.VelocityBoundaryConditions(**_BC), mat, None, None, 0.25)
-    with pytest.raises(ValueError, match="NonuniformGeometry"):
-        pd.gershgorin_schur_2d(None, None, None, None, None, mat, (0.1, 0.1), 0.25,
-                               spacings=(1, 1, 1, 1))
+    """A nonuniform grid, refused before ``NonuniformGeometry`` was ported:
+    now the Gershgorin bound with a stretched grid's spacing families
+    against JAX's (1e-15; its solve is held in
+    tests/test_torch_nonuniform_stokes.py)."""
+    rng = np.random.default_rng(4)
+    ni = (9, 7)
+    s = [np.linspace(-1.0, 1.0, n + 1) for n in ni]
+    xv = [0.5 * (np.tanh(1.5 * v) / np.tanh(1.5) + 1.0) for v in s]
+    dc = [np.diff(v) for v in xv]
+    dv = [np.concatenate(([d[0]], np.diff(0.5 * (v[1:] + v[:-1])), [d[-1]])) for v, d in
+          zip(xv, dc)]
+    spacings = (dc[0][:, None], dc[1][None, :], dv[0][:, None], dv[1][None, :])
+    mats = [_PHASES[0], _PHASES[2]]
+    eta, eta_v = rng.uniform(0.3, 3.0, ni), rng.uniform(0.3, 3.0, (10, 8))
+    gamma = rng.uniform(1.0, 20.0, ni)
+    pr_c, pr_v = rng.dirichlet(np.ones(2), ni), rng.dirichlet(np.ones(2), (10, 8))
+    jmat = jm.MaterialStack.make([jm.Material(**m) for m in mats])
+    pmat = pm.MaterialStack.make([pm.Material(**m) for m in mats], device="cpu")
+    t = torch.as_tensor
+    j4 = jd.gershgorin_schur_2d(*map(jnp.asarray, (eta, eta_v, gamma, pr_c, pr_v)), jmat,
+                                (0.1, 0.125), 0.3, spacings=tuple(map(jnp.asarray, spacings)))
+    p4 = pd.gershgorin_schur_2d(*map(t, (eta, eta_v, gamma, pr_c, pr_v)), pmat, (0.1, 0.125),
+                                0.3, spacings=spacings)
+    for a, b in zip(p4, j4):
+        assert a.shape == b.shape and _max_rel(a.numpy(), b) <= 1e-15

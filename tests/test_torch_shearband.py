@@ -182,7 +182,10 @@ def test_import_leaves_jax_out():
                "solvers.dyrel", "solvers.thermal_explicit", "models.shearband_dyrel",
                "models.thermal_stresses_dyrel", "utils.units", "ops.displacement",
                "ops.principal_stresses", "ops.stress_rotation", "rheology.plasticity",
-               "rheology.materials")
+               "rheology.materials", "core.grid", "models.shearband_refined",
+               "models.taylor_green", "solvers.stokes2d", "solvers.stokes2d_variational",
+               "solvers.stokes3d", "solvers.stokes3d_vep", "solvers.stokes3d_variational",
+               "ops.stokes", "ops.stokes3d", "ops.stokes_vep")
     code = ("import sys, justrelax_tpu_torch, "
             + ", ".join(f"justrelax_tpu_torch.{m}" for m in modules)
             + "; assert 'jax' not in sys.modules and 'justrelax_tpu' not in sys.modules")

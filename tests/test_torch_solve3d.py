@@ -9,8 +9,10 @@ package, in float64 on the CPU:
   its family's max, residuals within 1e-12 of their terms' size
   (``test_torch_stokes_ve._state_close``), and the port's two routes held
   against each other;
-- the kernel guard's ``ValueError`` for each excluded option, JAX's
-  ``pallas_lean`` refusal, and ``NotImplementedError`` for a nonuniform grid;
+- the kernel guard's ``ValueError`` for each excluded option (a
+  nonuniform grid among them), JAX's ``pallas_lean`` refusal, and a
+  ``NonuniformGeometry`` of uniform vectors on the plain path against the
+  scalar grid;
 - ``solvi3d``, ``burstedde`` and ``taylor_green`` at 8³ with a fixed
   iteration count against the JAX models (1e-10);
 - ``smooth_viscosity_3d`` against JAX and the bounds of
@@ -19,7 +21,6 @@ package, in float64 on the CPU:
   and tests/test_stokes_burstedde.py through the port.
 """
 
-import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -30,6 +31,7 @@ from flax import serialization
 
 from justrelax_tpu.core.coeffs import PTStokesCoeffs as JCoeffs
 from justrelax_tpu.core.grid import Geometry as JGeometry
+from justrelax_tpu.core.grid import NonuniformGeometry as JNonuniformGeometry
 from justrelax_tpu.core.state import StokesState as JStokesState
 from justrelax_tpu.models import burstedde as jburstedde
 from justrelax_tpu.models import solvi3d as jsolvi3d
@@ -38,7 +40,7 @@ from justrelax_tpu.ops import bc as jbc
 from justrelax_tpu.solvers.stokes3d import solve_ve_3d as j_solve_ve_3d
 from justrelax_tpu_torch import convert
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs
-from justrelax_tpu_torch.core.grid import Geometry
+from justrelax_tpu_torch.core.grid import Geometry, NonuniformGeometry
 from justrelax_tpu_torch.models import burstedde, solvi3d, taylor_green
 from justrelax_tpu_torch.ops import bc as pbc
 from justrelax_tpu_torch.ops import hopper_stokes3d as h3
@@ -152,14 +154,18 @@ def test_kernel_refused_where_jax_refuses(case):
 def test_not_ported_and_refused_arguments():
     st, pt, g, bc, rho_g, G, K, dt = _port_inputs()
 
-    @dataclasses.dataclass(frozen=True)
-    class Nonuniform:
-        di = g.di
-        di_center = g.xci
-
-    for use_kernel in (False, True):
-        with pytest.raises(NotImplementedError):
-            solve_ve_3d(st, pt, Nonuniform(), bc, rho_g, G, K, dt, use_kernel=use_kernel)
+    # a nonuniform grid: the kernel refuses it; the plain path on uniform
+    # vectors gives the scalar grid's result (tests/test_nonuniform_stokes3d.py)
+    nonuniform = NonuniformGeometry(tuple(np.linspace(0.0, 1.0, N + 1) for _ in range(3)))
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        solve_ve_3d(st, pt, nonuniform, bc, rho_g, G, K, dt, use_kernel=True)
+    a, ia = solve_ve_3d(st, pt, nonuniform, bc, rho_g, G, K, dt, iter_max=20, nout=10,
+                        use_kernel=False)
+    b, ib = solve_ve_3d(st, pt, g, bc, rho_g, G, K, dt, iter_max=20, nout=10, use_kernel=False)
+    assert ia.iters == ib.iters == 20
+    for x, y in ((a.V.Vx, b.V.Vx), (a.V.Vz, b.V.Vz), (a.tau.xy, b.tau.xy)):
+        assert float((x - y).abs().max()) <= 1e-13
+    assert float((a.P - b.P).abs().max()) <= 1e-12
     with pytest.raises(ValueError, match="pallas_lean"):
         solve_ve_3d(st, pt, g, bc, rho_g, G, K, dt, pallas_lean=True)
     with pytest.raises(ValueError):
@@ -219,14 +225,14 @@ def test_analytic_fields_match_jax():
     for a, b in zip(burstedde.analytic_velocity(g), jburstedde.analytic_velocity(jg)):
         np.testing.assert_array_equal(a, b)
 
-    @dataclasses.dataclass(frozen=True)
-    class Nonuniform:
-        ni = NI
-        di = g.di
-        di_center = g.xci
-
-    with pytest.raises(NotImplementedError):
-        taylor_green.run(geometry=Nonuniform(), device="cpu")
+    # on a stretched grid: the same analytic fields at its own coordinates
+    # (its solve is held in tests/test_torch_nonuniform_stokes3d.py)
+    s_ = np.linspace(-1.0, 1.0, N + 1)
+    xv = 0.5 * (np.tanh(1.2 * s_) / np.tanh(1.2) + 1.0)
+    vectors = (xv, np.linspace(0.0, 1.0, N + 1), xv)
+    for a, b in zip(taylor_green.analytic_fields(NonuniformGeometry(vectors)),
+                    jtaylor_green.analytic_fields(JNonuniformGeometry(vectors))):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_smooth_viscosity_3d():

@@ -11,7 +11,8 @@ package, in float64 on the CPU:
   version, no launch, the serial path's result;
 - the refusals: a material the kernels do not take (softening, a
   non-uniform Kb), ``phi``, a nonuniform grid, BCs other than free slip on
-  all faces, an unknown route;
+  all faces, an unknown route; a ``NonuniformGeometry`` of uniform vectors
+  on the serial route against the scalar grid;
 - ``shearband3d.run`` and ``run_multi`` against the JAX models (1e-10);
 - ``slow``: bench.py's ``vep3d_hybrid`` golden at 10³ and
   tests/test_shearband3d.py's goldens at 12³, through the port on the CPU.
@@ -38,7 +39,7 @@ from justrelax_tpu.rheology.phases import phase_ratios_from_field as j_ratios
 from justrelax_tpu.solvers.stokes3d_vep import solve_vep_3d as j_solve
 from justrelax_tpu_torch import convert
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs
-from justrelax_tpu_torch.core.grid import Geometry
+from justrelax_tpu_torch.core.grid import Geometry, NonuniformGeometry
 from justrelax_tpu_torch.models import shearband3d
 from justrelax_tpu_torch.ops import bc as pbc
 from justrelax_tpu_torch.ops import hopper_stokes3d_vep as hc
@@ -190,14 +191,18 @@ def test_not_ported_and_refused():
         with pytest.raises(ValueError, match="free-slip"):
             solve_vep_3d(*args[:3], noslip, *args[4:], use_kernel=route, **_KW)
 
-    class Nonuniform(Geometry):
-        di_center = None
-
-    g = Nonuniform(NI, (1.0, 1.0, 1.0))
-    with pytest.raises(ValueError, match="uniform grid"):
-        solve_vep_3d(args[0], args[1], g, *args[3:], use_kernel="edges", **_KW)
-    with pytest.raises(NotImplementedError, match="nonuniform"):
-        solve_vep_3d(args[0], args[1], g, *args[3:], use_kernel=False, **_KW)
+    # a nonuniform grid: the canvas routes refuse it; the serial route on
+    # uniform vectors gives the scalar grid's result
+    # (tests/test_nonuniform_stokes3d.py; stretched against JAX in
+    # tests/test_torch_nonuniform_stokes3d.py)
+    g = NonuniformGeometry(tuple(np.linspace(0.0, 1.0, n + 1) for n in NI))
+    for route in ("edges", "canvas"):
+        with pytest.raises(ValueError, match="uniform grid"):
+            solve_vep_3d(args[0], args[1], g, *args[3:], use_kernel=route, **_KW)
+    vec, _ = solve_vep_3d(args[0], args[1], g, *args[3:], use_kernel=False, **_KW)
+    for a, b, tol in ((vec.V.Vx, plain.V.Vx, 1e-13), (vec.V.Vz, plain.V.Vz, 1e-13),
+                      (vec.tau.xz, plain.tau.xz, 1e-13), (vec.P, plain.P, 1e-12)):
+        assert float((a - b).abs().max()) <= tol
 
 
 _MODEL_KW = dict(nt=2, eps_bg=1.0)

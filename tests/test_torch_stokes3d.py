@@ -29,12 +29,14 @@ import torch
 from chip_smoke import VE3D_CASES, ve3d_case, ve3d_numpy
 from justrelax_tpu.core.coeffs import PTStokesCoeffs as JCoeffs
 from justrelax_tpu.core.grid import Geometry as JGeometry
+from justrelax_tpu.core.grid import NonuniformGeometry as JNonuniformGeometry
 from justrelax_tpu.ops import bc as jbc
 from justrelax_tpu.ops import stokes3d as jk3
 from justrelax_tpu.ops import stokes3d_canvas as jcv
 from justrelax_tpu.ops.pallas_stokes3d_blocked import stokes3d_chunk_blocked
 from justrelax_tpu.ops.stencil import maxloc as jmaxloc
 from justrelax_tpu_torch.core.grid import Geometry
+from justrelax_tpu_torch.core.grid import NonuniformGeometry as PNonuniformGeometry
 from justrelax_tpu_torch.models import solvi3d
 from justrelax_tpu_torch.ops import bc as pbc
 from justrelax_tpu_torch.ops import hopper_stokes3d as h3
@@ -138,17 +140,15 @@ def test_ops_3d_match_jax(name):
 
 def test_spacing_families_3d():
     g, jg = Geometry((6, 5, 4), (1.5, 1.0, 0.8)), JGeometry((6, 5, 4), (1.5, 1.0, 0.8))
-    assert pk3.spacing_families_3d(g) == jk3.spacing_families_3d(jg)
-
-    @dataclasses.dataclass(frozen=True)
-    class Nonuniform:
-        di = g.di
-        di_center = g.xci
-
-    with pytest.raises(NotImplementedError):
-        pk3.spacing_families_3d(Nonuniform())
-    with pytest.raises(NotImplementedError):
-        pk3.compute_V_3d(*([None] * 10), INV_DI, spacings=((1.0,) * 3, (1.0,) * 3))
+    like = torch.zeros((), dtype=torch.float64)
+    assert pk3.spacing_families_3d(g, like) == jk3.spacing_families_3d(jg)
+    # a nonuniform grid's families, once refused: now JAX's, bit for bit
+    # (compute_V_3d with them in tests/test_torch_nonuniform_stokes3d.py)
+    vectors = tuple(np.cumsum(np.r_[0.0, np.linspace(1.0, 2.0, n)]) for n in (6, 5, 4))
+    p = pk3.spacing_families_3d(PNonuniformGeometry(vectors), like)
+    j = jk3.spacing_families_3d(JNonuniformGeometry(vectors))
+    for a, b in zip(p[0] + p[1] + p[2][0] + p[2][1], j[0] + j[1] + j[2][0] + j[2][1]):
+        assert a.shape == b.shape and np.array_equal(a.numpy(), np.asarray(b))
 
 
 _BCS3 = {

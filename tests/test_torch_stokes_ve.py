@@ -20,7 +20,6 @@ rates, velocities), and residuals (R.* and the residual norms) on the size of
 the terms they sum (``_scales``).
 """
 
-import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -42,7 +41,7 @@ from justrelax_tpu.ops import stokes as jops
 from justrelax_tpu.solvers.stokes2d import solve_ve as j_solve_ve
 from justrelax_tpu_torch import convert
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs
-from justrelax_tpu_torch.core.grid import Geometry
+from justrelax_tpu_torch.core.grid import Geometry, NonuniformGeometry
 from justrelax_tpu_torch.models import elastic_buildup, solcx, solkz
 from justrelax_tpu_torch.ops import bc as pbc
 from justrelax_tpu_torch.ops import hopper_stokes as hs
@@ -248,13 +247,21 @@ def test_solve_ve_not_ported_arguments():
         with pytest.raises(NotImplementedError):
             solve_ve(st, pt, g, bc, (z, z), G, G, 0.1, **kw)
 
-    @dataclasses.dataclass(frozen=True)
-    class Nonuniform:
-        di = g.di
-        di_center = g.xci
-
-    with pytest.raises(NotImplementedError):
-        solve_ve(st, pt, Nonuniform(), bc, (z, z), G, G, 0.1)
+    # a nonuniform grid: the kernel refuses it; the plain path on uniform
+    # vectors gives the scalar grid's result (stretched grids against JAX in
+    # tests/test_torch_nonuniform_stokes.py)
+    nonuniform = NonuniformGeometry((np.linspace(0.0, 1.0, 9),) * 2)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        solve_ve(st, pt, nonuniform, bc, (z, z), G, G, 0.1, use_kernel=True)
+    x = (np.arange(8) + 0.5) / 8
+    rho = torch.as_tensor(np.outer(np.cos(np.pi * x), np.sin(np.pi * x)))
+    a, ia = solve_ve(st, pt, nonuniform, bc, (z, rho), G, G, 0.1, iter_max=100, nout=50,
+                     use_kernel=False)
+    b, ib = solve_ve(st, pt, g, bc, (z, rho), G, G, 0.1, iter_max=100, nout=50,
+                     use_kernel=False)
+    assert ia.iters == ib.iters == 100 and float(b.V.Vy.abs().max()) > 0.0
+    for u, v, tol in ((a.V.Vx, b.V.Vx, 1e-13), (a.V.Vy, b.V.Vy, 1e-13), (a.P, b.P, 1e-12)):
+        assert float((u - v).abs().max()) <= tol
     with pytest.raises(ValueError):
         solve_ve(st, pt, g, bc, (z, z), G, G, 0.1, use_kernel="edges")
 

@@ -41,6 +41,7 @@ from justrelax_tpu.rheology import materials as jm
 from justrelax_tpu.solvers.thermal import heatdiffusion_PT as j_heatdiffusion_PT
 from justrelax_tpu_torch import convert
 from justrelax_tpu_torch.core.coeffs import PTThermalCoeffs
+from justrelax_tpu_torch.core.grid import NonuniformGeometry
 from justrelax_tpu_torch.core.state import ThermalState
 from justrelax_tpu_torch.models import diffusion2d
 from justrelax_tpu_torch.ops import bc as pbc
@@ -403,16 +404,21 @@ def test_not_ported_arguments():
         with pytest.raises(NotImplementedError):
             heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, **kw)
 
-    @dataclasses.dataclass(frozen=True)
-    class Nonuniform:
-        di = g.di
-        inv_flux_di = g.di
-
-    with pytest.raises(NotImplementedError):
-        heatdiffusion_PT(th, pt, bc, 0.3, Nonuniform(), K=K, rho_Cp=rc)
+    # a nonuniform grid: the kernel refuses it; the plain path on uniform
+    # vectors gives the scalar grid's result (stretched grids against JAX in
+    # tests/test_torch_nonuniform.py)
+    nonuniform = NonuniformGeometry(tuple(np.linspace(0.0, 1.0, n + 1) for n in g.ni))
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        heatdiffusion_PT(th, pt, bc, 0.3, nonuniform, K=K, rho_Cp=rc, use_kernel=True)
+    a, ia = heatdiffusion_PT(th, pt, bc, 0.3, nonuniform, K=K, rho_Cp=rc, iter_max=100,
+                             nout=50, use_kernel=False)
+    b, ib = heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, iter_max=100, nout=50,
+                             use_kernel=False)
+    assert ia.iters == ib.iters
+    assert float((a.T - b.T).abs().max()) <= 1e-12
     with pytest.raises(ValueError):
         heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, use_kernel="edges")
-    assert ht.thermal_chunk_unsupported(bc, Nonuniform(), K, rc) == "needs a uniform grid"
+    assert ht.thermal_chunk_unsupported(bc, nonuniform, K, rc) == "needs a uniform grid"
     assert "halo" in ht.thermal_chunk_unsupported(bc, g, K, rc, halo_exchange=lambda a: a)
 
 

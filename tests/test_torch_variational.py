@@ -15,11 +15,11 @@ against the JAX package on the CPU in float64, at 12²–16²:
 Held: equal iterations; every field of the state within 1e-10 of its max
 (the momentum residuals, rounding of their terms at convergence, within
 1e-10 of max |ρg|, RP and ∇·V within 1e-10 of max |V|/dx); the err history within
-1e-10 of its first value. A nonuniform geometry raises ``ValueError``.
+1e-10 of its first value. A ``NonuniformGeometry`` of uniform vectors gives
+the scalar grid's result.
 """
 
 import math
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +39,7 @@ from justrelax_tpu.solvers.stokes2d_variational import solve_variational as j_so
 from justrelax_tpu_torch import convert
 from justrelax_tpu_torch.core.coeffs import PTStokesCoeffs as PPT
 from justrelax_tpu_torch.core.grid import Geometry as PGeometry
+from justrelax_tpu_torch.core.grid import NonuniformGeometry as PNonuniformGeometry
 from justrelax_tpu_torch.core.state import StokesState as PStokesState
 from justrelax_tpu_torch.ops import bc as pbc
 from justrelax_tpu_torch.ops.rock_ratio import RockRatio as PRockRatio
@@ -177,8 +178,14 @@ def test_phi_one_matches_plain_vep():
 
 
 def test_nonuniform_geometry_raises():
+    """A nonuniform grid, once refused: uniform vectors give the scalar
+    grid's result (tests/test_nonuniform_stokes.py's 1e-12; stretched grids
+    against JAX in tests/test_torch_nonuniform_stokes.py)."""
     st, pt, geometry, bc, mat, prc, prv, phi, dt, T, kw = _inputs("sticky_air", "port")
-    nonuniform = types.SimpleNamespace(di=geometry.di, di_center=geometry.di,
-                                       di_vertex=geometry.di, li=geometry.li, ni=geometry.ni)
-    with pytest.raises(ValueError, match="NonuniformGeometry"):
-        p_solve(st, pt, nonuniform, bc, mat, prc, prv, phi, dt, **kw)
+    nonuniform = PNonuniformGeometry(tuple(np.linspace(0.0, 1.0, n + 1) for n in geometry.ni))
+    kw = dict(kw, iter_max=400, nout=200)
+    a, ia = p_solve(st, pt, nonuniform, bc, mat, prc, prv, phi, dt, **kw)
+    b, ib = p_solve(st, pt, geometry, bc, mat, prc, prv, phi, dt, **kw)
+    assert int(ia.iters) == int(ib.iters)
+    for u, v in ((a.V.Vy, b.V.Vy), (a.P, b.P)):
+        assert float((u - v).abs().max()) <= 1e-12
