@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--parent DIR]
 
 (``--golden LABEL`` runs one of phase 28's, 30's, 33's, 36's or 39's
-goldens and prints its result: phases 28, 30 and 33 start three each that
-way, and phase 36 four, in processes of their own.)
+goldens, or one of phase 28's moved drives, and prints its result: phases
+28 and 30 start three goldens each that way, phase 33 four, phase 36 two
+and phase 39 one, in processes of their own, and phase 28 its three drives;
+the drives and those of phases 33, 36 and 39 start beside phase 28's.)
 
 Run from the root of a checkout. Phases, each printing JSON lines:
 
@@ -163,6 +165,16 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               the visc_plastic_tau shear band at 32^2 over 10 steps, SolVi
               2D at 96^2 for both viscosity ratios; each with the launches
               of the kernel it routes through (> 0) and of no other.
+              diffusion3d, global convection and SolVi 2D run in processes
+              of their own; the thermal stresses, shear heating and the
+              visc_plastic_tau band run as the slow cuda test
+              test_model_golden_f64 for their time (GOLDENS_MOVED).
+              moved_drives: the paths of shear heating, the visc_plastic_tau
+              band and the DYREL volcano (whose goldens are slow cuda tests)
+              one step each at the golden's size, f64, in processes of their
+              own (the volcano's DYREL solve capped, VOLCANO_DRIVE_CAPS),
+              within MOVED_DRIVE_TOL of the JAX model's values after that
+              step, with no kernel launched (MOVED_DRIVES).
 29. main_path_models: the new paths at production grids in f32 (PROD): the
               sinking block at 1024^2 through B2/B3 on the flagship's budget,
               the thermal stresses at 1024^2 (B5, then the plain alpha_dT
@@ -209,7 +221,10 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               32^2 over 2 steps (B5) and the
               sticky-air subduction through DYREL at 50x20 over 2 steps on
               its residual oracle; each with the launches of the kernel it
-              routes through (> 0) and of no other.
+              routes through (> 0) and of no other. The two layered
+              convections, Van Keken and the subduction run in processes of
+              their own, started beside phase 28's and collected before
+              phase 29 takes its timings.
 34. particles_card_vs_cpu: every particle operation on the card against
               the CPU from the same numpy inputs, f64, at 64^2 x 24 slots and
               16^3 x 12 (particles_numpy: a divergence-free field moving
@@ -239,14 +254,14 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               (plain solve_vep by contract) and the variational plume at
               32^2, Crameri's relaxation at 32^2 over 4 steps, the 2D
               subduction at 64x24 and the 3D subduction at 48x8x16 (the
-              plume, Crameri and the two subductions run as the slow cuda
-              test test_variational_golden_f64 for their time,
+              plume, Crameri, the two subductions, the overturn and the
+              DYREL volcano run as the slow cuda test
+              test_variational_golden_f64 for their time,
               VARIATIONAL_MOVED); each with its graph captures and replays
               by solve class and no launch of a kernel of the port. The
-              volcanoes, the overturn and the variational plume run in
-              processes of their own, started beside phase 28's (whose
-              processes wait on the host) and collected before phase 29
-              takes its timings.
+              volcano and the variational plume run in processes of their
+              own, started beside phase 28's (whose processes wait on the
+              host) and collected before phase 29 takes its timings.
 37. variational_graph_parity: a variational chunk's graph replay against
               the chunk run eagerly from the same mid-solve sticky-air state,
               2D at 64^2 with and without the free-surface term and 3D at
@@ -275,20 +290,36 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               Taylor-Green's solve_ve_3d, solve_vep_3d without and with
               phi, solve_variational_3d; equal iterations, fields within
               1e-12 of their max), every graphed chunk's replay against its
-              eager chunk bit for bit, the refined shear band's first three
+              eager chunk bit for bit, the refined shear band's first two
               steps at 32^2 on the analytic curve and the JAX model's frozen
-              values (its full n=32 golden is the slow cuda test
+              values (in a process of its own beside phase 28's; its full
+              n=32 golden is the slow cuda test
               test_shearband_refined_golden_f64), and each kernel route
               asked for on a stretched grid raising ValueError naming
               use_kernel=False; no kernel launched. It takes no timing, so
               it runs while phase 28's golden processes run on.
 40. main_path_nonuniform: one f32 step of the refined shear band at 1024^2
               (shearband-refined-1024-f32, plain by contract, Stokes cap
-              2 000), after phase 38: wall time, ms per iteration, the
+              1 000), after phase 38: wall time, ms per iteration, the
               kernels one eager iteration launches (torch.profiler), the
               bytes bound
               (vep_chunk_words plus the spacing vectors), and the uniform
               flagship's B2/B3 per iteration measured again beside it.
+41. io_restart: checkpoints and restart (io/checkpoint.py) through the
+              kernels, after phase 40: (a) tests/test_restart_equivalence.py's
+              16^2 f64 VE loop, four steps straight against two steps, a
+              checkpoint, a reload into fresh states and two more, bit for
+              bit through B1/B4; (b) phase 4's 1024^2 f32 shear band state
+              written and read back on the card, every field bit-equal, its
+              bytes and write and read seconds, then 100 B2/B3 iterations
+              from the original and from the reloaded state bit-equal; (c)
+              that file read on the CPU, equal to the card's state; (d)
+              subduction2d.run_particles at 48x16 (Stokes cap
+              PARTICLES_RESTART_STOKES_CAP): two straight 2-step runs and a
+              restart from a step-1 checkpoint, the restart and the second
+              straight run each held to the first within
+              PARTICLES_RESTART_TOL; (e) save_vti's seconds for the
+              flagship's 1024^2 cell fields.
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
 the run's own inputs (hopper_stokes_vep.vep_chunk_words and
@@ -299,7 +330,7 @@ fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
 Then the script's seconds (the line "elapsed"), the kernels line (each
 entry with its launches on the main path it
-was first ported for, and launches_models: its launches in phases 28-40),
+was first ported for, and launches_models: its launches in phases 28-41),
 and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
 printing any result. With --parent DIR (a parent commit's
@@ -321,6 +352,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -383,8 +415,11 @@ from justrelax_tpu_torch.ops.bc import (  # noqa: E402
     TemperatureBoundaryConditions,
     VelocityBoundaryConditions,
     flow_bcs,
+    pureshear_bc,
     thermal_bcs,
 )
+from justrelax_tpu_torch.io.checkpoint import checkpointing, load_checkpoint  # noqa: E402
+from justrelax_tpu_torch.io.vtk import save_vti  # noqa: E402
 from justrelax_tpu_torch.solvers import dyrel as solver_dyrel  # noqa: E402
 from justrelax_tpu_torch.solvers import stokes2d as solver_ve  # noqa: E402
 from justrelax_tpu_torch.solvers import stokes2d_vep as solver_vep  # noqa: E402
@@ -475,8 +510,13 @@ WORDS_VEP3D = 71
 GOLDEN_VEP3D_HYBRID = 0.16069082924126105
 
 
+T_LOADED = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line: the phase, ``at`` (its seconds since the script was
+    loaded, from which each phase's seconds are read) and ``kw``."""
+    print(json.dumps({"phase": phase, "at": time.perf_counter() - T_LOADED, **kw}), flush=True)
 
 
 def check(cond, msg):
@@ -1231,26 +1271,33 @@ def main():
     b6_line, b9_line, bench, tau_edges = run_vep3d(dev, smi, kind)
     b8_line = run_vep3d_chunk(dev, smi, kind, bench, tau_edges)
     r_line = run_window_copy(dev, smi, kind)
-    # phase 36's longest goldens run in processes of their own beside phase
-    # 28's, whose processes wait on the host's dispatch; phase 39 runs in
-    # this process while they do (phase 40, a timing, after phase 38)
-    procs = start_goldens(VARIATIONAL_APART)
+    # the longest goldens of phases 33, 36 and 39 run in processes of their
+    # own beside phase 28's, whose processes wait on the host's dispatch;
+    # phase 39 runs in this process while they do; all are collected before
+    # phase 29 takes its timings (phase 40, a timing, after phase 38)
+    procs = start_goldens(MOVED_DRIVES + PARTICLES_APART + VARIATIONAL_APART + NONUNIFORM_APART)
     apart, nonuniform_launches = {}, {}
     try:
         model_launches = run_models(
-            dev, smi, before_29=lambda: apart.update(finish_goldens(procs, "golden_variational")),
-            beside_28=lambda: nonuniform_launches.update(run_nonuniform_parity(dev, smi)))
+            dev, smi, before_29=lambda: apart.update(finish_goldens(procs, "golden_apart")),
+            beside_28=lambda: nonuniform_launches.update(run_nonuniform_parity(dev, smi)),
+            apart_results=apart)
     finally:
         stop_processes(procs)
     for kernel, by_phase in run_dyrel(dev, smi, kind).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
-    for kernel, by_phase in run_particles(dev, smi).items():
+    for kernel, by_phase in run_particles(dev, smi, apart).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
     for kernel, by_phase in run_variational(dev, smi, kind, apart).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
     for kernel, by_phase in nonuniform_launches.items():
         model_launches.setdefault(kernel, {}).update(by_phase)
+    for kernel, by_phase in nonuniform_goldens(smi, apart).items():
+        model_launches.setdefault(kernel, {}).update(by_phase)
     for kernel, by_phase in run_nonuniform_production(dev, smi, kind).items():
+        model_launches.setdefault(kernel, {}).update(by_phase)
+    flagship = (st, material, pr_c, pr_v, geometry, pt, 0.25)  # phase 4's step, its dt
+    for kernel, by_phase in run_io_restart(dev, smi, flagship).items():
         model_launches.setdefault(kernel, {}).update(by_phase)
     lines = [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line, b8_line, r_line]
     per_iter = launches_per_iteration(dev)
@@ -2852,9 +2899,15 @@ PROD = {
 }
 
 
-# goldens run in processes of their own in phase 28 (each ~100-140 s of
-# the host's dispatch of plain PyTorch iterations on the H100's host)
-GOLDENS_APART = ("thermal_stresses", "shearheating", "shearband_visc_plastic_tau")
+# phase 28's goldens that run as the slow cuda test test_model_golden_f64
+# instead: the host's dispatch of plain PyTorch iterations holds each for
+# 220-300 s on an H100's host (PERF.md §4; in processes of their own beside
+# phase 28 until the IO phase needed the script's time); the thermal
+# stresses' path runs in phase 29, the other two as MOVED_DRIVES
+GOLDENS_MOVED = ("thermal_stresses", "shearheating", "shearband_visc_plastic_tau")
+# phase 28's goldens in processes of their own (22-28 s each; in the
+# script's process until the IO phase needed its time)
+GOLDENS_APART = ("diffusion3d", "global_convection2d", "solvi2d")
 
 
 def golden_result(label, fn):
@@ -2983,6 +3036,86 @@ def golden_cases():
     }
 
 
+# one step of each path whose golden runs only as a slow cuda test and that
+# no production step drives (the 2D shear heating, the visc_plastic_tau band,
+# the DYREL volcano): at the golden's size through the default entry point
+# in f64, in processes of their own beside phase 28's, each held within
+# MOVED_DRIVE_TOL of every value the JAX model gives after that step
+# (run(..., nt=1) on the CPU with x64), the iterations of the plain solves
+# equal. The DYREL volcano's solve is capped as its CPU test caps it
+# (VOLCANO_DRIVE_CAPS; the model's 50 000): uncapped, its nonlinear solve
+# stops where err first falls below 1e-4, and runs that differ at rounding
+# stop thousands of iterations apart (JAX 23 800, the port on the CPU
+# 29 000; Vy within 2e-4 and tauII within 4e-3 of JAX's; 121 s on an H100
+# beside phase 28's processes), so it is held to JAX's err and iterations
+# at the cap instead of to a tolerance
+MOVED_DRIVES = ("shearheating_step", "shearband_visc_plastic_tau_step", "volcano2d_dyrel_step")
+MODEL_KERNEL.update({label: None for label in MOVED_DRIVES})
+MOVED_DRIVE_TOL = 1e-6
+VOLCANO_DRIVE_CAPS = dict(total_iter_max=1_000, iter_max=1_000, nout=20)
+MOVED_DRIVE_JAX = {
+    "shearheating_step": dict(
+        iters=3000, H_min=3.812679323663037e-05, H_max=0.00038062247150605545,
+        T_max=720.6231514194703, P_max=1771944044.090171),
+    "shearband_visc_plastic_tau_step": dict(
+        iters=1100, tauII_min=0.2842937096006669, tauII_max=0.4296010338212822,
+        tau_max=0.4293120415790336),
+    "volcano2d_dyrel_step": dict(
+        iters=1280, err=0.0038289281243771398, Vy_max_cmyr=58.158961885511815,
+        Vy_min_cmyr=-63.96126105990661, T_min=270.1675675753668, T_max=1173.0,
+        phi_m_max=0.030114495235671973, tauII_max=17977594.921423282),
+}
+
+
+def moved_drive_cases():
+    """Phase 28's drives of MOVED_DRIVES: label → (run, checks), the checks
+    the solve's tolerance (the golden's; the capped volcano: JAX's err),
+    finite fields and the JAX model's values after the step."""
+    f64 = torch.float64
+    cmyr = 100.0 * YR
+
+    def d_shearheating():
+        st, th, info = shearheating.run(nx=32, ny=32, nt=1, dtype=f64)
+        H = th.shear_heating
+        return dict(iters=int(info.iters), err=float(info.err), H_min=float(H.min()),
+                    H_max=float(H.max()), T_max=float(th.T.max()),
+                    P_max=float(st.P.abs().max()),
+                    finite=bool(torch.isfinite(H).all() and torch.isfinite(st.P).all()))
+
+    def d_shearband_vpt():
+        _, info, tau_max, _, tII = shearband.run(n=32, nt=1, dtype=f64, visc_plastic_tau=True,
+                                                 use_kernel=False)
+        return dict(iters=int(info.iters), err=float(info.err), tauII_min=float(tII.min()),
+                    tauII_max=float(tII.max()), tau_max=float(tau_max[0]),
+                    finite=bool(torch.isfinite(tII).all()))
+
+    def d_volcano_dyrel():
+        with capped(volcano2d_dyrel, "solve_dyrel", **VOLCANO_DRIVE_CAPS):
+            st, th, _, phi_m, info, _ = volcano2d_dyrel.run(nx=16, ny=8, nt=1, dtype=f64)
+        Vy = st.V.Vy
+        return dict(iters=int(info.iters), err=float(info.err),
+                    Vy_max_cmyr=float(Vy.max()) * cmyr, Vy_min_cmyr=float(Vy.min()) * cmyr,
+                    T_min=float(th.T.min()), T_max=float(th.T.max()),
+                    phi_m_max=float(phi_m.max()), tauII_max=float(st.tau.II.max()),
+                    finite=bool(torch.isfinite(st.tau.II).all() and torch.isfinite(Vy).all()))
+
+    def checks(label, tol=None):
+        def held(g):
+            out = [("finite", g["finite"])] + ([] if tol is None else [("err", g["err"] < tol)])
+            for key, v in MOVED_DRIVE_JAX[label].items():
+                ok = g[key] == v if key == "iters" else abs(g[key] - v) <= MOVED_DRIVE_TOL * abs(v)
+                out.append((f"{key} (JAX {v!r})", ok))
+            return out
+        return held
+
+    return {
+        "shearheating_step": (d_shearheating, checks("shearheating_step", 1e-4)),
+        "shearband_visc_plastic_tau_step": (d_shearband_vpt,
+                                            checks("shearband_visc_plastic_tau_step", 1e-6)),
+        "volcano2d_dyrel_step": (d_volcano_dyrel, checks("volcano2d_dyrel_step")),
+    }
+
+
 def golden_apart(label):
     """``--golden LABEL``: one golden of phase 28 in this process, its result
     printed as the last line (the phase's process holds it to its checks)."""
@@ -2990,9 +3123,34 @@ def golden_apart(label):
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     for mod in (hv, hs, ht, h3):
         mod._library()  # built by the phase's process
-    cases = {**golden_cases(), **dyrel_golden_cases(), **particle_golden_cases(),
-             **variational_golden_cases(), **nonuniform_golden_cases()}
+    cases = {**golden_cases(), **moved_drive_cases(), **dyrel_golden_cases(),
+             **particle_golden_cases(), **variational_golden_cases(),
+             **nonuniform_golden_cases()}
     print(json.dumps(golden_result(label, cases[label][0])), flush=True)
+
+
+def with_caps(fn, caps, first=None):
+    """``fn`` called with ``caps`` (iter_max, nout, ...) over its caller's
+    arguments; the first call's (args, kwargs) appended to ``first`` when
+    it is a list."""
+    def call(*args, **kwargs):
+        kwargs = {**kwargs, **caps}
+        if first is not None and not first:
+            first.append((args, kwargs))
+        return fn(*args, **kwargs)
+    return call
+
+
+@contextlib.contextmanager
+def capped(module, name, **caps):
+    """``module.name`` as ``with_caps`` makes it until the block ends;
+    yields the list that receives its first call's (args, kwargs)."""
+    fn, first = getattr(module, name), []
+    setattr(module, name, with_caps(fn, caps, first))
+    try:
+        yield first
+    finally:
+        setattr(module, name, fn)
 
 
 @contextlib.contextmanager
@@ -3034,10 +3192,11 @@ def solves_summary(calls):
     return out
 
 
-def run_models(dev, smi, before_29=None, beside_28=None):
+def run_models(dev, smi, before_29=None, beside_28=None, apart_results=None):
     """Phases 27-29; returns the launches of each kernel per model phase.
     ``beside_28`` is called while phase 28's golden processes run on, after
-    its goldens here; ``before_29`` between phases 28 and 29."""
+    its goldens here; ``before_29`` between phases 28 and 29, after which
+    ``apart_results`` holds the results of the MOVED_DRIVES processes."""
     f64, f32 = torch.float64, torch.float32
     launches = {}
 
@@ -3062,15 +3221,20 @@ def run_models(dev, smi, before_29=None, beside_28=None):
         check("use_kernel=False" in refusals.get(key, ""), f"refusal {key}: not raised")
 
     # ---- 28. goldens through the default entry points on the card, f64, at
-    # the JAX tests' sizes and on their assertions; the three that the
-    # host's dispatch of plain PyTorch iterations holds longest run in
-    # processes of their own beside the others (the card has room to spare;
-    # phase 29's timings start after every one has ended)
-    run_golden_set(golden_cases(), "golden_models", smi, launches, apart=GOLDENS_APART,
+    # the JAX tests' sizes and on their assertions; three in processes of
+    # their own beside the others (the card has room to spare; phase 29's
+    # timings start after every one has ended), three as a slow cuda test
+    cases = {k: v for k, v in golden_cases().items() if k not in GOLDENS_MOVED}
+    emit("golden_models_moved", cases=GOLDENS_MOVED,
+         test="tests/test_torch_cuda.py::test_model_golden_f64 (slow, cuda)")
+    run_golden_set(cases, "golden_models", smi, launches, apart=GOLDENS_APART,
                    beside=beside_28)
 
     if before_29 is not None:
         before_29()
+    # the paths of three of the moved goldens, one step each (MOVED_DRIVES)
+    run_golden_set(moved_drive_cases(), "moved_drives", smi, launches,
+                   apart_results=apart_results)
 
     # ---- 29. the new paths at production grids, f32, through the default
     # entry points: wall time and its split (CUDA events around the kernel's
@@ -3626,9 +3790,12 @@ MODEL_KERNEL.update({
     "layered_convection_dyrel": "thermal_chunk",
     "subduction2d_dyrel": None,
 })
-# phase 33's goldens in processes of their own: the longest (the host's
-# dispatch of plain PyTorch iterations and of 50-iteration chunks)
-PARTICLES_APART = ("layered_convection_nondim", "vankeken", "layered_convection_dyrel")
+# phase 33's goldens in processes of their own, the longest (the host's
+# dispatch of plain PyTorch iterations and of 50-iteration chunks), started
+# beside phase 28's (with subduction2d_dyrel, in the script's process until
+# the IO phase needed its time) and collected before phase 29
+PARTICLES_APART = ("layered_convection_nondim", "vankeken", "layered_convection_dyrel",
+                   "subduction2d_dyrel")
 # the golden that runs as a slow cuda test instead (tests/test_torch_cuda.py::
 # test_layered_convection3d_golden_f64): its serial 3D VEP solves, plain by
 # contract, take 370-480 s of the host's dispatch on an H100 (PERF.md §5)
@@ -4021,17 +4188,19 @@ def particle_step_timers(module, names):
             setattr(module, init_name, init)
 
 
-def run_particles(dev, smi):
-    """Phases 33-35; returns the launches of each kernel per particle phase."""
+def run_particles(dev, smi, apart_results):
+    """Phases 33-35; returns the launches of each kernel per particle phase.
+    ``apart_results`` hold the results of phase 33's goldens that ran in
+    processes of their own (``PARTICLES_APART``, started beside phase 28)."""
     f32 = torch.float32
     launches = {}
 
     # ---- 33. goldens through the default entry points, f64, the JAX tests'
-    # sizes and assertions; three in processes of their own
+    # sizes and assertions; four ran in processes of their own
     cases = {k: v for k, v in particle_golden_cases().items() if k not in PARTICLES_MOVED}
     emit("golden_particles_moved", cases=PARTICLES_MOVED,
          test="tests/test_torch_cuda.py::test_layered_convection3d_golden_f64 (slow, cuda)")
-    run_golden_set(cases, "golden_particles", smi, launches, apart=PARTICLES_APART)
+    run_golden_set(cases, "golden_particles", smi, launches, apart_results=apart_results)
 
     # ---- 34. each particle operation on the card against the CPU, f64, from
     # the same numpy inputs
@@ -4114,19 +4283,21 @@ VARIATIONAL_LABELS = (
     "variational3d_sticky_air", "volcano2d", "volcano2d_dyrel", "rayleigh_taylor",
     "run_plume", "run_plume_variational", "crameri2d", "subduction2d", "subduction3d")
 MODEL_KERNEL.update({label: None for label in VARIATIONAL_LABELS})
-# phase 36's goldens in processes of their own: the longest; the overturn's
-# two solves (48 000 iterations) take 0.7 ms per graphed iteration alone,
-# ~500 small kernels each
-VARIATIONAL_APART = ("volcano2d", "volcano2d_dyrel", "run_plume_variational",
-                     "rayleigh_taylor")
+# phase 36's goldens in processes of their own beside phase 28's
+VARIATIONAL_APART = ("volcano2d", "run_plume_variational")
 # the goldens that run as slow cuda tests instead (tests/test_torch_cuda.py::
 # test_variational_golden_f64), for their time on an H100 (PERF.md): the 3D
 # subduction's masked 3D VEP solves and the plume's solve_vep, plain by
 # contract, dispatch each of tens of thousands of iterations from the host;
 # the 2D subduction's two solves run to their 80 000 cap; Crameri's four
 # solves (130 000 graphed iterations) took 293 s as a fifth process and put
-# the script past 800 s
-VARIATIONAL_MOVED = ("subduction3d", "run_plume", "subduction2d", "crameri2d")
+# the script past 800 s; the overturn (two solves, 48 000 graphed iterations
+# of ~500 small kernels each) and the DYREL volcano took 177 and 186 s as
+# processes beside phase 28 and went when the IO phase needed the script's
+# time (the overturn's path runs in phase 38, the volcano's as one of
+# MOVED_DRIVES)
+VARIATIONAL_MOVED = ("subduction3d", "run_plume", "subduction2d", "crameri2d",
+                     "volcano2d_dyrel", "rayleigh_taylor")
 # phase 38's two production steps and their cuts: one step each; the
 # overturn's Stokes cap 6 000 (three of its 2 000-iteration chunks; the
 # model's 50 000; 10 000 until the nonuniform phases needed the script's
@@ -4675,7 +4846,7 @@ def run_golden_set(cases, phase, smi, launches, apart=(), apart_results=None, be
     its checks: its own assertions, the kernel its model routes through
     launched (its count added to ``launches``) and no other. Returns the
     results."""
-    done = dict(apart_results or {})
+    done = {k: v for k, v in (apart_results or {}).items() if k in cases}
     procs = start_goldens(apart)
     try:
         here = {label: golden_result(label, cases[label][0])
@@ -4813,23 +4984,15 @@ def run_variational(dev, smi, kind, apart_results):
     torch.cuda.empty_cache()
 
     # the 3D subduction at 252x96x84 (2.03 M cells), its Stokes cap one nout
-    calls = []
     solve = subduction3d.solve_vep_3d
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
+    # the cap wraps the timed solver, so the timing sees it as the call's own
     with timed_solves(subduction3d, "solve_vep_3d") as solves, \
-            timed_solves(subduction3d, "heatdiffusion_PT") as thermal_solves:
-        timed = subduction3d.solve_vep_3d
-
-        def cap_stokes(*a, **k):  # the cap, seen by the timing as the call's own
-            k = dict(k, iter_max=SUBDUCTION3D_STOKES_CAP)
-            if not calls:
-                calls.append((a, k))
-            return timed(*a, **k)
-
-        subduction3d.solve_vep_3d = cap_stokes  # the timing's exit restores the solver
+            timed_solves(subduction3d, "heatdiffusion_PT") as thermal_solves, \
+            capped(subduction3d, "solve_vep_3d", iter_max=SUBDUCTION3D_STOKES_CAP) as calls:
         st, th, info, _ = subduction3d.run(dtype=f32, **PROD["subduction3d"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4873,20 +5036,23 @@ def run_variational(dev, smi, kind, apart_results):
 MODEL_KERNEL.update({"shearband_refined": None, "shearband_refined_preyield": None})
 # the refined band's full golden (n=32, nt=10: 528 s of plain iterations,
 # each the host's dispatch of ~480 kernels) runs as the slow cuda test
-# test_shearband_refined_golden_f64; phase 39 keeps its first three steps
-# (65 s alone)
+# test_shearband_refined_golden_f64; phase 39 keeps its first two steps
+# (three, 65-113 s, until the IO phase needed the script's time), in a
+# process of its own beside phase 28's (in the script's process until then)
 NONUNIFORM_MOVED = ("shearband_refined",)
+NONUNIFORM_APART = ("shearband_refined_preyield",)
 # frozen f64 values of the JAX model (justrelax_tpu/models/shearband_refined.py,
-# run(n=32, nt=3) on the CPU with x64): the last step's iterations and err,
+# run(n=32, nt=2) on the CPU with x64): the last step's iterations and err,
 # max τxx per step, τII's extrema and max |P|
 REFINED_PREYIELD = dict(
-    iters=3700, err=2.2797733028405224e-08,
-    tau_max=(0.4285850368787478, 0.7679284703691031, 1.0363118316654834),
-    tII_min=0.7022053935743188, tII_max=1.0359814777587428, P_max=0.2788397853490647)
+    iters=3700, err=3.459436850877808e-08,
+    tau_max=(0.4285850368787478, 0.7679284703691031),
+    tII_min=0.5035523430977397, tII_max=0.767570944867357, P_max=0.22039117314484333)
 # phase 40: one step of the refined band at the flagship's grid, its Stokes
-# cap cut to 2 000 (the model's 50 000) through a wrapper of its solver
+# cap cut to 1 000 (the model's 50 000; 2 000 until the IO phase needed the
+# script's time) through a wrapper of its solver
 PROD["shearband_refined"] = dict(n=1024, nt=1)
-SHEARBAND_REFINED_STOKES_CAP = 2_000
+SHEARBAND_REFINED_STOKES_CAP = 1_000
 NONUNIFORM_LABELS = ("ve", "vep", "thermal", "explicit", "dyrel", "variational", "ve3d",
                      "vep3d", "vep3d_phi", "variational3d")
 NONUNIFORM_CARD_VS_CPU = 1e-12  # of each field's max (the residuals: their terms' scale)
@@ -5067,7 +5233,7 @@ def nonuniform_field_diffs(a, b, res_scale):
 def nonuniform_golden_cases():
     """Phase 39's goldens: the refined shear band through its entry point on
     the card, f64, n=32, on tests/test_shearband_refined.py's assertions:
-    its first three (pre-yield) steps here, held also to the JAX model's
+    its first two (pre-yield) steps here, held also to the JAX model's
     frozen values (REFINED_PREYIELD); all ten as the slow cuda test."""
     f64 = torch.float64
 
@@ -5083,7 +5249,7 @@ def nonuniform_golden_cases():
         return abs(a - b) / abs(b)
 
     return {
-        "shearband_refined_preyield": (g_refined(3), lambda g: [
+        "shearband_refined_preyield": (g_refined(2), lambda g: [
             ("err", g["err"] < 1e-6),
             ("analytic curve", all(abs(a - s) <= 4e-2 * abs(s)
                                    for a, s in zip(g["tau_max"], g["sol"]))),
@@ -5206,18 +5372,26 @@ def run_nonuniform_parity(dev, smi):
             check(equal, f"nonuniform_graph_parity {label}: the replay differs from the eager "
                          "chunk")
             check(moved, f"nonuniform_graph_parity {label}: the chunk did not move the state")
-    cases = {k: v for k, v in nonuniform_golden_cases().items() if k not in NONUNIFORM_MOVED}
-    emit("golden_nonuniform_moved", cases=NONUNIFORM_MOVED,
-         test="tests/test_torch_cuda.py::test_shearband_refined_golden_f64 (slow, cuda)")
-    results = run_golden_set(cases, "golden_nonuniform", smi, launches)
-    for label, g in results.items():
-        for kernel, n in g["all_launches"].items():
-            launches.setdefault(kernel, {})[f"golden_{label}"] = n
     refusals = stretched_refusals(dev)
     emit("nonuniform_refusals", **refusals)
     for key, msg in refusals.items():
         check(msg is not None and "use_kernel=False" in msg,
               f"nonuniform_refusals {key}: {msg!r}")
+    return launches
+
+
+def nonuniform_goldens(smi, apart_results):
+    """Phase 39's goldens, whose processes (``NONUNIFORM_APART``) ran beside
+    phase 28; returns each kernel's launches per golden (all 0)."""
+    launches = {}
+    cases = {k: v for k, v in nonuniform_golden_cases().items() if k not in NONUNIFORM_MOVED}
+    emit("golden_nonuniform_moved", cases=NONUNIFORM_MOVED,
+         test="tests/test_torch_cuda.py::test_shearband_refined_golden_f64 (slow, cuda)")
+    results = run_golden_set(cases, "golden_nonuniform", smi, launches,
+                             apart_results=apart_results)
+    for label, g in results.items():
+        for kernel, n in g["all_launches"].items():
+            launches.setdefault(kernel, {})[f"golden_{label}"] = n
     return launches
 
 
@@ -5228,20 +5402,13 @@ def run_nonuniform_production(dev, smi, kind):
 
     # ---- 40. shearband-refined-1024-f32: one step at the flagship's grid on
     # the plain path, beside the uniform flagship's B2/B3 per iteration
-    calls = []
     solve = shearband_refined.solve_vep
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    with timed_solves(shearband_refined, "solve_vep") as solves:
-        timed = shearband_refined.solve_vep
-
-        def cap_stokes(*a, **k):  # the cap, seen by the timing as the call's own
-            k = dict(k, iter_max=SHEARBAND_REFINED_STOKES_CAP)
-            calls.append((a, k))
-            return timed(*a, **k)
-
-        shearband_refined.solve_vep = cap_stokes  # the timing's exit restores the solver
+    # the cap wraps the timed solver, so the timing sees it as the call's own
+    with timed_solves(shearband_refined, "solve_vep") as solves, \
+            capped(shearband_refined, "solve_vep", iter_max=SHEARBAND_REFINED_STOKES_CAP) as calls:
         st, info, tau_max, _, tII = shearband_refined.run(dtype=f32, device=dev,
                                                           **PROD["shearband_refined"])
     torch.cuda.synchronize()
@@ -5287,6 +5454,206 @@ def run_nonuniform_production(dev, smi, kind):
          uniform_b23_ms_per_iter=b23_ms, nvidia_smi=smi)
     check(finite, "main_path_nonuniform: non-finite fields")
     check(sum(c.values()) == 0, "main_path_nonuniform: a kernel launched")
+    return launches
+
+
+# ---- phase 41: checkpoints and restart through the kernels
+VE_RESTART_DT = 0.05 * elastic_buildup.KYR
+# run_particles at JAX's 48x16 (tests/test_subduction2d.py), its Stokes cap
+# cut from the model's 80 000 to one nout, 1 000, on every run by a wrapper
+# of the model's solve_variational (phase 41 d)
+PARTICLES_RESTART = dict(nx=48, ny=16)
+PARTICLES_RESTART_STOKES_CAP = 1_000
+# each field's largest difference over its largest finite value, for the
+# restart against the straight run and for two straight runs: the vertex
+# phase ratios sum with index_add_'s atomics, so two runs on an H100 need
+# not hold the same bits; the spread measured there was 1.9e-17 of eta_v's
+# max (straight against straight in one run, the restart against the
+# straight run in another; 0 in every other field, PERF.md), so the limit
+# is that spread with ~50x headroom
+PARTICLES_RESTART_TOL = 1e-15
+
+
+def ve_restart_setup(dtype, dev):
+    """tests/test_restart_equivalence.py's set-up: a 16^2 box of 100 km, a
+    Maxwell body (eta 1e21 Pa s, G 1e10 Pa) in pure shear at 1e-14 1/s with
+    free slip; returns (stokes, pt, geometry, bc, rho_g, G, K, (eta0, G,
+    eps_bg))."""
+    ni = (16, 16)
+    geometry = Geometry(ni, (100.0e3, 100.0e3))
+    stokes = StokesState.make(ni, dtype=dtype, device=dev)
+    f = dict(dtype=stokes.P.dtype, device=stokes.P.device)
+    pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=1.0 / math.sqrt(2.1),
+                             eps_abs=1.0e-6, eps_rel=1.0e-6)
+    eta0, G, eps_bg = 1.0e21, 10.0e9, 1.0e-14
+    bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True))
+    Vx, Vy = flow_bcs(pureshear_bc(stokes.V.Vx, stokes.V.Vy, geometry.xvi, eps_bg), bc)
+    stokes = stokes.replace(V=stokes.V.replace(Vx=Vx, Vy=Vy),
+                            viscosity=stokes.viscosity.replace(eta=torch.full(ni, eta0, **f)))
+    rho_g = (torch.zeros(ni, **f), torch.zeros(ni, **f))
+    return (stokes, pt, geometry, bc, rho_g, torch.full(ni, G, **f),
+            torch.full(ni, math.inf, **f), (eta0, G, eps_bg))
+
+
+def ve_restart_step(stokes, pt, geometry, bc, rho_g, G, K, iter_max=20_000):
+    """One time step of the set-up: solve_ve with dt 0.05 kyr and the JAX
+    test's cap, B1/B4 on the card."""
+    return solver_ve.solve_ve(stokes, pt, geometry, bc, rho_g, G, K, VE_RESTART_DT,
+                              iter_max=iter_max, nout=500)
+
+
+def ve_restart(dev, dst):
+    """The f64 set-up four steps straight, and two steps, a checkpoint into
+    ``dst``, a reload into fresh states and two steps more; returns (the
+    straight state, the restarted one, each run's iterations per step, the
+    time and the timestep as loaded)."""
+    stokes, *problem, _ = ve_restart_setup(torch.float64, dev)
+    runs = {"straight": (stokes, [], 4), "restarted": (stokes, [], 2)}
+    for label, (s, iters, nt) in runs.items():
+        for _ in range(nt):
+            s, info = ve_restart_step(s, *problem)
+            iters.append(int(info.iters))
+        runs[label] = (s, iters, nt)
+    s, iters, _ = runs["restarted"]
+    ni = tuple(stokes.P.shape)
+    path = checkpointing(dst, s, ThermalState.make(ni, device=dev), time=2 * VE_RESTART_DT,
+                         timestep=VE_RESTART_DT)
+    s, _, t, dt = load_checkpoint(path, StokesState.make(ni, device=dev),
+                                  ThermalState.make(ni, device=dev))
+    for _ in range(2):
+        s, info = ve_restart_step(s, *problem)
+        iters.append(int(info.iters))
+    return runs["straight"][0], s, runs["straight"][1], iters, t, dt
+
+
+def particles_restart(dev, dst):
+    """run_particles at PARTICLES_RESTART, its Stokes cap
+    PARTICLES_RESTART_STOKES_CAP on every run: two steps straight twice
+    (two straight runs on the card need not be bit-equal: the phase ratios
+    sum with index_add_'s atomics), and one step with a checkpoint into
+    ``dst`` followed by a restart from it to two. Returns the three runs'
+    outputs."""
+    with capped(subduction2d, "solve_variational", iter_max=PARTICLES_RESTART_STOKES_CAP):
+        a = subduction2d.run_particles(**PARTICLES_RESTART, nt=2, device=dev)
+        b = subduction2d.run_particles(**PARTICLES_RESTART, nt=2, device=dev)
+        subduction2d.run_particles(**PARTICLES_RESTART, nt=1, out_dir=dst, checkpoint_every=1,
+                                   device=dev)
+        c = subduction2d.run_particles(**PARTICLES_RESTART, nt=2, restart_from=dst, device=dev)
+    return a, b, c
+
+
+def bit_equal(a, b):
+    """Whether two tensors hold the same bits (NaNs included: EII_pl is
+    NaN in every cell after a run_particles step, as in the JAX model)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def particles_run_diffs(x, y):
+    """Two run_particles outputs: each field's largest difference over its
+    largest finite value, 0 where the bits are equal and inf where a NaN
+    or an infinity of one is not the other's (the states, the particle
+    positions, active masks and fields)."""
+    (sx, tx, px, (phx, Tx), _), (sy, ty, py, (phy, Ty), _) = x, y
+    pairs = flat_state(sx, sy, "stokes.") + flat_state(tx, ty, "thermal.") + [
+        ("px", px.px, py.px), ("py", px.py, py.py), ("active", px.active, py.active),
+        ("phase", phx, phy), ("T", Tx, Ty)]
+    out = {}
+    for name, a, b in pairs:
+        if bit_equal(a, b):
+            out[name] = 0.0
+        elif a.dtype == torch.bool:
+            out[name] = math.inf
+        else:
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            d = float(torch.where(same, 0.0, (a - b).abs()).max())
+            scale = float(torch.where(torch.isfinite(a), a.abs(), 0.0).max())
+            out[name] = math.inf if not math.isfinite(d) else d / scale if scale else d
+    return out
+
+
+def run_io_restart(dev, smi, flagship):
+    """Phase 41; ``flagship`` is phase 4's 1024^2 f32 shear band step: its
+    final state and (material, pr_c, pr_v, geometry, pt, dt). Returns each
+    kernel's launches in the phase."""
+    st, material, pr_c, pr_v, geometry, pt, dt = flagship
+    launches = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as tmp:
+        # (a) the VE restart at the JAX test's 16^2 f64 set-up through B1
+        straight, restarted, it_a, it_b, t, dts = ve_restart(dev, os.path.join(tmp, "ve"))
+        unequal = [name for name, a, b in flat_state(straight, restarted)
+                   if not bit_equal(a, b)]
+        b1 = hs.stokes_chunk.launches
+        emit("io_restart_ve", n=16, dtype="float64", iters_straight=it_a,
+             iters_restarted=it_b, time=t, timestep=dts, unequal=unequal, launches=b1)
+        check(not unequal, f"io_restart_ve: the restart is not bit-equal in {unequal}")
+        check(it_a == it_b, "io_restart_ve: iterations differ")
+        check((t, dts) == (2 * VE_RESTART_DT, VE_RESTART_DT), "io_restart_ve: time, timestep")
+        check(b1 > 0, "io_restart_ve: B1 was not launched")
+
+        # (b) the flagship's 1024^2 f32 state written, read back on the card,
+        # and 100 B2/B3 iterations from both
+        ni = tuple(st.P.shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpointing(os.path.join(tmp, "flagship"), st, None, dt, dt)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st2, _, _, _ = load_checkpoint(path, StokesState.make(ni, dtype=st.P.dtype, device=dev))
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        pairs = flat_state(st, st2)
+        unequal = [name for name, a, b in pairs if not (a.device == b.device and bit_equal(a, b))]
+        outs = [hv.stokes_vep_chunk(*chunk_inputs_from_state(s, material, pr_c, pr_v, geometry,
+                                                             pt, dt), nout=100)
+                for s in (st, st2)]
+        chunk_equal = all(bit_equal(a, b) for a, b in zip(*outs))
+        # (c) the card's file read on the CPU
+        st_cpu, _, _, _ = load_checkpoint(path, StokesState.make(ni, dtype=st.P.dtype,
+                                                                 device="cpu"))
+        cpu_unequal = [name for name, a, b in flat_state(st, st_cpu)
+                       if not bit_equal(a.cpu(), b)]
+        emit("io_restart_flagship", n=ni[0], dtype="float32", fields=len(pairs),
+             bytes=os.path.getsize(path), write_s=write_s, read_s=read_s,
+             unequal=unequal, chunk_bit_equal=chunk_equal, cpu_unequal=cpu_unequal,
+             launches=hv.stokes_vep_chunk.launches, nvidia_smi=smi)
+        check(not unequal, f"io_restart_flagship: reloaded fields differ {unequal}")
+        check(chunk_equal, "io_restart_flagship: B2/B3 from the reloaded state differs")
+        check(not cpu_unequal, f"io_restart_flagship: the CPU's load differs {cpu_unequal}")
+        check(hv.stokes_vep_chunk.launches > 0, "io_restart_flagship: B2/B3 was not launched")
+
+        # (d) run_particles: a restart from a step-1 checkpoint against two
+        # straight runs
+        t0 = time.perf_counter()
+        a, b, c = particles_restart(dev, os.path.join(tmp, "particles"))
+        seconds = time.perf_counter() - t0
+        straight = particles_run_diffs(a, b)
+        restart = particles_run_diffs(a, c)
+        emit("io_restart_particles", grid=dict(PARTICLES_RESTART, nt=2),
+             stokes_iter_max=PARTICLES_RESTART_STOKES_CAP, iters=[int(r[4].iters) for r in
+                                                                  (a, b, c)],
+             straight_vs_straight=max(straight.values()), restart_vs_straight=max(
+                 restart.values()), worst_field=max(restart, key=restart.get), seconds=seconds)
+        check(int(a[4].iters) == int(b[4].iters) == int(c[4].iters),
+              "io_restart_particles: iterations differ")
+        check(max(straight.values()) <= PARTICLES_RESTART_TOL,
+              f"io_restart_particles: two straight runs differ by more than "
+              f"{PARTICLES_RESTART_TOL} {straight}")
+        check(max(restart.values()) <= PARTICLES_RESTART_TOL,
+              f"io_restart_particles: the restart is not within {PARTICLES_RESTART_TOL} of "
+              f"the straight run {restart}")
+
+        # (e) save_vti of the flagship's cell fields
+        cells = {"P": st.P, "tauII": st.tau.II, "eta_vep": st.viscosity.eta_vep,
+                 "EII_pl": st.EII_pl, "txx": st.tau.xx, "tyy": st.tau.yy, "txy_c": st.tau.xy_c}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vti = save_vti(os.path.join(tmp, "flagship"), geometry, cell_data=cells)
+        vti_s = time.perf_counter() - t0
+        emit("io_vti_flagship", n=ni[0], fields=list(cells), bytes=os.path.getsize(vti),
+             seconds=vti_s, nvidia_smi=smi)
+    record_counts(launches, "io_restart")
     return launches
 
 

@@ -23,7 +23,7 @@ import typing
 import numpy as np
 import torch
 
-from justrelax_tpu_torch.core.device import resolve_device
+from justrelax_tpu_torch.core.device import host, resolve_device
 from justrelax_tpu_torch.core.grid import Geometry, NonuniformGeometry
 from justrelax_tpu_torch.core.state import StokesState, ThermalState
 from justrelax_tpu_torch.ops.rock_ratio import RockRatio, RockRatio3D
@@ -132,5 +132,5 @@ def to_state_dict(obj):
         return {f.name: to_state_dict(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)}
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
+        return host(obj)
     return obj

@@ -5,14 +5,16 @@ The port runs on the card: ``device=None`` means the current CUDA device, and
 a caller that wants the CPU asks for it (``device="cpu"``). Without a card,
 ``None`` raises rather than run quietly on the CPU. On the card a solver runs
 its Hopper kernel unless the caller asks for the plain path
-(``use_kernel=False``).
+(``use_kernel=False``). ``host`` is the one copy of a tensor to the host
+that the IO and utils modules make.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "resolve_use_kernel"]
+__all__ = ["resolve_device", "resolve_use_kernel", "host"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,3 +39,11 @@ def resolve_use_kernel(use_kernel, tensor, allowed=(False, True, "blocked")):
         names = ", ".join(repr(v) for v in allowed)
         raise ValueError(f"use_kernel must be None or one of {names}, not {use_kernel!r}")
     return use_kernel
+
+
+def host(x) -> np.ndarray:
+    """``x`` as a numpy array: a tensor's one copy to the host (it waits for
+    the card's work on it), anything else through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

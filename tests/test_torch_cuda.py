@@ -18,6 +18,7 @@ import torch
 
 from chip_smoke import (
     FACE_MODES,
+    GOLDENS_MOVED,
     TH_CASES,
     TOL_F32_1024,
     TOL_VEP3D_CALL,
@@ -954,4 +955,140 @@ def test_shearband_refined_golden_f64(cuda):
     g = golden_result("shearband_refined", run)
     for key, ok in checks(g):
         assert ok, (key, g)
+    assert g["other_launches"] == 0
+
+
+def test_checkpoint_roundtrip_on_the_card(cuda, tmp_path):
+    """A 64² f32 state of seeded fields written from the card and read back
+    into fresh states on the card and on the CPU: every field bit-equal, in
+    its dtype, on the template's device; the particle loader's default
+    device is the card."""
+    from chip_smoke import flat_state
+    from justrelax_tpu_torch.core.state import StokesState
+    from justrelax_tpu_torch.io.checkpoint import (
+        checkpointing,
+        checkpointing_particles,
+        load_checkpoint,
+        load_checkpoint_particles,
+    )
+    from justrelax_tpu_torch.particles.particles import init_particles
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    st = StokesState.make((64, 64), dtype=torch.float32, device=cuda)
+    for _, a, _ in flat_state(st, st):
+        a.copy_(torch.randn(a.shape, generator=gen, device=cuda))
+    path = checkpointing(str(tmp_path), st, None, 1.0, 0.5)
+    for dev in (cuda, torch.device("cpu")):
+        back, _, t, dt = load_checkpoint(path, StokesState.make((64, 64), device=dev))
+        assert (t, dt) == (1.0, 0.5)
+        for name, a, b in flat_state(st, back):
+            assert b.dtype == torch.float32 and b.device.type == dev.type, name
+            assert torch.equal(a.cpu(), b.cpu()), name
+    particles = init_particles(Geometry((8, 8), (1.0, 1.0)), 4, 8, 2, device=cuda)
+    p_path = checkpointing_particles(str(tmp_path), particles, {"T": particles.px * 2.0})
+    back, fields, *_ = load_checkpoint_particles(p_path)
+    assert back.px.device.type == "cuda" and torch.equal(back.px, particles.px)
+    assert torch.equal(back.active, particles.active)
+    assert torch.equal(fields["T"], particles.px * 2.0)
+
+
+def test_ve_restart_through_b1(cuda, tmp_path):
+    """Phase 41 (a): tests/test_restart_equivalence.py's VE loop on the card
+    through B1/B4, checkpointed after 2 of 4 steps and restarted, bit for
+    bit equal to the straight run."""
+    from chip_smoke import bit_equal, counts, flat_state, reset_counts, ve_restart
+
+    reset_counts()
+    straight, restarted, it_a, it_b, _, _ = ve_restart(cuda, str(tmp_path))
+    assert counts()["stokes_chunk"] > 0
+    assert it_a == it_b
+    for name, a, b in flat_state(straight, restarted):
+        assert bit_equal(a, b), name
+
+
+def test_ve_restart_setup_f32_on_the_card(cuda):
+    """tests/test_restart_equivalence.py::test_f32_ve_solver_behavior with
+    its 20 000-iteration steps, through B1/B4: the residual below 5e-4 and
+    τyy on the analytic Maxwell curve within 1 % after 5 steps."""
+    from chip_smoke import VE_RESTART_DT, ve_restart_setup, ve_restart_step
+    from justrelax_tpu_torch.models.elastic_buildup import analytic_solution
+
+    stokes, pt, *problem, (eta0, G, eps_bg) = ve_restart_setup(torch.float32, cuda)
+    pt = dataclasses.replace(pt, eps_abs=1.0e-5, eps_rel=1.0e-5)
+    for _ in range(5):
+        stokes, info = ve_restart_step(stokes, pt, *problem)
+    assert float(info.err) < 5.0e-4
+    want = analytic_solution(eps_bg, 5 * VE_RESTART_DT, G, eta0)
+    assert abs(float(stokes.tau.yy.abs().max()) - want) / want < 1.0e-2
+
+
+def test_profiling_on_the_card(cuda, tmp_path):
+    """utils/profiling.py on the card: ``trace`` records the card's kernels,
+    ``timed`` waits for the card's queued work, ``report_env`` names it."""
+    import json
+
+    from justrelax_tpu_torch.utils import profiling
+
+    a = torch.ones(2048, 2048, device=cuda)
+    with profiling.trace(str(tmp_path)):
+        (a @ a).sum()
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    out = {}
+    with profiling.timed(out):
+        torch.cuda._sleep(int(2e8))  # ~0.1 s of the card's time
+    assert out["wall_s"] > 0.05
+    assert profiling.report_env()["devices"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.slow
+def test_run_particles_restart_golden_f64(cuda, tmp_path):
+    """tests/test_subduction2d.py's restart equivalence on the card at
+    48×16 over 4 steps with the model's 80 000-iteration caps: a 2-step run
+    checkpointing at step 2, a restart from it to step 4, held to a straight
+    4-step run within PARTICLES_RESTART_TOL (the phase ratios sum with
+    index_add_'s atomics on the card), and the JAX test's frozen slab
+    descent rates."""
+    import os
+
+    from chip_smoke import PARTICLES_RESTART, PARTICLES_RESTART_TOL, particles_run_diffs
+    from justrelax_tpu_torch.io.checkpoint import load_checkpoint_particles
+    from justrelax_tpu_torch.models import subduction2d
+
+    d_full, d_restart = str(tmp_path / "full"), str(tmp_path / "restart")
+    s2, _, _, _, info2 = subduction2d.run_particles(**PARTICLES_RESTART, nt=2, out_dir=d_full,
+                                                    checkpoint_every=2)
+    assert float(info2.err) < 1.0e-4
+    restarted = subduction2d.run_particles(**PARTICLES_RESTART, nt=4, out_dir=d_restart,
+                                           checkpoint_every=2, restart_from=d_full)
+    s4, _, p4, (_, pT4), info4 = restarted
+    assert float(info4.err) < 1.0e-4
+    pr, pf, _, _, it4 = load_checkpoint_particles(os.path.join(d_restart, "particles.npz"))
+    assert it4 == 4 and torch.equal(pr.px, p4.px) and torch.equal(pf["T"], pT4)
+    straight = subduction2d.run_particles(**PARTICLES_RESTART, nt=4)
+    diffs = particles_run_diffs(straight, restarted)
+    assert max(diffs.values()) <= PARTICLES_RESTART_TOL, diffs
+    yr = 3.15576e7
+    assert float(s2.V.Vy.min()) * 100 * yr == pytest.approx(-4.1227, rel=2e-2)
+    assert float(s4.V.Vy.min()) * 100 * yr == pytest.approx(-5.6428, rel=2e-2)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("label", GOLDENS_MOVED)
+def test_model_golden_f64(cuda, label):
+    """Phase 28's goldens that run here for their time (chip_smoke.py's
+    GOLDENS_MOVED: the thermal stresses at 48², shear heating at 32² and the
+    visc_plastic_tau shear band at 32², 220–300 s each of the host's
+    dispatch of plain PyTorch iterations on an H100), through the default
+    entry points on the JAX tests' assertions, with the launches of the
+    kernel each routes through (> 0) and of no other."""
+    from chip_smoke import MODEL_KERNEL, golden_cases, golden_result
+
+    run, checks = golden_cases()[label]
+    g = golden_result(label, run)
+    for key, ok in checks(g):
+        assert ok, (key, g)
+    if MODEL_KERNEL[label] is not None:
+        assert g["launches"] > 0
     assert g["other_launches"] == 0

@@ -16,8 +16,6 @@ the card: every solve the kernels refuse is passed ``use_kernel=False`` by
 the model itself.
 """
 
-import functools
-
 import numpy as np
 import pytest
 import torch
@@ -36,6 +34,7 @@ from justrelax_tpu_torch.models import (
     volcano2d,
     volcano2d_dyrel,
 )
+from chip_smoke import with_caps
 from test_torch_models_particles import _np, close_family, same_info, same_particles, same_stokes
 
 torch.set_num_threads(1)
@@ -46,11 +45,8 @@ SMALL_PARTICLES = dict(nxcell=6, max_xcell=12, min_xcell=3)
 def capped(monkeypatch, modules, name, **caps):
     """Set ``caps`` (iter_max, nout, ...) on every call of the solver
     ``name`` of each of ``modules``, over the model's own arguments."""
-    def forced(fn, *args, **kwargs):
-        return fn(*args, **{**kwargs, **caps})
-
     for mod in modules:
-        monkeypatch.setattr(mod, name, functools.partial(forced, getattr(mod, name)))
+        monkeypatch.setattr(mod, name, with_caps(getattr(mod, name), caps))
 
 
 def same_thermal(p, j):
