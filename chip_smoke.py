@@ -90,7 +90,8 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               CUDA events.
 18. parity_vep3d: the 3D VEP edge kernel (B6, and B9 on the hoisted
               interpolants) against its plain version, f64 and f32: one
-              call, then hybrid chunks of 1 and 50 iterations, in four
+              call, then hybrid chunks of 1 and 50 iterations (f32:
+              F32_VEP3D_NOUT), in four
               configurations (the set-up of tests/test_pallas_vep3d_blocked.py
               at 10^3, plastic on and off; a non-cubic (11, 8, 6) grid with
               random state near yield, dilatancy and a tension cap;
@@ -125,7 +126,8 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               iteration, by CUDA events; T_eff and the share of each bound.
 22. parity_vep3d_chunk: the fused 3D VEP chunk kernel (B8) against its
               plain version (the canvas chunk), f64 for 1 and 50 iterations
-              and f32 for 50, in the four configurations of phase 18 and a
+              and f32 for F32_VEP3D_NOUT, in the four configurations of
+              phase 18 and a
               fifth with buoyancy and a power-law creep table; the input
               carry is not written; ShearBand3D's set-up at 37^3 (slots that
               do not fill the stress pass's tiles); then its set-up at 126^3
@@ -152,7 +154,8 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               host's wall time per call beside it (wall_ms), in turns with
               the parent commit's kernel with --parent DIR (parent_ms).
 26. launches_per_iteration: the CUDA launches each kernel makes per PT
-              iteration, counted by torch.profiler (run last).
+              iteration, counted by torch.profiler (run after phase 41,
+              before phase 42's process group).
 27. kernel_refusals: on the card, with use_kernel left to its default, a 3D
               heatdiffusion_PT and solve_vep(visc_plastic_tau=True) raise
               ValueError naming use_kernel=False.
@@ -320,6 +323,28 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               straight run each held to the first within
               PARTICLES_RESTART_TOL; (e) save_vti's seconds for the
               flagship's 1024^2 cell fields.
+42. distributed: the distributed layer (justrelax_tpu_torch/parallel/),
+              no kernel: (a) a world of one on NCCL in this process, the
+              sharded VE (SolCx and every term), thermal 2D and 3D, VEP and
+              variational solves of dist_cases.suite_cases("card")
+              (32^2, 16^3; the VEP and the variational blob at 16^2), f64,
+              fixed iterations, each against the serial plain solve on the
+              card (fields within DIST_TOL of their max, equal iterations,
+              err within DIST_ERR_RTOL); (b) four rank processes on this
+              card over gloo, two "hosts" of two (LOCAL_RANK, GROUP_RANK),
+              each batch of halo slabs staged through host memory, started
+              beside phase 28's processes: every 2x2 case on the card and on
+              the CPU against the serial solve there, overlap bit-equal to
+              no overlap, and SolCx on the multi-host mesh; the ranks wait
+              for the card by blocking there (dist_cases.wait_by_blocking);
+              (c) the flagship's shear band at 1024^2 f32, 1 000 fixed
+              iterations, on the world of one and on the four ranks as 2x2
+              tiles of 512^2: ms per iteration, the part of it in the halo
+              functions (CUDA events), halo bytes per iteration against the
+              tile's, and the serial plain solve_vep's ms per iteration
+              beside them, each with the card to itself and CUDA's default
+              wait. (a) and (c) run after phase 41. Every kernel's count
+              stays 0, in this process and in each rank.
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
 the run's own inputs (hopper_stokes_vep.vep_chunk_words and
@@ -330,7 +355,7 @@ fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
 Then the script's seconds (the line "elapsed"), the kernels line (each
 entry with its launches on the main path it
-was first ported for, and launches_models: its launches in phases 28-41),
+was first ported for, and launches_models: its launches in phases 28-42),
 and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
 printing any result. With --parent DIR (a parent commit's
@@ -448,6 +473,9 @@ from justrelax_tpu_torch.solvers.stokes3d_vep import canvas_chunk_inputs, solve_
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack  # noqa: E402
 from justrelax_tpu_torch.rheology.viscosity import phase_viscosity  # noqa: E402
 from justrelax_tpu_torch.scripts import repro_2d_dma  # noqa: E402
+from justrelax_tpu_torch.parallel import launch, multihost  # noqa: E402
+import dist_cases as dc  # noqa: E402
+from justrelax_tpu_torch.parallel.mesh import make_grid_mesh  # noqa: E402
 
 FIELDS = ("Vx", "Vy", "theta", "P", "txx", "tyy", "txy_c", "txy_v", "eta",
           "eta_v", "lam", "lam_v")
@@ -503,6 +531,11 @@ VEP3D_CARRY_FIELDS = ("Vx", "Vy", "Vz", "P", "theta", "txx", "tyy", "tzz", "tyz_
                       "txy_c", "tyz", "txz", "txy", "eta", "lam", "lam_yz", "lam_xz", "lam_xy")
 TOL_VEP3D_CALL = 1e-12    # rounding only (one call, and a hybrid chunk of one iteration)
 TOL_VEP3D_NOUT50 = 2e-6   # yield-branch flips of edges on the yield surface
+# the 3D VEP f32 checks of phases 18 and 22 (kernel f32 against plain f32,
+# within 1e-4 or twice the plain f32's own error against f64) run this many
+# iterations (50 until the distributed phase needed the script's time; the
+# f64 checks keep 50, with plasticity engaged)
+F32_VEP3D_NOUT = 20
 # the 3D VEP iteration's words per cell (bench_kernels.py::vep3d: 36 unknown,
 # 13 write-only, 22 read-only)
 WORDS_VEP3D = 71
@@ -1274,33 +1307,37 @@ def main():
     # the longest goldens of phases 33, 36 and 39 run in processes of their
     # own beside phase 28's, whose processes wait on the host's dispatch;
     # phase 39 runs in this process while they do; all are collected before
-    # phase 29 takes its timings (phase 40, a timing, after phase 38)
+    # phase 29 takes its timings (phase 40, a timing, after phase 38).
+    # Phase 42's world of four ranks runs its correctness cases beside them
+    # too; the rest of phase 42 runs after phase 41
     procs = start_goldens(MOVED_DRIVES + PARTICLES_APART + VARIATIONAL_APART + NONUNIFORM_APART)
-    apart, nonuniform_launches = {}, {}
+    distributed = DistributedPhase(dev)
     try:
-        model_launches = run_models(
-            dev, smi, before_29=lambda: apart.update(finish_goldens(procs, "golden_apart")),
-            beside_28=lambda: nonuniform_launches.update(run_nonuniform_parity(dev, smi)),
-            apart_results=apart)
+        apart, nonuniform_launches = {}, {}
+        try:
+            model_launches = run_models(
+                dev, smi, before_29=lambda: apart.update(finish_goldens(procs, "golden_apart")),
+                beside_28=lambda: nonuniform_launches.update(run_nonuniform_parity(dev, smi)),
+                apart_results=apart)
+        finally:
+            stop_processes(procs)
+        for phase in (run_dyrel(dev, smi, kind), run_particles(dev, smi, apart),
+                      run_variational(dev, smi, kind, apart), nonuniform_launches,
+                      nonuniform_goldens(smi, apart),
+                      run_nonuniform_production(dev, smi, kind),
+                      run_io_restart(dev, smi, (st, material, pr_c, pr_v, geometry, pt, 0.25))):
+            for kernel, by_phase in phase.items():
+                model_launches.setdefault(kernel, {}).update(by_phase)
+        # phase 26's profiler counts before phase 42: after phase 42's production
+        # the profiler loses events, for a reason not found (PERF.md section 7)
+        per_iter = launches_per_iteration(dev)
+        for kernel, by_phase in distributed.finish(smi).items():
+            model_launches.setdefault(kernel, {}).update(by_phase)
     finally:
-        stop_processes(procs)
-    for kernel, by_phase in run_dyrel(dev, smi, kind).items():
-        model_launches.setdefault(kernel, {}).update(by_phase)
-    for kernel, by_phase in run_particles(dev, smi, apart).items():
-        model_launches.setdefault(kernel, {}).update(by_phase)
-    for kernel, by_phase in run_variational(dev, smi, kind, apart).items():
-        model_launches.setdefault(kernel, {}).update(by_phase)
-    for kernel, by_phase in nonuniform_launches.items():
-        model_launches.setdefault(kernel, {}).update(by_phase)
-    for kernel, by_phase in nonuniform_goldens(smi, apart).items():
-        model_launches.setdefault(kernel, {}).update(by_phase)
-    for kernel, by_phase in run_nonuniform_production(dev, smi, kind).items():
-        model_launches.setdefault(kernel, {}).update(by_phase)
-    flagship = (st, material, pr_c, pr_v, geometry, pt, 0.25)  # phase 4's step, its dt
-    for kernel, by_phase in run_io_restart(dev, smi, flagship).items():
-        model_launches.setdefault(kernel, {}).update(by_phase)
+        distributed.stop()
+    check(all(n == 0 for n in (by_phase["distributed"] for by_phase in model_launches.values())),
+          "distributed: a kernel launched")
     lines = [vep_line, ve_line, th_line, ve3d_line, b6_line, b9_line, b8_line, r_line]
-    per_iter = launches_per_iteration(dev)
     for line in lines:
         line["launches_per_iteration"] = per_iter[line["name"]]
         line["launches_models"] = model_launches.get(line["name"], {})
@@ -2268,22 +2305,23 @@ def run_vep3d(dev, smi, kind):
                 check(worst <= tol, f"{label} nout={nit}: {worst} > {tol}")
                 if nit == 50 and case != "blocked_elastic":
                     check(lam_max > 0.0, f"{label}: plasticity inactive on the edges")
-            # f32, 50 hybrid iterations: 1e-4, or twice the plain version's
-            # own f32 error against f64
+            # f32, F32_VEP3D_NOUT hybrid iterations: 1e-4, or twice the plain
+            # version's own f32 error against f64
             c32, co6_32, co9_32, mat32, _, kw32 = inputs[torch.float32]
             co32 = co9_32 if split else co6_32
-            out = hybrid_chunk(c32, co32, mat32, inv_di, kw32, 50, split)
-            ref = hybrid_chunk(c32, co32, mat32, inv_di, kw32, 50, split, plain=True)
-            ref64 = hybrid_chunk(carry, co, material, inv_di, kw, 50, split, plain=True)
+            n32 = F32_VEP3D_NOUT
+            out = hybrid_chunk(c32, co32, mat32, inv_di, kw32, n32, split)
+            ref = hybrid_chunk(c32, co32, mat32, inv_di, kw32, n32, split, plain=True)
+            ref64 = hybrid_chunk(carry, co, material, inv_di, kw, n32, split, plain=True)
             gap = max(rel_diffs_vep3d(out, ref).values())
             p32 = max(rel_diffs_vep3d(VEP3DCanvasCarry(*(
                 tuple(x.double() for x in f) if isinstance(f, tuple) else f.double()
                 for f in ref)), ref64).values())
             tol32 = max(TOL_F32_1024, 2.0 * p32)
             worst32 = max(worst32, gap)
-            emit("parity_vep3d", case=label, call="hybrid_chunk_f32", nout=50,
+            emit("parity_vep3d", case=label, call="hybrid_chunk_f32", nout=n32,
                  max_rel_diff=gap, tol=tol32, plain_f32_vs_plain_f64=p32)
-            check(gap <= tol32, f"{label} f32 nout=50: {gap} > {tol32}")
+            check(gap <= tol32, f"{label} f32 nout={n32}: {gap} > {tol32}")
         del inputs
     # the random near-yield configuration on ragged grids: one call, f64 and
     # f32, against the plain version (and bit for bit the parent's kernel
@@ -2549,35 +2587,12 @@ def run_vep3d(dev, smi, kind):
             bench, tau_edges)
 
 
-def counts():
-    """The launch counter of every kernel wrapper."""
-    return {"stokes_vep_chunk": hv.stokes_vep_chunk.launches,
-            "stokes_chunk": hs.stokes_chunk.launches,
-            "thermal_chunk": ht.thermal_chunk.launches,
-            "stokes3d_chunk": h3.stokes3d_chunk.launches,
-            "vep3d_edges": he.vep3d_edges.launches,
-            "vep3d_edges_split": he.vep3d_edges.split_launches,
-            "stokes3d_vep_chunk": hc.stokes3d_vep_chunk.launches,
-            "window_copy": hw.window_copy.launches}
+counts = dc.kernel_counts  # the launch counter of every kernel wrapper
+restore_counts = dc.set_kernel_counts  # every counter back to counts()'s
 
 
 def reset_counts():
-    hv.stokes_vep_chunk.launches = hs.stokes_chunk.launches = 0
-    ht.thermal_chunk.launches = h3.stokes3d_chunk.launches = 0
-    he.vep3d_edges.launches = he.vep3d_edges.split_launches = 0
-    hc.stokes3d_vep_chunk.launches = hw.window_copy.launches = 0
-
-
-def restore_counts(saved):
-    """Set every launch counter back to ``counts()``'s ``saved``."""
-    hv.stokes_vep_chunk.launches = saved["stokes_vep_chunk"]
-    hs.stokes_chunk.launches = saved["stokes_chunk"]
-    ht.thermal_chunk.launches = saved["thermal_chunk"]
-    h3.stokes3d_chunk.launches = saved["stokes3d_chunk"]
-    he.vep3d_edges.launches = saved["vep3d_edges"]
-    he.vep3d_edges.split_launches = saved["vep3d_edges_split"]
-    hc.stokes3d_vep_chunk.launches = saved["stokes3d_vep_chunk"]
-    hw.window_copy.launches = saved["window_copy"]
+    dc.set_kernel_counts({})
 
 
 def as_f64(c: VEP3DCanvasCarry):
@@ -2610,19 +2625,19 @@ def run_vep3d_chunk(dev, smi, kind, bench, tau_edges):
                 check(lam_max > 0.0, f"B8 {case}: plasticity inactive")
         check(all(torch.equal(a, b) for a, b in zip(before, flat_vep_carry(carry))),
               f"B8 {case}: the input carry was written")
-        # f32, 50 iterations: 1e-4, or twice the plain version's own f32
-        # error against f64
+        # f32, F32_VEP3D_NOUT iterations: 1e-4, or twice the plain version's
+        # own f32 error against f64
         c32, co32, _, _, _, kw32 = inputs[torch.float32]
-        out = fused_chunk(c32, co32, inv_di, kw32, 50)
-        ref = fused_chunk(c32, co32, inv_di, kw32, 50, plain=True)
-        ref64 = fused_chunk(carry, co, inv_di, kw, 50, plain=True)
+        out = fused_chunk(c32, co32, inv_di, kw32, F32_VEP3D_NOUT)
+        ref = fused_chunk(c32, co32, inv_di, kw32, F32_VEP3D_NOUT, plain=True)
+        ref64 = fused_chunk(carry, co, inv_di, kw, F32_VEP3D_NOUT, plain=True)
         gap = max(rel_diffs_vep3d(out, ref).values())
         p32 = max(rel_diffs_vep3d(as_f64(ref), ref64).values())
         tol32 = max(TOL_F32_1024, 2.0 * p32)
         worst32 = max(worst32, gap)
-        emit("parity_vep3d_chunk", case=case, nout=50, dtype="float32", max_rel_diff=gap,
-             tol=tol32, plain_f32_vs_plain_f64=p32)
-        check(gap <= tol32, f"B8 {case} f32 nout=50: {gap} > {tol32}")
+        emit("parity_vep3d_chunk", case=case, nout=F32_VEP3D_NOUT, dtype="float32",
+             max_rel_diff=gap, tol=tol32, plain_f32_vs_plain_f64=p32)
+        check(gap <= tol32, f"B8 {case} f32 nout={F32_VEP3D_NOUT}: {gap} > {tol32}")
         del inputs
 
     # a grid whose slots do not fill the stress pass's tiles in y or z, f64
@@ -4771,6 +4786,11 @@ def masked_vep3d_words(args, kwargs):
                           st.P.element_size())
 
 
+# the masked 3D VEP's card-against-CPU solve, at its cap either way (500
+# until the distributed phase needed the script's time)
+MASKED_VEP3D_PARITY_ITERS = 300
+
+
 def variational_parity_solve(label, d):
     """Phase 37's card-against-CPU solves on device ``d``, f64:
     (state, info)."""
@@ -4788,8 +4808,8 @@ def variational_parity_solve(label, d):
         return solve_variational_3d(st, pt, geometry, bc, rho_g, G, K, phi, math.inf,
                                     iter_max=2_000, nout=200)
     args, phi = masked_vep3d_setup(8, f64, d)
-    return solve_vep_3d(*args, phi=phi, use_kernel=False, iter_max=500, iter_min=100,
-                        nout=100)
+    return solve_vep_3d(*args, phi=phi, use_kernel=False, iter_max=MASKED_VEP3D_PARITY_ITERS,
+                        iter_min=100, nout=100)
 
 
 def variational_field_diffs(a, b):
@@ -5655,6 +5675,167 @@ def run_io_restart(dev, smi, flagship):
              seconds=vti_s, nvidia_smi=smi)
     record_counts(launches, "io_restart")
     return launches
+
+
+# ---- phase 42: the distributed layer (parallel/) on the card
+DIST_TOL = 1e-12  # of each field's max, sharded against serial
+DIST_ERR_RTOL = 1e-6
+DIST_WORLD_TIMEOUT = 1100.0  # from beside phase 28 to the end of phase 42
+DIST_RANK_TIMEOUT = 600.0  # each collective of a rank of the world of four
+
+
+def dist_compare(case, sharded, serial):
+    """(worst field difference over every step, iterations equal, err within
+    DIST_ERR_RTOL)."""
+    worst, iters_ok, err_ok = 0.0, True, True
+    for a, b in zip(dc.steps_of(sharded), dc.steps_of(serial)):
+        worst = max([worst, *dc.field_diffs(case, a, b).values()])
+        iters_ok &= a["iters"] == b["iters"]
+        err_ok &= abs(a["err"] - b["err"]) <= DIST_ERR_RTOL * abs(b["err"])
+    return worst, iters_ok, err_ok
+
+
+class DistributedPhase:
+    """Phase 42: its world of four ranks starts with the object and runs its
+    correctness cases and the serial references beside phase 28's
+    processes; :meth:`finish` (after phase 41) runs the world of one in this
+    process, then the production timings, which need the card to
+    themselves, then every check. ``size="test"`` shrinks it for a
+    rehearsal on the CPU."""
+
+    def __init__(self, dev, size="card"):
+        self.dev, self.size = dev, size
+        self.cases = dc.suite_cases(size)
+        go = tempfile.NamedTemporaryFile(prefix="chip_smoke_go_", delete=False).name
+        os.unlink(go)
+        self.go = go
+        # (b) four ranks on this card over gloo, two "hosts" of two: the 2x2
+        # cases on the card and on the CPU, then (c) once `go` appears
+        self.world = dc.world("card", size, go, device=dev.type, backend="gloo", hosts=2,
+                              timeout=DIST_WORLD_TIMEOUT, rank_timeout=DIST_RANK_TIMEOUT)
+
+    def world_of_one(self):
+        """(a) in the world of one this process has joined, one case per
+        set-up: label → (its case on a mesh of one, the result)."""
+        out = {}
+        for label, case in dc.setups(self.cases).items():
+            one = dataclasses.replace(case, mesh=(1,) * len(case.mesh))
+            out[label] = one, dc.sharded_solve(one, make_grid_mesh(one.mesh, device=self.dev))
+        return out
+
+    def finish(self, smi):
+        """(a), (c), then every check of phase 42; returns each kernel's
+        launches in it, in this process and in the world's ranks (all 0: the
+        sharded solvers run plain PyTorch, in JAX as in the port)."""
+        launches = {}
+        dev, on_card = self.dev, self.dev.type == "cuda"
+        reset_counts()
+        try:
+            multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0,
+                                 backend="nccl" if on_card else "gloo", device=dev, timeout=300)
+            try:
+                one = self.world_of_one()
+                backend = torch.distributed.get_backend()
+                open(self.go, "w").close()  # the world's (c): this process waits
+                got = self.world.result()
+                # (c) on the world of one, then the serial plain solve, each
+                # with the card to itself
+                prod_one = dc.production_vep(make_grid_mesh((1, 1), device=dev), self.size)
+            finally:
+                multihost.shutdown()
+        finally:
+            self.stop()
+            if os.path.exists(self.go):
+                os.unlink(self.go)
+        prod_serial = dc.production_serial(dev, self.size)
+        # the serial references, computed by the world's rank 0 beside phase 28
+        serial, serial_cpu = got["serial"]["card"], got["serial"]["cpu"]
+
+        for label, (case, res) in one.items():  # (a)
+            ref = serial[dc.setup_key(case)]
+            worst, iters_ok, err_ok = dist_compare(case, res, ref)
+            emit("distributed_nccl_one", case=label, mesh=list(case.mesh),
+                 iters=[r["iters"] for r in dc.steps_of(res)],
+                 err=[r["err"] for r in dc.steps_of(res)],
+                 serial_err=[r["err"] for r in dc.steps_of(ref)],
+                 seconds=sum(r["seconds"] for r in dc.steps_of(res)), max_rel_diff=worst,
+                 tol=DIST_TOL, backend=backend)
+            check(iters_ok and err_ok, f"distributed_nccl_one {label}: iterations or err")
+            check(worst <= DIST_TOL, f"distributed_nccl_one {label}: {worst} > {DIST_TOL}")
+        # (b) the world of four: card and CPU against their serial solves
+        for label, case in self.cases.items():
+            if label not in got:
+                continue
+            key = dc.setup_key(case)
+            for where, ref in (("card", serial[key]), ("cpu", serial_cpu[key])):
+                res = got[label if where == "card" else label + "@cpu"]
+                worst, iters_ok, err_ok = dist_compare(case, res, ref)
+                emit("distributed_gloo_four", case=label, on=where, mesh=list(case.mesh),
+                     iters=[r["iters"] for r in dc.steps_of(res)],
+                     err=[r["err"] for r in dc.steps_of(res)],
+                     serial_err=[r["err"] for r in dc.steps_of(ref)],
+                     seconds=sum(r["seconds"] for r in dc.steps_of(res)), max_rel_diff=worst,
+                     tol=DIST_TOL)
+                check(iters_ok and err_ok, f"distributed_gloo_four {label} {where}: "
+                                           "iterations or err")
+                check(worst <= DIST_TOL, f"distributed_gloo_four {label} {where}: {worst}")
+        check(sum(k in got for k in self.cases) >= 6, "distributed_gloo_four: cases missing")
+        for suffix in ("", "@cpu"):
+            a, b = got["ve_solcx" + suffix], got["ve_solcx_no_overlap" + suffix]
+            equal = a["err"] == b["err"] and all(np.array_equal(a[k], b[k])
+                                                 for k in dc.VE_FIELDS)
+            emit("distributed_overlap", case="ve_solcx", on="cpu" if suffix else "card",
+                 bit_equal=equal)
+            check(equal, f"distributed_overlap ve_solcx{suffix}: overlap=True differs")
+        case = self.cases["ve_solcx"]
+        worst, iters_ok, err_ok = dist_compare(case, got["multihost"],
+                                               serial[dc.setup_key(case)])
+        emit("distributed_multihost", ranks=got["multihost_layout"]["ranks"].tolist(),
+             max_rel_diff=worst, tol=DIST_TOL, blocking_wait=got.get("blocking_wait"),
+             default_wait_in_production=got.get("default_wait_in_production"))
+        check(got["multihost_layout"]["ranks"].tolist() == [[0, 1], [2, 3]],
+              "distributed_multihost: hosts are not along x")
+        check(iters_ok and err_ok and worst <= DIST_TOL, f"distributed_multihost: {worst}")
+
+        # (c) the flagship's grid: f32 VEP, fixed iterations, beside the
+        # serial plain solve
+        for label, prod in (("nccl_one", prod_one), ("gloo_four", got["production"])):
+            gap = float(np.abs(prod["P"] - prod_serial["P"]).max()
+                        / np.abs(prod_serial["P"]).max())
+            emit("distributed_production", world=label, nvidia_smi=smi,
+                 serial_ms_per_iter=prod_serial["ms_per_iter"], P_rel_diff_vs_serial=gap,
+                 **{k: v for k, v in prod.items() if k != "P"})
+            check(prod["finite"] and prod["iters"] == prod_serial["iters"],
+                  f"distributed_production {label}: not finite or iterations differ")
+            check(gap <= TOL_F32_1024, f"distributed_production {label}: P {gap} from serial")
+        emit("distributed_serial", nvidia_smi=smi, **{k: v for k, v in prod_serial.items()
+                                                      if k != "P"})
+        record_counts(launches, "distributed")
+        for kernel, n in got["launches"].items():
+            launches[kernel]["distributed"] += n
+        emit("distributed_launches", here=counts(), ranks=got["launches"])
+        check(sum(by_phase["distributed"] for by_phase in launches.values()) == 0,
+              "distributed: a kernel launched")
+        return launches
+
+    def stop(self):
+        self.world.stop()
+
+
+def run_distributed(dev, smi, size="card"):
+    """Phase 42 in one piece, its world of four started now."""
+    return DistributedPhase(dev, size).finish(smi)
+
+
+def nccl_two_ranks_one_card(timeout=120.0):
+    """Two ranks asking for NCCL on the one card: the world's failure text
+    (``None`` if it came up)."""
+    try:
+        dc.world("probe", nranks=2, device="cuda", backend="nccl", timeout=timeout,
+                 rank_timeout=timeout / 2).result()
+    except RuntimeError as e:
+        return str(e)
+    return None
 
 
 def profiled_launches(fn, warm_up=True):

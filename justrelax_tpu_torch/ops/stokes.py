@@ -119,17 +119,25 @@ def compute_tau_visc(txx, tyy, txy, exx, eyy, exy, eta, theta_dtau):
 def compute_tau_ve(txx, tyy, txy, txx_o, tyy_o, txy_o, exx, eyy, exy, eta, G,
                    theta_dtau, dt, eta_v=None, G_v=None):
     """Visco-elastic PT stress update: normal components at centers, shear at
-    the interior vertices (arithmetic 4-cell averages of η and G); boundary
-    vertices of τxy are left untouched. The distributed compute-in-halo form
-    (``eta_v``/``G_v`` at every local vertex) is not ported."""
-    if eta_v is not None or G_v is not None:
-        raise NotImplementedError(
-            "the compute-in-halo form of compute_tau_ve (eta_v/G_v) belongs to "
-            "the distributed layer, which the PyTorch port does not have yet")
+    vertices.
+
+    Serial form (``eta_v``/``G_v`` omitted): shear on the interior vertices
+    from arithmetic 4-cell averages of η and G; boundary vertices of τxy are
+    left untouched.
+
+    Distributed compute-in-halo form: ``eta_v``/``G_v`` at *every* local
+    vertex (built from ghost-extended center fields, see
+    ``parallel/stokes2d.py``) update every vertex of ``txy``; the caller
+    freezes the physical-boundary rows (``_freeze_rows``), which gives the
+    serial untouched-boundary result."""
     _Gdt = 1.0 / (G * dt)
     dtau_r = _dtau_r(theta_dtau, eta, _Gdt)
     txx = txx + _stress_increment(txx, txx_o, eta, exx, _Gdt, dtau_r)
     tyy = tyy + _stress_increment(tyy, tyy_o, eta, eyy, _Gdt, dtau_r)
+    if eta_v is not None:
+        _Gdt_v = 1.0 / (G_v * dt)
+        dtau_r_v = _dtau_r(theta_dtau, eta_v, _Gdt_v)
+        return txx, tyy, txy + _stress_increment(txy, txy_o, eta_v, exy, _Gdt_v, dtau_r_v)
     eta_vi = av_a(eta)
     _Gdt_v = 1.0 / (av_a(G) * dt)
     dtau_r_v = _dtau_r(theta_dtau, eta_vi, _Gdt_v)
@@ -144,10 +152,13 @@ def _x_momentum(P, txx, txy, rho_gx, inv_dx, inv_dy, inv_dx_v=None, inv_dy_c=Non
     """x-momentum balance on the interior x-faces (nx-1, ny). The τxx and P
     differences span adjacent centers (vertex family ``inv_dx_v``), the τxy
     ones adjacent vertices (center family ``inv_dy_c``); both default to the
-    uniform ``inv_dx``/``inv_dy``."""
+    uniform ``inv_dx``/``inv_dy``. In the distributed compute-in-halo form
+    (``parallel/stokes2d.py``) the center arrays arrive ghost-extended along
+    x (nxl+2, nyl) beside the (nxl+1, nyl+1) local vertex block, and the
+    balance lands on all local faces (nxl+1, nyl): the shapes select it."""
     inv_dx_v = inv_dx if inv_dx_v is None else inv_dx_v
     inv_dy_c = inv_dy if inv_dy_c is None else inv_dy_c
-    txy_f = txy[1:-1, :]
+    txy_f = txy if txy.shape[0] == P.shape[0] - 1 else txy[1:-1, :]
     return (
         (txx[1:, :] - txx[:-1, :]) * inv_dx_v
         + (txy_f[:, 1:] - txy_f[:, :-1]) * inv_dy_c
@@ -157,11 +168,11 @@ def _x_momentum(P, txx, txy, rho_gx, inv_dx, inv_dy, inv_dx_v=None, inv_dy_c=Non
 
 
 def _y_momentum(P, tyy, txy, rho_gy, inv_dx, inv_dy, inv_dy_v=None, inv_dx_c=None):
-    """y-momentum balance on the interior y-faces (nx, ny-1), the mirror of
-    :func:`_x_momentum`."""
+    """y-momentum balance on the interior y-faces (nx, ny-1), or on all local
+    faces in the ghost-extended form; the mirror of :func:`_x_momentum`."""
     inv_dy_v = inv_dy if inv_dy_v is None else inv_dy_v
     inv_dx_c = inv_dx if inv_dx_c is None else inv_dx_c
-    txy_f = txy[:, 1:-1]
+    txy_f = txy if txy.shape[1] == P.shape[1] - 1 else txy[:, 1:-1]
     return (
         (tyy[:, 1:] - tyy[:, :-1]) * inv_dy_v
         + (txy_f[1:, :] - txy_f[:-1, :]) * inv_dx_c

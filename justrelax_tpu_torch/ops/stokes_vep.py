@@ -108,19 +108,30 @@ class VEPInvariants(NamedTuple):
     ppv: PlasticParams
 
 
+def expand_edges_many(arrays):
+    """The serial ``extend_many`` hook: each center array widened by one
+    node on every face, replicating edge values (the reference's
+    ``av_clamped``/``harm_clamped``)."""
+    return [expand_edges(A) for A in arrays]
+
+
 def vep_invariants(txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl, material,
-                   phase_ratios_center, phase_ratios_vertex) -> VEPInvariants:
+                   phase_ratios_center, phase_ratios_vertex,
+                   extend_many=expand_edges_many) -> VEPInvariants:
+    """``extend_many`` widens center arrays by one node on every face
+    before the 4-point dual-grid average (see
+    :func:`update_stresses_center_vertex`)."""
+    txx_oe, tyy_oe, EII_pl_e = extend_many((txx_o, tyy_o, EII_pl))
     return VEPInvariants(
         txx_o=txx_o, tyy_o=tyy_o, txy_c_o=txy_c_o, txy_v_o=txy_v_o,
-        txx_ov=av_a(expand_edges(txx_o)),
-        tyy_ov=av_a(expand_edges(tyy_o)),
+        txx_ov=av_a(txx_oe),
+        tyy_ov=av_a(tyy_oe),
         K_c=get_bulk_modulus(material, phase_ratios_center, like=txx_o),
         G_c=get_shear_modulus(material, phase_ratios_center, like=txx_o),
         K_v=get_bulk_modulus(material, phase_ratios_vertex, like=txy_v_o),
         G_v=get_shear_modulus(material, phase_ratios_vertex, like=txy_v_o),
         ppc=plastic_params_phase(material, EII_pl, phase_ratios_center),
-        ppv=plastic_params_phase(
-            material, av_a(expand_edges(EII_pl)), phase_ratios_vertex),
+        ppv=plastic_params_phase(material, av_a(EII_pl_e), phase_ratios_vertex),
     )
 
 
@@ -138,26 +149,36 @@ def update_stresses_center_vertex(
     rel_lambda: float,
     dt,
     theta_dtau,
+    extend_many=expand_edges_many,
 ) -> VEPStressResult:
+    """``extend_many`` widens a sequence of center arrays by one node on
+    every face before the 4-point dual-grid average, all in one call: the
+    serial default replicates edge values (:func:`expand_edges_many`); the
+    distributed solvers pass a halo-aware extension that fetches the
+    neighbour ranks' values in the interior in one exchange and replicates
+    only at physical boundaries, so the shared vertices come out as the
+    serial ones."""
     inv = vep_invariants(txx_o, tyy_o, txy_c_o, txy_v_o, EII_pl, material,
-                         phase_ratios_center, phase_ratios_vertex)
+                         phase_ratios_center, phase_ratios_vertex, extend_many)
     return _update_stresses(exx, eyy, exy_v, txx, tyy, txy_c, txy_v, Pr, eta,
-                            lam, lam_v, inv, rel_lambda, dt, theta_dtau)
+                            lam, lam_v, inv, rel_lambda, dt, theta_dtau, extend_many)
 
 
 def _update_stresses(exx, eyy, exy_v, txx, tyy, txy_c, txy_v, Pr, eta, lam,
-                     lam_v, inv: VEPInvariants, rel_lambda, dt, theta_dtau):
+                     lam_v, inv: VEPInvariants, rel_lambda, dt, theta_dtau,
+                     extend_many=expand_edges_many):
     txx_o, tyy_o, txy_c_o, txy_v_o = inv.txx_o, inv.tyy_o, inv.txy_c_o, inv.txy_v_o
     # ---------------- vertex pass -----------------------------------------
-    Pv = av_a(expand_edges(Pr))
-    exx_v = av_a(expand_edges(exx))
-    eyy_v = av_a(expand_edges(eyy))
-    txx_v = av_a(expand_edges(txx))
-    tyy_v = av_a(expand_edges(tyy))
+    Pr_e, exx_e, eyy_e, txx_e, tyy_e, eta_e = extend_many((Pr, exx, eyy, txx, tyy, eta))
+    Pv = av_a(Pr_e)
+    exx_v = av_a(exx_e)
+    eyy_v = av_a(eyy_e)
+    txx_v = av_a(txx_e)
+    tyy_v = av_a(tyy_e)
     txx_ov, tyy_ov = inv.txx_ov, inv.tyy_ov
     ppv, G_v, K_v = inv.ppv, inv.G_v, inv.K_v
     _Gvdt = 1.0 / (G_v * dt)
-    eta_v = harm_a(expand_edges(eta))
+    eta_v = harm_a(eta_e)
     dtau_rv = 1.0 / (theta_dtau + eta_v * _Gvdt + 1.0)
 
     dtxx_v = _stress_increment(txx_v, txx_ov, eta_v, exx_v, _Gvdt, dtau_rv)

@@ -78,14 +78,14 @@ def solve_ve(
     a uniform serial grid, no free surface and no ``alpha_dT``; asked for
     elsewhere (a ``NonuniformGeometry`` included) it raises ``ValueError``.
     On a nonuniform grid the array path takes the spacing families of
-    ``ops/stokes.py::spacing_families_2d``. The distributed arguments
-    (``halo_exchange``, ``reduce_norm``) are not ported and raise
-    ``NotImplementedError``.
+    ``ops/stokes.py::spacing_families_2d``.
+
+    ``halo_exchange`` and ``reduce_norm`` are the distributed layer's hooks,
+    applied where the JAX solver applies them: ``halo_exchange(A)`` to the
+    preconditioner ``ητ`` once and to ``Vx`` and ``Vy`` after each
+    iteration's BCs, ``reduce_norm(R, shape)`` in place of each residual's
+    ``‖R‖₂/√(shape)``. The kernel refuses ``halo_exchange``.
     """
-    if halo_exchange is not None or reduce_norm is not None:
-        raise NotImplementedError(
-            "halo_exchange/reduce_norm belong to the distributed layer, which "
-            "the PyTorch port does not have yet")
     use_kernel = resolve_use_kernel(use_kernel, stokes.P)
     if use_kernel:
         reason = ve_chunk_unsupported(geometry, flow_bc, free_surface, halo_exchange,
@@ -105,6 +105,8 @@ def solve_ve(
 
     eta = stokes.viscosity.eta
     eta_tau = maxloc(eta, window=1)
+    if halo_exchange is not None:
+        eta_tau = halo_exchange(eta_tau)
     P0, Q = stokes.P0, stokes.Q
     tau_o = (stokes.tau_o.xx, stokes.tau_o.yy, stokes.tau_o.xy)
     rho_gx, rho_gy = rho_g
@@ -116,9 +118,15 @@ def solve_ve(
                                   alpha_dT=alpha_dT)
         Rx, Ry = kernels.compute_Res(P, txx, tyy, txy, rho_gx, rho_gy, inv_dx, inv_dy,
                                      Vy=Vy, free_surface_dt=fs_dt, spacings=mom_spacings)
-        nRx = _norm(Rx[1:-1, 1:-1]) / math.sqrt((nx - 2) * (ny - 1))
-        nRy = _norm(Ry[1:-1, 1:-1]) / math.sqrt((nx - 1) * (ny - 2))
-        nRP = _norm(RP) / math.sqrt(nx * ny)
+        if reduce_norm is not None:
+            nRx, nRy, nRP = (torch.as_tensor(reduce_norm(R, shape), dtype=dtype, device=device)
+                             for R, shape in ((Rx[1:-1, 1:-1], (nx - 2, ny - 1)),
+                                              (Ry[1:-1, 1:-1], (nx - 1, ny - 2)),
+                                              (RP, (nx, ny))))
+        else:
+            nRx = _norm(Rx[1:-1, 1:-1]) / math.sqrt((nx - 2) * (ny - 1))
+            nRy = _norm(Ry[1:-1, 1:-1]) / math.sqrt((nx - 1) * (ny - 2))
+            nRP = _norm(RP) / math.sqrt(nx * ny)
         return nRx, nRy, nRP, RP, Rx, Ry
 
     c = (stokes.V.Vx, stokes.V.Vy, stokes.P, stokes.tau.xx, stokes.tau.yy, stokes.tau.xy)
@@ -135,6 +143,8 @@ def solve_ve(
                     *c, *fields, G, K, P0, Q, tau_o, dt, inv_dx, inv_dy, r,
                     theta_dtau, etadtau, flow_bc=flow_bc, free_surface_dt=fs_dt,
                     alpha_dT=alpha_dT, strain_v=strain_v, spacings=mom_spacings)
+                if halo_exchange is not None:
+                    c = (halo_exchange(c[0]), halo_exchange(c[1])) + c[2:]
         nRx, nRy, nRP, _, _, _ = residual_norms(*c)
         err_t = torch.maximum(torch.maximum(nRx, nRy), nRP)
         hist[chunk] = torch.stack([nRx, nRy, nRP])

@@ -74,13 +74,13 @@ def heatdiffusion_PT(
     ``ValueError``, and so it does on a 3D state: such a caller on the card
     passes ``use_kernel=False``. On a nonuniform grid the fluxes take the
     face spacings (``inv_flux_di``), the divergence and update the cell
-    widths (``inv_div_di``). The distributed arguments (``halo_exchange``,
-    ``reduce_norm``) are not ported and raise ``NotImplementedError``.
+    widths (``inv_div_di``).
+
+    ``halo_exchange`` and ``reduce_norm`` are the distributed layer's hooks,
+    applied where the JAX solver applies them: ``halo_exchange(T)`` after
+    each iteration's BCs, ``reduce_norm(ResT)`` in place of
+    ``‖ResT‖₂/√n``. The kernel refuses ``halo_exchange``.
     """
-    if halo_exchange is not None or reduce_norm is not None:
-        raise NotImplementedError(
-            "halo_exchange/reduce_norm belong to the distributed layer, which "
-            "the PyTorch port does not have yet")
     use_kernel = resolve_use_kernel(use_kernel, thermal.T)
     if use_kernel:
         reason = thermal_chunk_unsupported(thermal_bc, geometry, K, rho_Cp, material,
@@ -110,7 +110,10 @@ def heatdiffusion_PT(
                                      thermal_bc.constant_flux, K=K, material=material, P=P,
                                      phase_ratios_faces=phase_ratios_faces)
         T = kernels.update_T(T, Told, q, H, sh, inv_dt, inv_div_di, dtau_rho, **cell_kw)
-        return thermal_bcs(T, thermal_bc), q, q2
+        T = thermal_bcs(T, thermal_bc)
+        if halo_exchange is not None:
+            T = halo_exchange(T)
+        return T, q, q2
 
     ndim = thermal.T.ndim
     T = thermal.T
@@ -131,7 +134,10 @@ def heatdiffusion_PT(
         # the chunk's last iteration on the array path refreshes q2
         T, q, q2 = one_iteration(T, q, q2)
         res = kernels.check_res(T, Told, q2, H, sh, inv_dt, inv_div_di, **cell_kw)
-        err_t = torch.linalg.vector_norm(res.reshape(-1)) * inv_sqrt_n
+        if reduce_norm is not None:
+            err_t = torch.as_tensor(reduce_norm(res), dtype=T.dtype, device=T.device)
+        else:
+            err_t = torch.linalg.vector_norm(res.reshape(-1)) * inv_sqrt_n
         hist[chunk] = err_t
         err = float(err_t)  # the one host read per chunk
         chunk += 1

@@ -1092,3 +1092,58 @@ def test_model_golden_f64(cuda, label):
     if MODEL_KERNEL[label] is not None:
         assert g["launches"] > 0
     assert g["other_launches"] == 0
+
+
+# ---- the distributed layer (parallel/) on the card: phase 42 at the CPU
+# tests' sizes
+@pytest.mark.parametrize("label", ["ve_full_terms", "thermal3d_xy", "vep_2x2", "variational"])
+def test_distributed_world_of_one_nccl(cuda, label):
+    """A world of one on NCCL in this process: the sharded solve on the
+    card, its serial plain solve on the card, equal iterations, fields
+    within 1e-12 of their max (chip_smoke.py phase 42 a)."""
+    import dist_cases as dc
+    from chip_smoke import DIST_TOL, dist_compare
+    from justrelax_tpu_torch.parallel import launch, multihost
+    from justrelax_tpu_torch.parallel.mesh import make_grid_mesh
+
+    case = dc.suite_cases("test")[label]
+    one = dataclasses.replace(case, mesh=(1,) * len(case.mesh))
+    multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0, backend="nccl", device=cuda,
+                         timeout=120)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        got = dc.sharded_solve(one, make_grid_mesh(one.mesh, device=cuda))
+    finally:
+        multihost.shutdown()
+    worst, iters_ok, err_ok = dist_compare(one, got, dc.serial_solve(case, cuda))
+    assert iters_ok and err_ok and worst <= DIST_TOL, (label, worst)
+
+
+def test_distributed_gloo_four_on_the_card(cuda):
+    """Four ranks on the one card over gloo, each halo slab staged through
+    host memory: the VE cases against the serial solve on the card, and
+    ``overlap=True`` bit-equal to ``overlap=False`` (phase 42 b)."""
+    import dist_cases as dc
+    from chip_smoke import DIST_TOL, dist_compare
+
+    got = dc.world("ve", device="cuda", backend="gloo", timeout=300).result()
+    assert not any(got["launches"].values()), got["launches"]
+    for label, case in dc.suite_cases("test").items():
+        if case.kind != "ve":
+            continue
+        worst, iters_ok, err_ok = dist_compare(case, got[label], dc.serial_solve(case, cuda))
+        assert iters_ok and err_ok and worst <= DIST_TOL, (label, worst)
+    for setup in ("ve_solcx", "ve_full_terms"):
+        for k in dc.VE_FIELDS:
+            assert np.array_equal(got[setup][k], got[setup + "_no_overlap"][k])
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda):
+    """NCCL asked for by two ranks on one card fails the world; it never
+    turns into gloo."""
+    from chip_smoke import nccl_two_ranks_one_card
+
+    if torch.cuda.device_count() > 1:
+        pytest.skip("two cards: NCCL may serve two ranks")
+    msg = nccl_two_ranks_one_card()
+    assert msg is not None and "NCCL" in msg.upper(), msg

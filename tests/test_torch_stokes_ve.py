@@ -117,9 +117,36 @@ def test_compute_tau_ve_and_visc(G_kind):
     b = jops.compute_tau_visc(*map(_j, (txx, tyy, txy, exx, eyy, exy, eta)), 2.5)
     for x, y in zip(a, b):
         assert _rel(x, y) <= 1e-15
-    with pytest.raises(NotImplementedError):
-        pops.compute_tau_ve(*map(_t, (txx, tyy, txy, txx_o, tyy_o, txy_o, exx, eyy, exy,
-                                      eta, G)), 2.5, 0.3, eta_v=_t(txy), G_v=_t(txy))
+    # the compute-in-halo form: eta_v/G_v on every vertex, every vertex updated
+    eta_v = rng.uniform(0.5, 2.0, v)
+    G_v = rng.uniform(1.0, 4.0, v) if G_kind == "finite" else np.full(v, np.inf)
+    a = pops.compute_tau_ve(*map(_t, (txx, tyy, txy, txx_o, tyy_o, txy_o, exx, eyy, exy,
+                                      eta, G)), 2.5, 0.3, eta_v=_t(eta_v), G_v=_t(G_v))
+    b = jops.compute_tau_ve(*map(_j, (txx, tyy, txy, txx_o, tyy_o, txy_o, exx, eyy, exy,
+                                      eta, G)), 2.5, 0.3, eta_v=_j(eta_v), G_v=_j(G_v))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("dt", [0.3, math.inf])
+@pytest.mark.parametrize("G_kind", ["finite", "infinite"])
+def test_compute_tau_ve_all_vertices(G_kind, dt):
+    """``compute_tau_ve(eta_v=..., G_v=...)``, the distributed layer's form,
+    bit-equal to the JAX package's: every vertex of τxy updated from the
+    given vertex fields, the centers as in the serial form."""
+    rng = np.random.default_rng(24)
+    c, v = (6, 9), (7, 10)
+    txx, tyy, txx_o, tyy_o, exx, eyy = (rng.standard_normal(c) for _ in range(6))
+    txy, txy_o, exy = (rng.standard_normal(v) for _ in range(3))
+    eta, eta_v = rng.uniform(0.5, 2.0, c), rng.uniform(0.5, 2.0, v)
+    G, G_v = ((rng.uniform(1.0, 4.0, c), rng.uniform(1.0, 4.0, v)) if G_kind == "finite"
+              else (np.full(c, np.inf), np.full(v, np.inf)))
+    args = (txx, tyy, txy, txx_o, tyy_o, txy_o, exx, eyy, exy, eta, G)
+    a = pops.compute_tau_ve(*map(_t, args), 1.7, dt, eta_v=_t(eta_v), G_v=_t(G_v))
+    b = jops.compute_tau_ve(*map(_j, args), 1.7, dt, eta_v=_j(eta_v), G_v=_j(G_v))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert not torch.equal(a[2][0], _t(txy)[0])  # boundary vertices updated too
 
 
 def test_pureshear_bc():
@@ -240,12 +267,46 @@ def test_kernel_refused_where_jax_refuses(case):
                  (z, z), G, G, 0.1, use_kernel=True)
 
 
+def _smooth_first(A):
+    """A distributed hook for both packages: the first layer replaced by its
+    mean with the second (stable, and it shows where the hook is applied)."""
+    if isinstance(A, torch.Tensor):
+        return torch.cat([0.5 * (A[:1] + A[1:2]), A[1:]])
+    return A.at[0].set(0.5 * (A[0] + A[1]))
+
+
+def _shifted_norm(R, shape):
+    """A ``reduce_norm`` for both packages: the plain norm plus 1."""
+    if isinstance(R, torch.Tensor):
+        return torch.linalg.vector_norm(R.reshape(-1)) / math.sqrt(math.prod(shape)) + 1.0
+    return jnp.linalg.norm(R.ravel()) / math.sqrt(math.prod(shape)) + 1.0
+
+
 def test_solve_ve_not_ported_arguments():
+    """``halo_exchange`` and ``reduce_norm``, the distributed layer's hooks,
+    through both packages' ``solve_ve`` (fields within 1e-12 of their max,
+    equal iterations, the norms); the kernel refuses ``halo_exchange``."""
     st, pt, g, z, G = _solve_inputs(8, True)
+    jst, jpt, jg, jz, jG = _solve_inputs(8, False)
     bc = pbc.VelocityBoundaryConditions(**_FS)
-    for kw in (dict(halo_exchange=lambda a: a), dict(reduce_norm=lambda a, s: a)):
-        with pytest.raises(NotImplementedError):
-            solve_ve(st, pt, g, bc, (z, z), G, G, 0.1, **kw)
+    jbc_ = jbc.VelocityBoundaryConditions(**_FS)
+    rho = np.random.default_rng(25).standard_normal((8, 8))
+    for kw in (dict(halo_exchange=_smooth_first), dict(reduce_norm=_shifted_norm),
+               dict(halo_exchange=_smooth_first, reduce_norm=_shifted_norm)):
+        a, ia = solve_ve(st, pt, g, bc, (z, _t(rho)), G, G, 0.1, iter_max=200, nout=50,
+                         use_kernel=False, **kw)
+        b, ib = j_solve_ve(jst, jpt, jg, jbc_, (jz, _j(rho)), jG, jG, 0.1, iter_max=200,
+                           nout=50, **kw)
+        assert int(ia.iters) == int(ib.iters)
+        for u, w in ((a.V.Vx, b.V.Vx), (a.V.Vy, b.V.Vy), (a.P, b.P), (a.tau.xy, b.tau.xy),
+                     (a.viscosity.eta_tau, b.viscosity.eta_tau)):
+            assert _rel(u, w) <= 1e-12
+        for u, w in ((ia.err, ib.err), (ia.norm_Rx, ib.norm_Rx), (ia.norm_RP, ib.norm_RP)):
+            np.testing.assert_allclose(np.asarray(u), np.asarray(w), rtol=1e-10)
+        if "reduce_norm" in kw:
+            assert float(ia.err) > 1.0
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        solve_ve(st, pt, g, bc, (z, z), G, G, 0.1, halo_exchange=_smooth_first, use_kernel=True)
 
     # a nonuniform grid: the kernel refuses it; the plain path on uniform
     # vectors gives the scalar grid's result (stretched grids against JAX in

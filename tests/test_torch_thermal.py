@@ -397,12 +397,43 @@ def test_kernel_refused_in_3d():
                 j_heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, use_pallas=True)
 
 
+def _smooth_first(A):
+    """A distributed hook for both packages: the first layer replaced by its
+    mean with the second (it shows where the hook is applied)."""
+    if isinstance(A, torch.Tensor):
+        return torch.cat([0.5 * (A[:1] + A[1:2]), A[1:]])
+    return A.at[0].set(0.5 * (A[0] + A[1]))
+
+
+def _shifted_norm(res):
+    """A ``reduce_norm`` for both packages: the plain norm over √n plus 1."""
+    if isinstance(res, torch.Tensor):
+        return torch.linalg.vector_norm(res.reshape(-1)) / math.sqrt(res.numel()) + 1.0
+    return jnp.linalg.norm(res.ravel()) / math.sqrt(res.size) + 1.0
+
+
 def test_not_ported_arguments():
+    """``halo_exchange`` and ``reduce_norm``, the distributed layer's hooks,
+    through both packages' ``heatdiffusion_PT`` (T within 1e-12 of its max,
+    equal iterations, err); the kernel refuses ``halo_exchange``."""
     th, pt, g, K, rc = _solve_inputs(8, True)
+    jth, jpt, jg, jK, jrc = _solve_inputs(8, False)
     bc = _faces(dict(constant_value=dict(top=0.0, bot=1.0)), True)
-    for kw in (dict(halo_exchange=lambda a: a), dict(reduce_norm=lambda a: a)):
-        with pytest.raises(NotImplementedError):
-            heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, **kw)
+    jbc_ = _faces(dict(constant_value=dict(top=0.0, bot=1.0)), False)
+    for kw in (dict(halo_exchange=_smooth_first), dict(reduce_norm=_shifted_norm),
+               dict(halo_exchange=_smooth_first, reduce_norm=_shifted_norm)):
+        a, ia = heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, iter_max=300, nout=100,
+                                 use_kernel=False, **kw)
+        b, ib = j_heatdiffusion_PT(jth, jpt, jbc_, 0.3, jg, K=jK, rho_Cp=jrc, iter_max=300,
+                                   nout=100, **kw)
+        assert int(ia.iters) == int(ib.iters)
+        assert _rel(a.T, b.T) <= 1e-12
+        np.testing.assert_allclose(float(ia.err), float(ib.err), rtol=1e-6)
+        if "reduce_norm" in kw:
+            assert float(ia.err) > 1.0 and int(ia.iters) == 300
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        heatdiffusion_PT(th, pt, bc, 0.3, g, K=K, rho_Cp=rc, halo_exchange=_smooth_first,
+                         use_kernel=True)
 
     # a nonuniform grid: the kernel refuses it; the plain path on uniform
     # vectors gives the scalar grid's result (stretched grids against JAX in
