@@ -61,6 +61,13 @@ VE_FIELDS = ("Vx", "Vy", "P", "txx", "tyy", "txy")
 VEP_FIELDS = ("Vx", "Vy", "P", "txx", "tyy", "txy_c", "txy_v", "tau_II", "lam", "lam_v",
               "eta")
 FREE_SLIP = dict(free_slip=Faces(left=True, right=True, top=True, bot=True))
+# the 3D blocks' surplus (the old stresses ``*_o`` as their stresses)
+EXTRAS_3D = {"Vx": (1, 2, 2), "Vy": (2, 1, 2), "Vz": (2, 2, 1), "tyz": (0, 1, 1),
+             "txz": (1, 0, 1), "txy": (1, 1, 0)}
+EXTRAS_3D.update({k + "_o": EXTRAS_3D[k] for k in ("tyz", "txz", "txy")})
+VE3D_FIELDS = ("Vx", "Vy", "Vz", "P", "txx", "tyy", "tzz", "tyz", "txz", "txy")
+VEP3D_FIELDS = VE3D_FIELDS + ("tyz_c", "txz_c", "txy_c", "tau_II", "lam", "eta")
+ALL_FACES = dict(left=True, right=True, top=True, bot=True, front=True, back=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +111,19 @@ def suite_cases(size: str = "test") -> Dict[str, Case]:
         Case("vep_2x2", "vep", 16, (2, 2), vep_it, 100, nt=vep_nt),
         Case("vep_4x1", "vep", 16, (4, 1), vep_it, 100, nt=vep_nt),
         Case("variational", "variational", 16, (2, 2), var_it, min(var_it, 100)),
+        Case("ve3d_free_slip_xy", "ve3d", 8, (2, 2, 1), 200, 100, "free_slip"),
+        Case("ve3d_free_slip_yz", "ve3d", 8, (1, 2, 2), 200, 100, "free_slip"),
+        Case("ve3d_no_slip_xy", "ve3d", 8, (2, 2, 1), 200, 100, "no_slip"),
+        Case("ve3d_no_slip_yz", "ve3d", 8, (1, 2, 2), 200, 100, "no_slip"),
+        Case("vep3d_xy", "vep3d", 8, (2, 2, 1), 200, 100, nt=3),
+        Case("vep3d_yz", "vep3d", 8, (1, 2, 2), 200, 100, nt=3),
+        Case("dyrel_2x2", "dyrel", 32, (2, 2), 0, DYREL_KW["nout"]),
+        Case("dyrel_4x1", "dyrel", 32, (4, 1), 0, DYREL_KW["nout"]),
+        Case("dyrel_nonlinear_2x2", "dyrel", 16, (2, 2), 0, 100, "nonlinear"),
+        Case("particles_2x2", "particles", 16, (2, 2), 0, 0, nt=3),
+        Case("particles_1x4", "particles", 16, (1, 4), 0, 0, nt=3),
+        Case("particles3d_xy", "particles3d", 8, (2, 2, 1), 0, 0, nt=3),
+        Case("particles3d_yz", "particles3d", 8, (1, 2, 2), 0, 0, nt=3),
     ]
     return {c.label: c for c in cases}
 
@@ -263,12 +283,220 @@ def variational_material(device, dtype):
     ], dtype=dtype, device=device)
 
 
+def ve3d_inputs(setup: str, n: int) -> dict:
+    """tests/test_distributed3d.py: buoyancy with a random η and ρ, G = 1,
+    K = dt = ∞, free slip or no slip on all six faces."""
+    rng = np.random.default_rng(3)
+    ni = (n, n, n)
+    return dict(n=n, eta=np.exp(0.5 * rng.normal(size=ni)), rho=1.0 + 0.2 * rng.normal(size=ni),
+                G=np.ones(ni), K=np.full(ni, np.inf), dt=math.inf, bc=setup)
+
+
+def ve3d_objects(case: Case):
+    """(geometry, coefficients with ϵ = 1e-30, so the iterations are fixed,
+    velocity BCs)."""
+    n = case.n
+    g = Geometry((n, n, n), (1.0, 1.0, 1.0))
+    pt = PTStokesCoeffs.make(g.li, g.di, CFL=1.0 / math.sqrt(3.0), eps_rel=1.0e-30,
+                             eps_abs=1.0e-30)
+    return g, pt, VelocityBoundaryConditions(**{case.setup: Faces(**ALL_FACES)})
+
+
+def vep3d_material(device, dtype):
+    from justrelax_tpu_torch.rheology.materials import Material, MaterialStack
+
+    tau_y, phi = 0.8, 30.0
+    common = dict(Kb=4.0, eta0=1.0, is_plastic=1.0, C=tau_y / math.cos(math.radians(phi)),
+                  friction_angle=phi, eta_reg=8.0e-3)
+    return MaterialStack.make([Material(G=1.0, **common), Material(G=0.5, **common)],
+                              dtype=dtype, device=device)
+
+
+def vep3d_inputs(n: int) -> dict:
+    """tests/test_distributed_vep3d.py: two-phase Drucker-Prager pure shear
+    in xz, a weak elastic sphere off center so that it straddles the
+    tiles."""
+    from justrelax_tpu_torch.rheology.phases import phase_ratios_from_field
+
+    g = Geometry((n, n, n), (1.0, 1.0, 1.0))
+    X, Y, Z = g.cell_centers_mesh()
+    sph = ((X - 0.45) ** 2 + (Y - 0.55) ** 2 + (Z - 0.5) ** 2) < 0.22**2
+    pr = phase_ratios_from_field(torch.as_tensor(sph.astype(np.int64)), 2)
+    xv, zv = np.asarray(g.xvi[0]), np.asarray(g.xvi[2])
+    Vx = np.broadcast_to(xv[:, None, None], (n + 1, n + 2, n + 2)).copy()
+    Vy = np.zeros((n + 2, n + 1, n + 2))
+    Vz = np.broadcast_to(-zv[None, None, :], (n + 2, n + 2, n + 1)).copy()
+    V = flow_bcs(tuple(torch.as_tensor(a) for a in (Vx, Vy, Vz)),
+                 VelocityBoundaryConditions(free_slip=Faces(**ALL_FACES)))
+    return dict(n=n, Vx=V[0].numpy(), Vy=V[1].numpy(), Vz=V[2].numpy(), dt=0.25,
+                pr_c=pr.center.numpy(), pr_yz=pr.edge_yz.numpy(), pr_xz=pr.edge_xz.numpy(),
+                pr_xy=pr.edge_xy.numpy())
+
+
+def vep3d_pt(n):
+    g = Geometry((n, n, n), (1.0, 1.0, 1.0))
+    return g, PTStokesCoeffs.make(g.li, g.di, eps_rel=1.0e-30, eps_abs=1.0e-30,
+                                  CFL=0.9 / math.sqrt(3.1))
+
+
+def dyrel_inputs(n: int) -> dict:
+    """tests/test_distributed_dyrel.py's ``_setup``: a two-phase
+    Drucker-Prager band (a weak circle at the center) under pure shear, the
+    boundary velocities set and the interior at rest."""
+    from justrelax_tpu_torch.models.shearband import _circle_phase_ratios
+
+    g = Geometry((n, n), (1.0, 1.0))
+    xv, yv = np.asarray(g.xvi[0]), np.asarray(g.xvi[1])
+    Vx = np.broadcast_to(xv[:, None], (n + 1, n + 2)).copy()
+    Vy = np.broadcast_to(-yv[None, :], (n + 2, n + 1)).copy()
+    Vx[1:-1, 1:-1] = 0.0
+    Vy[1:-1, 1:-1] = 0.0
+    Vx, Vy = (t.numpy() for t in flow_bcs((torch.as_tensor(Vx), torch.as_tensor(Vy)),
+                                           VelocityBoundaryConditions(**FREE_SLIP)))
+    return dict(n=n, Vx=Vx, Vy=Vy, dt=0.25,
+                pr_c=_circle_phase_ratios(g.xci[0], g.xci[1], (0.5, 0.5), 0.1),
+                pr_v=_circle_phase_ratios(g.xvi[0], g.xvi[1], (0.5, 0.5), 0.1))
+
+
+def dyrel_material(device, dtype):
+    from justrelax_tpu_torch.rheology.materials import Material, MaterialStack
+
+    tau_y, phi = 1.6, 30.0
+    common = dict(rho0=0.0, Kb=5.0, eta0=1.0, is_plastic=1.0,
+                  C=tau_y / math.cos(math.radians(phi)), friction_angle=phi, dilation_angle=0.0,
+                  eta_reg=1.0e-2)
+    return MaterialStack.make([Material(G=1.0, **common), Material(G=0.5, **common)],
+                              dtype=dtype, device=device)
+
+
+# tests/test_distributed_dyrel.py's keywords, with the DR caps
+DYREL_KW = dict(eps=1.0e-6, nout=50, rel_drop=0.5)
+
+
+def dyrel_state(d, device, dtype):
+    n = d["n"]
+    st = StokesState.make((n, n), dtype=dtype, device=device)
+    return st.replace(V=st.V.replace(Vx=torch.as_tensor(d["Vx"], dtype=dtype, device=device),
+                                     Vy=torch.as_tensor(d["Vy"], dtype=dtype, device=device)))
+
+
+def dyrel_nonlinear_setup(n, dtype, dev):
+    """tests/test_dyrel_nonlinear.py's set-up on the port: the shear band
+    with dislocation creep (n = 3) in both phases, η from ε̇II = 1 and
+    refreshed every DR iteration. Returns (state, geometry, bc, material,
+    pr_c, pr_v, η₀, keywords)."""
+    from justrelax_tpu_torch.models import shearband_dyrel
+    from justrelax_tpu_torch.rheology.materials import Material, MaterialStack
+    from justrelax_tpu_torch.rheology.viscosity import phase_viscosity
+
+    common = dict(rho0=0.0, Kb=4.0, is_plastic=1.0, C=1.6 / math.cos(math.radians(30)),
+                  friction_angle=30.0, eta_reg=8e-3)
+    geometry, _, _, _, st, bc = shearband_dyrel._setup(n, common, 1.0, False, dtype, dev)
+    f = dict(dtype=st.P.dtype, device=st.P.device)
+    mat = MaterialStack.make([Material(G=1.0, disl_A=0.5, disl_n=3.0, **common),
+                              Material(G=0.5, disl_A=5.0, disl_n=3.0, **common)], **f)
+
+    def circ(xs, ys):
+        X, Y = np.meshgrid(np.asarray(xs), np.asarray(ys), indexing="ij")
+        inside = (X - 0.5) ** 2 + (Y - 0.5) ** 2 < 0.01
+        return torch.as_tensor(np.stack([~inside, inside], axis=-1).astype(float), **f)
+
+    prc, prv = circ(*geometry.xci), circ(*geometry.xvi)
+    eta0 = phase_viscosity(mat, torch.ones((n, n), **f), None, prc, "eps")
+    eta0v = phase_viscosity(mat, torch.ones((n + 1, n + 1), **f), None, prv, "eps")
+    st = st.replace(viscosity=st.viscosity.replace(eta=eta0, eta_v=eta0v))
+    kw = dict(linear_viscosity=False, viscosity_relaxation=0.5, viscosity_cutoff=(1e-3, 1e3),
+              eps=1e-6, nout=100, iter_max=20_000, total_iter_max=200_000)
+    return st, geometry, bc, mat, prc, prv, eta0, kw
+
+
+def dyrel_objects(case: Case, device, dtype):
+    """(state, geometry, bc, material, pr_c, pr_v, dt, keywords) of a DYREL
+    case: tests/test_distributed_dyrel.py's band, or (``setup``
+    "nonlinear") the band with dislocation creep, whose η the DR loop
+    refreshes."""
+    n = case.n
+    if case.setup == "nonlinear":
+        st, g, bc, mat, prc, prv, _, kw = dyrel_nonlinear_setup(n, dtype, torch.device(device))
+        return st, g, bc, mat, prc, prv, 0.25, kw
+    d = dyrel_inputs(n)
+    f = dict(dtype=dtype, device=device)
+    return (dyrel_state(d, device, dtype), Geometry((n, n), (1.0, 1.0)),
+            VelocityBoundaryConditions(**FREE_SLIP), dyrel_material(device, dtype),
+            torch.as_tensor(d["pr_c"], **f), torch.as_tensor(d["pr_v"], **f), d["dt"],
+            dict(DYREL_KW))
+
+
+def dyrel_fields(s) -> dict:
+    """The fields tests/test_distributed_dyrel.py holds, as numpy."""
+    return dict(P=s.P, Vx=s.V.Vx, Vy=s.V.Vy, txx=s.tau.xx, txy_v=s.tau.xy, tII=s.tau.II,
+                eta_vep=s.viscosity.eta_vep, EII_pl=s.EII_pl)
+
+
+def particles_inputs(n: int, ndim: int) -> dict:
+    """tests/test_distributed_particles.py (2D, 16²) and
+    tests/test_distributed_particles3d.py (3D, 8³): a random velocity field
+    at CFL 0.45, four particles per cell and a random phase per slot."""
+    from justrelax_tpu_torch.particles.particles import init_particles
+    from justrelax_tpu_torch.particles.particles3d import init_particles_3d
+
+    ni = (n,) * ndim
+    g = Geometry(ni, (1.0,) * ndim)
+    rng = np.random.default_rng(5 if ndim == 2 else 7)
+    V = [rng.normal(size=tuple(m + (1 if a == d else 2) for a, m in enumerate(ni)))
+         for d in range(ndim)]
+    dt = 0.45 * min(g.di) / max(float(np.abs(v).max()) for v in V)
+    if ndim == 2:
+        p = init_particles(g, nxcell=4, max_xcell=12, min_xcell=2, seed=3, device="cpu")
+    else:
+        p = init_particles_3d(g, nxcell=4, max_xcell=14, min_xcell=2, seed=3, device="cpu")
+    phase = rng.integers(0, 3, size=tuple(p.px.shape)).astype(float)
+    names = ("px", "py", "pz")[:ndim]
+    return dict(n=n, ndim=ndim, V=V, dt=dt, phase=phase, active=p.active.numpy(),
+                min_xcell=p.min_xcell, nxcell=p.nxcell,
+                **{k: getattr(p, k).numpy() for k in names})
+
+
+def make_particles(d, device, dtype=torch.float64):
+    """The particle set of :func:`particles_inputs` on ``device``."""
+    from justrelax_tpu_torch.particles.particles import Particles
+    from justrelax_tpu_torch.particles.particles3d import Particles3D
+
+    names = ("px", "py", "pz")[:d["ndim"]]
+    cls = Particles if d["ndim"] == 2 else Particles3D
+    f = dict(dtype=dtype, device=device)
+    return cls(active=torch.as_tensor(d["active"], device=device), min_xcell=d["min_xcell"],
+               nxcell=d["nxcell"], **{k: torch.as_tensor(d[k], **f) for k in names})
+
+
+def particle_rows(positions, active, phase) -> dict:
+    """The multiset of active (x, y[, z], phase) rows, sorted, and the
+    per-cell occupancy (tests/test_distributed_particles.py's
+    ``_gather_sorted`` and ``count``)."""
+    a = np.asarray(active).astype(bool)
+    rows = np.stack([np.asarray(x)[a] for x in positions] + [np.asarray(phase)[a]], axis=-1)
+    return dict(rows=rows[np.lexsort(rows.T[::-1])], count=a.sum(axis=-1))
+
+
+def particle_diffs(a: dict, b: dict) -> dict:
+    """(max |rows a − rows b|, ∞ if the numbers of particles differ; cells
+    whose occupancy differs)."""
+    same = a["rows"].shape == b["rows"].shape
+    rows = float(np.abs(a["rows"] - b["rows"]).max(initial=0.0)) if same else math.inf
+    return dict(rows=rows, count=int((a["count"] != b["count"]).sum()))
+
+
 def inputs(case: Case) -> dict:
     return {"ve": lambda: ve_inputs(case.setup, case.n),
             "thermal": lambda: thermal_inputs(case.n),
             "thermal3d": lambda: thermal3d_inputs(case.n),
             "vep": lambda: vep_inputs(case.n),
-            "variational": lambda: variational_inputs(case.n)}[case.kind]()
+            "variational": lambda: variational_inputs(case.n),
+            "ve3d": lambda: ve3d_inputs(case.setup, case.n),
+            "vep3d": lambda: vep3d_inputs(case.n),
+            "dyrel": lambda: dyrel_inputs(case.n),
+            "particles": lambda: particles_inputs(case.n, 2),
+            "particles3d": lambda: particles_inputs(case.n, 3)}[case.kind]()
 
 
 # ---- the serial reference -----------------------------------------------------
@@ -284,6 +512,63 @@ def serial_solve(case: Case, device, dtype=torch.float64) -> dict:
     d = inputs(case)
     f = dict(dtype=dtype, device=device)
     n = case.n
+    if case.kind in ("particles", "particles3d"):
+        from justrelax_tpu_torch.particles.particles import advect_rk2, move_particles
+        from justrelax_tpu_torch.particles.particles3d import advect_rk2_3d, move_particles_3d
+
+        ndim = d["ndim"]
+        g = Geometry((n,) * ndim, (1.0,) * ndim)
+        advect, move = (advect_rk2, move_particles) if ndim == 2 else (advect_rk2_3d,
+                                                                       move_particles_3d)
+        p, ph = make_particles(d, device, dtype), torch.as_tensor(d["phase"], **f)
+        V = tuple(torch.as_tensor(v, **f) for v in d["V"])
+        for _ in range(case.nt):
+            p = advect(p, V, g, d["dt"])
+            p, fl = move(p, g, {"phase": ph})
+            ph = fl["phase"]
+        names = ("px", "py", "pz")[:ndim]
+        out = particle_rows([getattr(p, k).cpu() for k in names], p.active.cpu(), ph.cpu())
+        return dict(out, err=0.0, iters=case.nt)
+    if case.kind == "dyrel":
+        from justrelax_tpu_torch.solvers.dyrel import solve_dyrel
+
+        *args, kw = dyrel_objects(case, device, dtype)
+        s, info = solve_dyrel(*args, **kw)
+        return _np(dyrel_fields(s), info)
+    if case.kind == "ve3d":
+        from justrelax_tpu_torch.solvers.stokes3d import solve_ve_3d
+
+        g, pt, bc = ve3d_objects(case)
+        st = StokesState.make(g.ni, **f)
+        st = st.replace(viscosity=st.viscosity.replace(eta=torch.as_tensor(d["eta"], **f)))
+        z = torch.zeros(g.ni, **f)
+        s, info = solve_ve_3d(st, pt, g, bc, (z, z, torch.as_tensor(d["rho"], **f)),
+                              torch.as_tensor(d["G"], **f), torch.as_tensor(d["K"], **f),
+                              d["dt"], iter_max=case.iters, nout=case.nout, use_kernel=False)
+        t = s.tau
+        return _np(dict(Vx=s.V.Vx, Vy=s.V.Vy, Vz=s.V.Vz, P=s.P, txx=t.xx, tyy=t.yy, tzz=t.zz,
+                        tyz=t.yz, txz=t.xz, txy=t.xy), info)
+    if case.kind == "vep3d":
+        from justrelax_tpu_torch.solvers.stokes3d_vep import solve_vep_3d
+
+        g, pt = vep3d_pt(n)
+        mat = vep3d_material(device, dtype)
+        st = StokesState.make(g.ni, **f)
+        st = st.replace(V=st.V.replace(**{k: torch.as_tensor(d[k], **f)
+                                          for k in ("Vx", "Vy", "Vz")}))
+        pr_c, *pr_e = (torch.as_tensor(d[k], **f) for k in ("pr_c", "pr_yz", "pr_xz", "pr_xy"))
+        bc = VelocityBoundaryConditions(free_slip=Faces(**ALL_FACES))
+        steps = []
+        for _ in range(case.nt):
+            st, info = solve_vep_3d(st, pt, g, bc, mat, pr_c, tuple(pr_e), d["dt"],
+                                    iter_max=case.iters, iter_min=100, nout=case.nout,
+                                    use_kernel=False)
+            t = st.tau
+            steps.append(_np(dict(Vx=st.V.Vx, Vy=st.V.Vy, Vz=st.V.Vz, P=st.P, txx=t.xx,
+                                  tyy=t.yy, tzz=t.zz, tyz=t.yz, txz=t.xz, txy=t.xy,
+                                  tyz_c=t.yz_c, txz_c=t.xz_c, txy_c=t.xy_c, tau_II=t.II,
+                                  lam=st.lam, eta=st.viscosity.eta), info))
+        return dict(steps=steps)
     if case.kind == "ve":
         g, pt = ve_pt(n)
         st = StokesState.make((n, n), **f)
@@ -408,6 +693,23 @@ def sharded_solve(case: Case, mesh, dtype=torch.float64) -> dict:
         out.update(err=float(err), iters=int(iters), seconds=s)
         return out
 
+    if case.kind in ("ve3d", "vep3d"):
+        return _sharded_3d(case, d, mesh, up, result, timed, dtype)
+    if case.kind in ("particles", "particles3d"):
+        return _sharded_particles(case, d, mesh, timed, dtype)
+    if case.kind == "dyrel":
+        from justrelax_tpu_torch.parallel.dyrel import solve_dyrel_sharded
+
+        # the global fields on the CPU, cut by each rank; the material on
+        # the rank's device
+        st, g, bc, _, pr_c, pr_v, dt, kw = dyrel_objects(case, "cpu", dtype)
+        mat = dyrel_objects(case, dev, dtype)[3]
+        (s, info), sec = timed(lambda: solve_dyrel_sharded(mesh, st, g, bc, mat, pr_c, pr_v,
+                                                           dt, **kw))
+        out = {k: v.cpu().numpy() for k, v in dyrel_fields(s).items()}
+        out.update(err=float(info.err), iters=int(info.iters), seconds=sec)
+        return out
+
     dec = Decomp2D.make((n, n), case.mesh)
     if case.kind == "ve":
         g, pt = ve_pt(n)
@@ -464,12 +766,190 @@ def sharded_solve(case: Case, mesh, dtype=torch.float64) -> dict:
     return result(res, tuple(k for k in VEP_FIELDS if k != "lam_v"), s)
 
 
+def face_particles(n: int = 16, per_side: int = 4):
+    """Float32 particles a few ulps either side of every face between the
+    tiles of a 2×2 mesh and of the domain's upper faces, at rest (the
+    velocities are 0): positions where the blocks' frames round apart.
+    Returns (particles, velocities, dt), global."""
+    from justrelax_tpu_torch.particles.particles import Particles
+
+    f32 = torch.float32
+    g = Geometry((n, n), (1.0, 1.0))
+    dx = g.di[0]
+    m = 4 * per_side
+    px = np.zeros((n, n, m), np.float32)
+    py = np.zeros((n, n, m), np.float32)
+    active = np.zeros((n, n, m), bool)
+    faces = (0.5, 1.0)
+    k = np.arange(1, per_side + 1, dtype=np.float32)
+    for i in range(n):
+        for j in range(n):
+            xc, yc = np.float32((i + 0.5) * dx), np.float32((j + 0.5) * dx)
+            slots = []
+            for face in faces:
+                f = np.float32(face)
+                if i == int(face * n) - 1:  # just below an x face
+                    slots += [(np.nextafter(f, 0, dtype=np.float32) - (q - 1) * np.spacing(
+                        f / 2), yc) for q in k]
+                if i == int(face * n) and face < 1.0:  # at and just above it
+                    slots += [(f + (q - 1) * np.spacing(f), yc) for q in k]
+                if j == int(face * n) - 1:
+                    slots += [(xc, np.nextafter(f, 0, dtype=np.float32) - (q - 1) * np.spacing(
+                        f / 2)) for q in k]
+                if j == int(face * n) and face < 1.0:
+                    slots += [(xc, f + (q - 1) * np.spacing(f)) for q in k]
+            for s_, (x, y) in enumerate(slots[:m]):
+                px[i, j, s_], py[i, j, s_], active[i, j, s_] = x, y, True
+    parts = Particles(px=torch.as_tensor(px), py=torch.as_tensor(py),
+                      active=torch.as_tensor(active), min_xcell=1, nxcell=1)
+    V = (torch.zeros((n + 1, n + 2), dtype=f32), torch.zeros((n + 2, n + 1), dtype=f32))
+    return parts, V, 0.1
+
+
+def run_face_particles(device) -> dict:
+    """:func:`face_particles` through one sharded step on a 2×2 mesh: the
+    per-cell occupancy gathered, and the particles placed."""
+    from justrelax_tpu_torch.parallel.particles import (
+        advect_move_local,
+        block_particles,
+    )
+
+    parts, V, dt = face_particles()
+    n = parts.px.shape[0]
+    g = Geometry((n, n), (1.0, 1.0))
+    mesh = make_grid_mesh((2, 2), device=device)
+    dec = Decomp2D.make((n, n), (2, 2))
+    pb = block_particles(parts, g, dec)
+    p = pb.replace(active=mesh.local(pb.active, dec.ni_local),
+                   px=mesh.local(pb.px, dec.ni_local), py=mesh.local(pb.py, dec.ni_local))
+    Vt = [mesh.local(torch.as_tensor(block_staggered(v.numpy(), dec, ex)),
+                     tuple(k + e for k, e in zip(dec.ni_local, ex)))
+          for v, ex in zip(V, ((1, 2), (2, 1)))]
+    with mesh:
+        q, _ = advect_move_local(p, {"phase": torch.zeros_like(p.px)}, *Vt, dec, g.di, dt)
+        count = multihost.gather_blocked(q.count().to(torch.int32))
+    return dict(count=count, placed=int(parts.active.sum()))
+
+
+def _sharded_particles(case, d, mesh, timed, dtype):
+    """The particle cases through ``parallel/particles.py`` and
+    ``parallel/particles3d.py``: block-relative positions, this rank's
+    slots and velocity tiles, ``nt`` steps of advection and migration, the
+    slots gathered and made global again."""
+    from justrelax_tpu_torch.parallel.particles import (
+        advect_move_local,
+        block_particles,
+        unblock_particles,
+    )
+    from justrelax_tpu_torch.parallel.particles3d import advect_move_local_3d
+
+    n, ndim = case.n, d["ndim"]
+    ni = (n,) * ndim
+    g = Geometry(ni, (1.0,) * ndim)
+    dec = (Decomp2D if ndim == 2 else Decomp3D).make(ni, case.mesh)
+    nl = dec.ni_local
+    names = ("px", "py", "pz")[:ndim]
+    pb = block_particles(make_particles(d, "cpu", dtype), g, dec)
+    # the slot arrays are cell-aligned: the blocked layout is the global one
+    p = pb.replace(active=mesh.local(pb.active, nl),
+                   **{k: mesh.local(getattr(pb, k), nl) for k in names})
+    ph = mesh.local(torch.as_tensor(d["phase"], dtype=dtype), nl)
+    V = []
+    for a, v in enumerate(d["V"]):
+        ex = tuple(1 if b == a else 2 for b in range(ndim))
+        tile = tuple(m + e for m, e in zip(nl, ex))
+        V.append(mesh.local(torch.as_tensor(block_staggered_nd(v, nl, case.mesh, ex),
+                                            dtype=dtype), tile))
+    step = advect_move_local if ndim == 2 else advect_move_local_3d
+    seconds = 0.0
+    with mesh:
+        for _ in range(case.nt):
+            (p, fl), s = timed(lambda: step(p, {"phase": ph}, *V, dec, g.di, d["dt"]))
+            ph = fl["phase"]
+            seconds += s
+        gathered = {k: torch.as_tensor(multihost.gather_blocked(getattr(p, k)))
+                    for k in names}
+        active = torch.as_tensor(multihost.gather_blocked(p.active.to(torch.uint8))) != 0
+        phase = multihost.gather_blocked(ph)
+    glob = unblock_particles(p.replace(active=active, **gathered), g, dec)
+    out = particle_rows([getattr(glob, k) for k in names], active, phase)
+    return dict(out, err=0.0, iters=case.nt, seconds=seconds)
+
+
+def _blocked_3d(case: Case, name, A, extra=None):
+    nl = tuple(case.n // p for p in case.mesh)
+    return block_staggered_nd(np.asarray(A), nl, case.mesh,
+                              EXTRAS_3D.get(name, (0, 0, 0)) if extra is None else extra)
+
+
+def _blocked_phase_3d(case: Case, A, extra):
+    nl = tuple(case.n // p for p in case.mesh)
+    return block_staggered_nd(np.asarray(A), nl + (A.shape[-1],), case.mesh + (1,),
+                              extra + (0,))
+
+
+def _sharded_3d(case, d, mesh, up, result, timed, dtype):
+    """The 3D VE and VEP cases through ``parallel/stokes3d.py`` and
+    ``parallel/stokes3d_vep.py``."""
+    from justrelax_tpu_torch.parallel.stokes3d import solve_ve_sharded_3d
+    from justrelax_tpu_torch.parallel.stokes3d_vep import solve_vep_sharded_3d
+
+    n = case.n
+    ni = (n, n, n)
+    dec = Decomp3D.make(ni, case.mesh)
+    zc = np.zeros(ni)
+    shapes = dict(Vx=(n + 1, n + 2, n + 2), Vy=(n + 2, n + 1, n + 2),
+                  Vz=(n + 2, n + 2, n + 1), tyz=(n, n + 1, n + 1), txz=(n + 1, n, n + 1),
+                  txy=(n + 1, n + 1, n))
+    if case.kind == "ve3d":
+        g, pt, bc = ve3d_objects(case)
+        glob = {k: np.zeros(shapes.get(k.replace("_o", ""), ni)) for k in (
+            "Vx", "Vy", "Vz", "P", "P0", "Q", "txx", "tyy", "tzz", "tyz", "txz", "txy",
+            "txx_o", "tyy_o", "tzz_o", "tyz_o", "txz_o", "txy_o")}
+        glob.update(eta=d["eta"], G=d["G"], K=d["K"], fx=zc, fy=zc, fz=d["rho"])
+        blocks = {k: up(_blocked_3d(case, k, v)) for k, v in glob.items()}
+        blocks.update(inv_dx=1.0 / g.di[0], inv_dy=1.0 / g.di[1], inv_dz=1.0 / g.di[2])
+        res, s = timed(lambda: solve_ve_sharded_3d(mesh, dec, blocks, pt, bc, d["dt"],
+                                                   iter_max=case.iters, nout=case.nout))
+        return result(res, VE3D_FIELDS, s)
+    g, pt = vep3d_pt(n)
+    mat = vep3d_material(mesh.device, dtype)
+    bc = VelocityBoundaryConditions(free_slip=Faces(**ALL_FACES))
+    glob = dict(Vx=d["Vx"], Vy=d["Vy"], Vz=d["Vz"], P=zc, Q=zc, EII_pl=zc, eta=np.ones(ni))
+    for k in ("txx", "tyy", "tzz", "tyz_c", "txz_c", "txy_c", "tyz", "txz", "txy"):
+        glob[k] = glob[k + "_o"] = np.zeros(shapes.get(k, ni))
+    blocks = {k: up(_blocked_3d(case, k, v)) for k, v in glob.items()}
+    for k, ex in (("pr_c", (0, 0, 0)), ("pr_yz", (0, 1, 1)), ("pr_xz", (1, 0, 1)),
+                  ("pr_xy", (1, 1, 0))):
+        blocks[k] = up(_blocked_phase_3d(case, d[k], ex))
+    blocks.update(inv_dx=1.0 / g.di[0], inv_dy=1.0 / g.di[1], inv_dz=1.0 / g.di[2])
+    steps = []
+    for _ in range(case.nt):
+        res, s = timed(lambda: solve_vep_sharded_3d(
+            mesh, dec, blocks, pt, bc, mat, d["dt"], iter_max=case.iters, iter_min=100,
+            nout=case.nout))
+        # the next loading step: τ_o ← τ; P, V and η carried, as the serial
+        # solver threads its state
+        for k in ("Vx", "Vy", "Vz", "P", "eta", "txx", "tyy", "tzz", "tyz_c", "txz_c",
+                  "txy_c", "tyz", "txz", "txy"):
+            blocks[k] = getattr(res, k)
+        for k in ("txx", "tyy", "tzz", "tyz_c", "txz_c", "txy_c", "tyz", "txz", "txy"):
+            blocks[k + "_o"] = getattr(res, k)
+        steps.append(result(res, VEP3D_FIELDS, s))
+    return dict(steps=steps)
+
+
 def unblock(case: Case, name: str, B: np.ndarray) -> np.ndarray:
     """A gathered blocked field back to the global array."""
     if case.kind == "thermal3d":
         n = case.n
         return unblock_staggered_nd(B, (n // case.mesh[0], n // case.mesh[1],
                                         n // case.mesh[2]), case.mesh, (2, 2, 2))
+    if case.kind in ("ve3d", "vep3d"):
+        nl = tuple(case.n // p for p in case.mesh)
+        return unblock_staggered_nd(B, nl, case.mesh, EXTRAS_3D.get(name, (0, 0, 0)))
+    if case.kind in ("dyrel", "particles", "particles3d"):  # gathered already
+        return B
     dec = Decomp2D.make((case.n, case.n), case.mesh)
     return unblock_staggered(B, dec, EXTRAS.get(name, (0, 0)))
 
@@ -491,6 +971,40 @@ def field_diffs(case: Case, sharded: dict, serial: dict) -> dict:
 def steps_of(result: dict):
     """A case's results as a list of loading steps (one for most kinds)."""
     return result["steps"] if "steps" in result else [result]
+
+
+# each kind's gate against the serial (or the JAX package's) result: the
+# worst field difference and its limit (of each field's max; DYREL's
+# absolute, as tests/test_distributed_dyrel.py holds it, since its sums
+# reorder; the particles' rows absolute, with equal occupancy), and err's
+# relative limit
+FIELD_TOL, ERR_RTOL = 1e-12, 1e-6
+DYREL_ATOL, DYREL_ERR_RTOL = 1e-12, 1e-10
+PARTICLE_TOL = 1e-13
+
+
+def case_gate(case: Case, sharded: dict, ref: dict):
+    """(worst difference over every step, its limit, iterations equal, err
+    within its limit) of a sharded result against a global one (the serial
+    solve's or the JAX package's); a missing step fails."""
+    worst, iters_ok, err_ok = 0.0, True, True
+    a_steps, b_steps = steps_of(sharded), steps_of(ref)
+    iters_ok = len(a_steps) == len(b_steps)
+    tol, rtol = FIELD_TOL, ERR_RTOL
+    for a, b in zip(a_steps, b_steps):
+        if case.kind in ("particles", "particles3d"):
+            d = particle_diffs(a, b)
+            w, tol = (d["rows"] if d["count"] == 0 else math.inf), PARTICLE_TOL
+        elif case.kind == "dyrel":
+            tol, rtol = DYREL_ATOL, DYREL_ERR_RTOL
+            w = max(float(np.abs(np.asarray(a[k]) - v).max(initial=0.0))
+                    for k, v in b.items() if k not in ("err", "iters", "seconds"))
+        else:
+            w = max(field_diffs(case, a, b).values())
+        worst = max(worst, w)
+        iters_ok &= a["iters"] == b["iters"]
+        err_ok &= abs(a["err"] - b["err"]) <= rtol * abs(b["err"])
+    return worst, tol, iters_ok, err_ok
 
 
 # ---- the halo checks (the CPU tests) ------------------------------------------
@@ -565,8 +1079,70 @@ def run_halo(group_of_three) -> dict:
     return out
 
 
+MOVES_MESHES = ((2, 2, 1), (1, 2, 2))
+# cases also run through a staged mesh on the CPU ranks (their batches mix
+# float64 slabs with uint8 ones)
+STAGED_CASES = ("particles_2x2", "particles3d_xy")
+MOVE_FAMILIES = {"yz": (1, 2), "xz": (0, 2), "xy": (0, 1)}
+MOVE_EXTRAS = {"yz": (0, 1, 1), "xz": (1, 0, 1), "xy": (1, 1, 0)}
+
+
+def moves_inputs(n: int = 8) -> dict:
+    """tests/test_distributed_vep3d.py's random fields of the moves check: a
+    positive center field and one array per shear-edge family."""
+    rng = np.random.default_rng(11)
+    ni = (n, n, n)
+    C = rng.normal(size=ni) + 3.0  # positive for the harmonic move
+    E = {name: rng.normal(size=tuple(m + e for m, e in zip(ni, MOVE_EXTRAS[name])))
+         for name in ("yz", "xz", "xy")}
+    return dict(n=n, C=C, E=E)
+
+
+def run_moves() -> dict:
+    """Every halo-aware move of ``parallel/stokes3d_vep.py`` on this rank's
+    tiles, one at a time (``distributed_moves``) and prefetched
+    (``HaloMoves.prefetch``), on the meshes ``MOVES_MESHES``: the results
+    gathered into the blocked layout, keyed by (mesh, route, move, source,
+    destination)."""
+    from justrelax_tpu_torch.parallel.stokes3d_vep import HaloMoves, distributed_moves
+
+    d = moves_inputs()
+    n = d["n"]
+    out = {}
+    for shape in MOVES_MESHES:
+        mesh = make_grid_mesh(shape, device="cpu")
+        nl = tuple(n // p for p in shape)
+
+        def tile(A, extra):
+            return torch.as_tensor(mesh.tile(block_staggered_nd(A, nl, shape, extra))).clone()
+
+        C = tile(d["C"], (0, 0, 0))
+        E = {k: tile(v, MOVE_EXTRAS[k]) for k, v in d["E"].items()}
+        with mesh:
+            edges = tuple(halo.axis_edges(a) for a in ("x", "y", "z"))
+            one = distributed_moves(edges)
+            hm = HaloMoves(edges)
+            hm.prefetch(centers=(C,), harmonic=(C,), shear=tuple(E.items()))
+            for route, m in (("one", one), ("prefetched", hm.moves)):
+                for name, (a, b) in MOVE_FAMILIES.items():
+                    out[(shape, route, "center", name)] = multihost.gather_blocked(
+                        m.center_to_edge(C, a, b))
+                    out[(shape, route, "harm", name)] = multihost.gather_blocked(
+                        m.harm_center_to_edge(C, a, b))
+                for src in MOVE_FAMILIES:
+                    for dst in MOVE_FAMILIES:
+                        if src != dst:
+                            out[(shape, route, src, dst)] = multihost.gather_blocked(
+                                m.other_to_edge(src, dst, E[src]))
+    return out
+
+
 # ---- the rank program ---------------------------------------------------------------
 CARD_MESHES = ((2, 2), (2, 2, 1))
+# the kinds whose card cases the four ranks also run on the CPU (the later
+# kinds' CPU runs are the CPU tests': their twins here would only crowd the
+# host beside phase 28)
+CPU_TWIN_KINDS = ("ve", "thermal", "thermal3d", "vep", "variational")
 
 
 def kernel_counters():
@@ -634,12 +1210,16 @@ def run_suite(suite: str, size: str = "test", go: Optional[str] = None) -> dict:
       matching cases of :func:`suite_cases`;
     - ``multihost``: SolCx on :func:`multihost.make_multihost_grid_mesh`
       (hosts along x; local_shape (1, 2));
-    - ``card``: the cases of ``solves`` on a 2×2 mesh (``CARD_MESHES``) on
-      the card and on the CPU, the multihost layout, the serial solve of
-      every set-up on both (rank 0, ``serial``), then ``production`` (see
-      :func:`production_vep`) once the file ``go`` exists, so that it has
-      the card to itself. The ranks wait for the card by blocking until
-      then, and as CUDA does by default in the production;
+    - ``card``: the cases of ``solves`` on the meshes ``CARD_MESHES`` on
+      the card (and on the CPU, ``CPU_TWIN_KINDS``), the multihost layout, the serial solve of
+      every set-up on both (rank 0, ``serial``), then the production cells
+      (:func:`production_vep`, :func:`production_vep3d`,
+      :func:`production_dyrel`, :func:`production_particles`) once the file
+      ``go`` exists, so that they have the card to themselves. The ranks
+      wait for the card by blocking until then, and as CUDA does by default
+      in the productions;
+    - ``one`` (a world of one rank): every set-up's first case on a mesh of
+      ones, then the 2D and 3D VEP productions on it once ``go`` exists;
     - ``probe``: nothing past ``initialize``'s first ``all_reduce``.
 
     Every suite but ``probe`` also returns ``launches``: each kernel
@@ -652,13 +1232,19 @@ def run_suite(suite: str, size: str = "test", go: Optional[str] = None) -> dict:
     device = multihost.rank_device()
     set_kernel_counts({})
     out = {}
-    if suite == "card" and device.type == "cuda":
+    if suite in ("card", "one") and device.type == "cuda":
         torch.zeros(1, device=device)  # the context exists and is current
         out["blocking_wait"] = wait_by_blocking(True)
     if suite == "halo":
         out.update(run_halo(dist.new_group([0, 1, 2])))
+    if suite == "vep3d":
+        out["moves"] = run_moves()
+    if suite == "particles":
+        out["faces"] = run_face_particles(device)
     kinds = {"solves": None, "card": None, "ve": ("ve",), "thermal": ("thermal", "thermal3d"),
-             "vep": ("vep",), "variational": ("variational",)}
+             "vep": ("vep",), "variational": ("variational",), "ve3d": ("ve3d",),
+             "vep3d": ("vep3d",), "dyrel": ("dyrel",), "particles": ("particles",),
+             "particles3d": ("particles3d",)}
     if suite in kinds:
         for label, case in suite_cases(size).items():
             if kinds[suite] is not None and case.kind not in kinds[suite]:
@@ -666,9 +1252,24 @@ def run_suite(suite: str, size: str = "test", go: Optional[str] = None) -> dict:
             if suite == "card" and case.mesh not in CARD_MESHES:
                 continue
             out[label] = sharded_solve(case, make_grid_mesh(case.mesh, device=device))
-            if suite == "card":
+            if suite in ("particles", "particles3d") and label in STAGED_CASES:
+                # every batch staged through a byte buffer, as on the card
+                staged = dataclasses.replace(make_grid_mesh(case.mesh, device=device),
+                                             staged=True)
+                out[label + "@staged"] = sharded_solve(case, staged)
+            if suite == "card" and case.kind in CPU_TWIN_KINDS:
                 out[label + "@cpu"] = sharded_solve(case, make_grid_mesh(case.mesh,
                                                                          device="cpu"))
+    if suite == "one":
+        for label, case in setups(suite_cases(size)).items():
+            one = dataclasses.replace(case, mesh=(1,) * len(case.mesh))
+            out[label] = sharded_solve(one, make_grid_mesh(one.mesh, device=device))
+        _wait_for(go)
+        if device.type == "cuda":
+            out["default_wait_in_production"] = wait_by_blocking(False)
+        out["production"] = production_vep(make_grid_mesh((1, 1), device=device), size)
+        out["production_vep3d"] = production_vep3d(make_grid_mesh((1, 1, 1), device=device),
+                                                   size)
     if suite in ("multihost", "card"):
         case = suite_cases(size)["ve_solcx"]
         mesh = multihost.make_multihost_grid_mesh(ndim=2, local_shape=(1, 2), device=device)
@@ -685,6 +1286,11 @@ def run_suite(suite: str, size: str = "test", go: Optional[str] = None) -> dict:
         if device.type == "cuda":
             out["default_wait_in_production"] = wait_by_blocking(False)
         out["production"] = production_vep(make_grid_mesh((2, 2), device=device), size)
+        out["production_vep3d"] = production_vep3d(make_grid_mesh((2, 2, 1), device=device),
+                                                   size)
+        out["production_dyrel"] = production_dyrel(make_grid_mesh((2, 2), device=device), size)
+        out["production_particles"] = production_particles(
+            make_grid_mesh((2, 2), device=device), size)
     per_rank = [None] * dist.get_world_size()
     dist.all_gather_object(per_rank, kernel_counts())
     out["launches"] = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
@@ -702,7 +1308,7 @@ def world(suite: str, size: str = "test", go: Optional[str] = None, nranks: int 
 
 # the production cell: the flagship's grid at the card's size, a small one
 # for a rehearsal on the CPU
-PRODUCTION = {"card": dict(n=1024, iters=1_000), "test": dict(n=32, iters=100)}
+PRODUCTION = {"card": dict(n=1024, iters=500), "test": dict(n=32, iters=100)}
 
 
 def production_setup(device, n, dtype=torch.float32):
@@ -746,7 +1352,7 @@ def production_serial(dev, size: str = "card") -> dict:
 
 def production_vep(mesh, size: str = "card") -> dict:
     """The flagship's 1024² f32 VEP solve, sharded over ``mesh``, for a
-    fixed 1 000 iterations (one chunk): ms per iteration, the part of it
+    fixed 500 iterations (one chunk): ms per iteration, the part of it
     spent in the halo functions (CUDA events around each,
     ``halo.timed_exchanges``), the halo bytes this rank sent per iteration
     and its tile's bytes, and the gathered P."""
@@ -792,3 +1398,290 @@ def production_vep(mesh, size: str = "card") -> dict:
                 halo_batches_per_iter=halo.exchanges / int(res.iters),
                 center_tile_bytes=int(blocks["P"].numel()) * 4,
                 state_tile_bytes=tile_bytes, finite=finite)
+
+
+# the production cells of this slice: the 3D VEP band, the DYREL band and a
+# particle step, each at the card's size, a small one for a rehearsal
+PRODUCTION_VEP3D = {"card": dict(n=126, iters=100), "test": dict(n=16, iters=10)}
+PRODUCTION_DYREL = {"card": dict(n=1024, iters=200, nout=50),
+                    "test": dict(n=32, iters=40, nout=20)}
+PRODUCTION_PARTICLES = {"card": dict(n=1024, nxcell=40, max_xcell=80, min_xcell=20),
+                        "test": dict(n=32, nxcell=8, max_xcell=16, min_xcell=4)}
+
+
+def _timed_sharded(mesh, fn, iters_of):
+    """``fn()`` after one warm-up call of ``fn(warm=True)``, timed on the
+    host around a synchronize, with CUDA events around each halo function
+    (``halo.timed_exchanges``) and the halo counters from 0: (result, dict
+    of ms per iteration, the halo's part, bytes and batches this rank sent
+    per iteration; ``iters_of(result)`` counts the iterations)."""
+    dev = mesh.device
+    fn(warm=True)
+    _sync(dev)
+    halo.reset_counters()
+    with halo.timed_exchanges() as spans:
+        t0 = time.perf_counter()
+        res = fn(warm=False)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    exchange_ms = sum(a.elapsed_time(b) for a, b in spans)
+    iters = iters_of(res)
+    return res, dict(mesh=list(mesh.shape), iters=iters, wall_s=wall,
+                     ms_per_iter=wall * 1e3 / iters, exchange_ms_per_iter=exchange_ms / iters,
+                     exchange_spans=len(spans), halo_bytes_per_iter=halo.bytes_sent / iters,
+                     halo_batches_per_iter=halo.exchanges / iters)
+
+
+def production_vep3d_setup(device, n):
+    """ShearBand3D (``models/shearband3d.py``) at ``n``³ f32, with
+    ``eps_rel = eps_abs = 0`` so the iterations are fixed."""
+    from justrelax_tpu_torch.models import shearband3d
+
+    g, st, mat, (pr_c, pr_e), bc, _, dt = shearband3d._setup(n, torch.float32, device)
+    pt = PTStokesCoeffs.make(g.li, g.di, CFL=0.75 / math.sqrt(3.1), eps_rel=0.0, eps_abs=0.0)
+    return g, st, mat, pr_c, pr_e, bc, pt, dt
+
+
+def production_vep3d_serial(dev, size: str = "card") -> dict:
+    """The same solve through the serial plain ``solve_vep_3d`` on ``dev``:
+    ms per iteration."""
+    from justrelax_tpu_torch.solvers.stokes3d_vep import solve_vep_3d
+
+    n, iters = PRODUCTION_VEP3D[size]["n"], PRODUCTION_VEP3D[size]["iters"]
+    g, st, mat, pr_c, pr_e, bc, pt, dt = production_vep3d_setup(dev, n)
+    kw = dict(iter_min=0, viscosity_relaxation=1.0, use_kernel=False)
+    solve_vep_3d(st, pt, g, bc, mat, pr_c, pr_e, dt, iter_max=2, nout=2, **kw)
+    _sync(dev)
+    t0 = time.perf_counter()
+    s, info = solve_vep_3d(st, pt, g, bc, mat, pr_c, pr_e, dt, iter_max=iters, nout=iters, **kw)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    return dict(P=s.P.cpu().numpy(), n=n, iters=int(info.iters), err=float(info.err),
+                wall_s=wall, ms_per_iter=wall * 1e3 / int(info.iters))
+
+
+def production_vep3d(mesh, size: str = "card") -> dict:
+    """ShearBand3D's 126³ f32 VEP solve sharded over ``mesh`` (2×2×1 tiles
+    on four ranks, or the world of one), fixed iterations (one chunk): ms
+    per iteration, its halo part, halo bytes and batches per iteration
+    against the tile's bytes, and the gathered P."""
+    from justrelax_tpu_torch.parallel.stokes3d_vep import solve_vep_sharded_3d
+
+    n, iters = PRODUCTION_VEP3D[size]["n"], PRODUCTION_VEP3D[size]["iters"]
+    dev = mesh.device
+    g, st, mat, pr_c, pr_e, bc, pt, dt = production_vep3d_setup(dev, n)
+    dec = Decomp3D.make((n, n, n), mesh.shape)
+    nl = dec.ni_local
+    t, to = st.tau, st.tau_o
+    glob = dict(Vx=st.V.Vx, Vy=st.V.Vy, Vz=st.V.Vz, P=st.P, Q=st.Q, EII_pl=st.EII_pl,
+                eta=st.viscosity.eta)
+    for k in ("xx", "yy", "zz", "yz_c", "xz_c", "xy_c", "yz", "xz", "xy"):
+        glob["t" + k], glob["t" + k + "_o"] = getattr(t, k), getattr(to, k)
+    blocks = {k: multihost.blocks_from_global(mesh, block_staggered_nd(
+        v.cpu().numpy(), nl, mesh.shape, EXTRAS_3D.get(k, (0, 0, 0))), torch.float32)
+        for k, v in glob.items()}
+    for k, A, ex in (("pr_c", pr_c, (0, 0, 0)), ("pr_yz", pr_e[0], (0, 1, 1)),
+                     ("pr_xz", pr_e[1], (1, 0, 1)), ("pr_xy", pr_e[2], (1, 1, 0))):
+        a = A.cpu().numpy()
+        blocks[k] = multihost.blocks_from_global(mesh, block_staggered_nd(
+            a, nl + (a.shape[-1],), mesh.shape + (1,), ex + (0,)), torch.float32)
+    blocks.update(inv_dx=1.0 / g.di[0], inv_dy=1.0 / g.di[1], inv_dz=1.0 / g.di[2])
+
+    def run(warm):
+        it = 2 if warm else iters
+        return solve_vep_sharded_3d(mesh, dec, blocks, pt, bc, mat, dt, iter_max=it,
+                                    iter_min=0, nout=it, viscosity_relaxation=1.0)
+
+    res, out = _timed_sharded(mesh, run, lambda r: int(r.iters))
+    finite = all(bool(torch.isfinite(getattr(res, k)).all())
+                 for k in ("Vx", "Vy", "Vz", "P", "txx", "tau_II"))
+    tile_bytes = sum(int(blocks[k].numel()) * 4 for k in (
+        "Vx", "Vy", "Vz", "P", "txx", "tyy", "tzz", "tyz_c", "txz_c", "txy_c", "tyz", "txz",
+        "txy", "eta"))
+    out.update(P=multihost.gather_blocked(res.P, mesh), n=n, tile=list(blocks["P"].shape),
+               err=float(res.err), finite=finite, center_tile_bytes=int(blocks["P"].numel()) * 4,
+               state_tile_bytes=tile_bytes)
+    return out
+
+
+def production_dyrel_setup(device, n):
+    """shearband-dyrel's set-up (``models/shearband_dyrel.py``) at ``n``² f32:
+    (geometry, material, pr_c, pr_v, stokes, bc, dt)."""
+    from justrelax_tpu_torch.models import shearband_dyrel
+
+    common = dict(rho0=0.0, Kb=5.0, eta0=1.0, is_plastic=1.0,
+                  C=1.6 / math.cos(math.radians(30.0)), friction_angle=30.0,
+                  dilation_angle=0.0, eta_reg=1.0e-2)
+    g, mat, pr_c, pr_v, st, bc = shearband_dyrel._setup(n, common, 1.0, True, torch.float32,
+                                                        device)
+    return g, mat, pr_c, pr_v, st, bc, 0.25
+
+
+def _dyrel_kw(size):
+    """The production's keywords: ``iters`` DR iterations in one inner solve
+    (``iter_max`` caps the inner solve, ``total_iter_max`` the call)."""
+    p = PRODUCTION_DYREL[size]
+    return dict(eps=1.0e-6, nout=p["nout"], rel_drop=0.5, iter_max=p["iters"],
+                total_iter_max=p["iters"])
+
+
+def _warm_kw(kw):
+    """One DR chunk: the warm-up, whose result no reduction has touched yet
+    (the damping is first estimated after it)."""
+    return dict(kw, iter_max=kw["nout"], total_iter_max=kw["nout"])
+
+
+def dyrel_residual_norms(s) -> list:
+    """‖Rx‖, ‖Ry‖ (preconditioned) and ‖RP‖ of a DYREL state, in float64."""
+    return [float(np.linalg.norm(a.detach().cpu().double().numpy()))
+            for a in (s.R.Rx, s.R.Ry, s.R.RP)]
+
+
+def production_dyrel_serial(dev, size: str = "card") -> dict:
+    """The same solve through the serial ``solve_dyrel`` on ``dev`` (its
+    graphed chunk on the card): ms per DR iteration, P after the first chunk
+    (the warm-up) and at the end, the final residual norms."""
+    from justrelax_tpu_torch.solvers.dyrel import solve_dyrel
+
+    n = PRODUCTION_DYREL[size]["n"]
+    g, mat, pr_c, pr_v, st, bc, dt = production_dyrel_setup(dev, n)
+    kw = _dyrel_kw(size)
+    warm, _ = solve_dyrel(st, g, bc, mat, pr_c, pr_v, dt, **_warm_kw(kw))
+    _sync(dev)
+    t0 = time.perf_counter()
+    s, info = solve_dyrel(st, g, bc, mat, pr_c, pr_v, dt, **kw)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    return dict(P=s.P.cpu().numpy(), P_first_chunk=warm.P.cpu().numpy(), n=n,
+                iters=int(info.iters), err=float(info.err), wall_s=wall,
+                ms_per_iter=wall * 1e3 / int(info.iters), residual_norms=dyrel_residual_norms(s))
+
+
+def production_dyrel(mesh, size: str = "card") -> dict:
+    """shearband-dyrel's 1024² f32 solve sharded over ``mesh`` (2×2), 200
+    DR iterations (``total_iter_max``): ms per DR iteration, its halo part,
+    halo bytes and batches per iteration, and the gathered P."""
+    from justrelax_tpu_torch.parallel.dyrel import solve_dyrel_sharded
+
+    n = PRODUCTION_DYREL[size]["n"]
+    dev = mesh.device
+    g, mat, pr_c, pr_v, st, bc, dt = production_dyrel_setup(dev, n)
+    kw = _dyrel_kw(size)
+
+    first = {}
+
+    def run(warm):
+        s, info = solve_dyrel_sharded(mesh, st, g, bc, mat, pr_c, pr_v, dt,
+                                      **(_warm_kw(kw) if warm else kw))
+        if warm:
+            first["P"] = s.P.cpu().numpy()
+        return s, info
+
+    (s, info), out = _timed_sharded(mesh, run, lambda r: int(r[1].iters))
+    out.update(P=s.P.cpu().numpy(), P_first_chunk=first["P"], n=n, err=float(info.err),
+               residual_norms=dyrel_residual_norms(s),
+               finite=all(bool(torch.isfinite(a).all()) for a in (s.P, s.V.Vx, s.V.Vy,
+                                                                  s.tau.xx, s.tau.II)))
+    return out
+
+
+def production_particles_tile(size, coords, dtype=torch.float32, device="cpu"):
+    """The production's particles of the tile at mesh ``coords`` of a 2×2
+    mesh, block-relative (each tile its own seed, so a rank makes only its
+    own), and the tile's block origin."""
+    from justrelax_tpu_torch.particles.particles import init_particles
+
+    p = PRODUCTION_PARTICLES[size]
+    nl = p["n"] // 2
+    dx = 1.0 / p["n"]
+    g = Geometry((nl, nl), (nl * dx, nl * dx))
+    parts = init_particles(g, p["nxcell"], p["max_xcell"], p["min_xcell"],
+                           seed=100 + 2 * coords[0] + coords[1], dtype=dtype, device=device)
+    return parts, (coords[0] * nl * dx, coords[1] * nl * dx)
+
+
+def production_particles_velocity(size):
+    """A random velocity field at CFL 0.45 on the production grid (numpy)
+    and its dt."""
+    n = PRODUCTION_PARTICLES[size]["n"]
+    rng = np.random.default_rng(9)
+    V = [rng.normal(size=(n + 1, n + 2)), rng.normal(size=(n + 2, n + 1))]
+    return V, 0.45 / n / max(float(np.abs(v).max()) for v in V)
+
+
+def production_particles_serial(dev, size: str = "card") -> dict:
+    """One serial advect + move step of the production's particles (the four
+    tiles put together, positions global) on ``dev``: seconds, and the
+    per-cell occupancy."""
+    from justrelax_tpu_torch.particles.particles import advect_rk2, move_particles
+
+    n = PRODUCTION_PARTICLES[size]["n"]
+    g = Geometry((n, n), (1.0, 1.0))
+    tiles = [[production_particles_tile(size, (rx, ry), device=dev) for ry in range(2)]
+             for rx in range(2)]
+
+    def glue(name, shift):
+        rows = []
+        for rx in range(2):
+            cols = []
+            for ry in range(2):
+                p, o = tiles[rx][ry]
+                A = getattr(p, name)
+                cols.append(A + o[shift] if shift is not None else A)
+            rows.append(torch.cat(cols, dim=1))
+        return torch.cat(rows, dim=0)
+
+    p0 = tiles[0][0][0]
+    parts = p0.replace(px=glue("px", 0), py=glue("py", 1), active=glue("active", None))
+    phase = (torch.arange(parts.px.numel(), device=dev) % 3).to(torch.float32).reshape(
+        parts.px.shape)
+    V, dt = production_particles_velocity(size)
+    V = tuple(torch.as_tensor(v, dtype=torch.float32, device=dev) for v in V)
+    n_active = int(parts.active.sum())
+
+    def step():
+        q = advect_rk2(parts, V, g, dt)
+        return move_particles(q, g, {"phase": phase})
+
+    step()
+    _sync(dev)
+    t0 = time.perf_counter()
+    q, _ = step()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    return dict(count=q.count().cpu().numpy(), n=n, slots=int(parts.px.numel()),
+                active_before=n_active, wall_s=wall, ms_per_step=wall * 1e3)
+
+
+def production_particles(mesh, size: str = "card") -> dict:
+    """One advect + move step of the production's particles sharded over a
+    2×2 ``mesh``: ms per step, its halo part, halo bytes and batches, and
+    the gathered per-cell occupancy."""
+    from justrelax_tpu_torch.parallel.particles import advect_move_local
+
+    n = PRODUCTION_PARTICLES[size]["n"]
+    dev = mesh.device
+    dec = Decomp2D.make((n, n), mesh.shape)
+    parts, _ = production_particles_tile(size, mesh.coords, device=dev)
+    nl = dec.ni_local
+    # the tile's phases as the glued set numbers them
+    gx = torch.arange(nl[0], device=dev)[:, None, None] + mesh.coords[0] * nl[0]
+    gy = torch.arange(nl[1], device=dev)[None, :, None] + mesh.coords[1] * nl[1]
+    m = parts.px.shape[-1]
+    k = torch.arange(m, device=dev)[None, None, :]
+    phase = (((gx * n + gy) * m + k) % 3).to(torch.float32)
+    V, dt = production_particles_velocity(size)
+    V = [multihost.blocks_from_global(mesh, block_staggered(v, dec, ex), torch.float32)
+         for v, ex in zip(V, ((1, 2), (2, 1)))]
+    g = Geometry((n, n), (1.0, 1.0))
+
+    def run(warm):
+        with mesh:
+            return advect_move_local(parts, {"phase": phase}, *V, dec, g.di, dt)
+
+    (q, _), out = _timed_sharded(mesh, run, lambda r: 1)
+    count = multihost.gather_blocked(q.count().to(torch.int32), mesh)
+    out.update(count=count, n=n, tile=list(parts.px.shape),
+               slots=int(parts.px.numel()) * mesh.size,
+               slot_tile_bytes=int(parts.px.numel()) * (4 * 3 + 1))
+    return out

@@ -36,6 +36,7 @@ and how many batches it posted; ``reset_counters()`` sets both to 0.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -54,12 +55,15 @@ __all__ = [
     "post_exchange_ghosts",
     "extend_many",
     "extend2_many",
+    "extend_axes_many",
+    "swap_many",
     "psum",
     "reset_counters",
     "timed_exchanges",
 ]
 
 _AXES = ("x", "y", "z")
+_ALIGN = 16  # bytes: each slab's offset in a staging buffer
 
 bytes_sent = 0  # bytes this rank has sent to its neighbours
 exchanges = 0  # batches of sends and receives this rank has posted
@@ -121,6 +125,13 @@ def axis_edges(mesh_axis: str, mesh: Optional[GridMesh] = None):
     return is_first(mesh_axis, mesh), is_last(mesh_axis, mesh)
 
 
+def _from_bytes(flat, offset, shape, dtype):
+    """The slab of ``shape`` and ``dtype`` packed at byte ``offset`` of
+    ``flat``."""
+    n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return flat[offset:offset + n].view(dtype).view(shape)
+
+
 class Pending:
     """A posted batch of sends and receives; :meth:`wait` returns the
     received slabs in the order they were asked for (``None`` where no
@@ -138,8 +149,22 @@ class Pending:
                 return list(self._recvs)
             # staged: every slab of the batch crosses to the card in one copy
             flat = self._flat.to(self._device)
-            return [flat[r[0]:r[0] + r[1].numel()].view(r[1]) if isinstance(r, tuple) else r
-                    for r in self._recvs]
+            return [_from_bytes(flat, *r) if isinstance(r, tuple) else r for r in self._recvs]
+
+
+def _staged_layout(tensors):
+    """Byte offsets of ``tensors`` packed one after another in one staging
+    buffer, each aligned to 16 bytes (so that every slab views back into
+    its dtype), and the buffer's length."""
+    offsets, o = [], 0
+    for t in tensors:
+        offsets.append(o)
+        o += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
+    return offsets, o
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
 
 
 def _post(mesh: GridMesh, sends: Sequence, recvs: Sequence) -> Pending:
@@ -148,37 +173,39 @@ def _post(mesh: GridMesh, sends: Sequence, recvs: Sequence) -> Pending:
     (its receive gives ``None``). A send to this rank itself (a cyclic axis
     of size 1) is a local copy that the receive with its tag takes. On a
     staged mesh the batch's send slabs cross to the host in one copy and its
-    received slabs back in one."""
+    received slabs back in one; the slabs travel as bytes, so a batch may
+    mix dtypes."""
     global bytes_sent, exchanges
     live = [(peer, t.contiguous(), tag) for peer, t, tag in sends if peer is not None]
     local = {tag: t.clone() for peer, t, tag in live if peer == mesh.rank}
     live = [x for x in live if x[0] != mesh.rank]
+    bytes_sent += sum(t.numel() * t.element_size() for _, t, _ in live)
     if mesh.staged and live:
-        if len({t.dtype for _, t, _ in live}) > 1:
-            raise ValueError("a staged batch sends slabs of one dtype")
-        host = torch.cat([t.reshape(-1) for _, t, _ in live]).cpu()
-        offsets = [0]
-        for _, t, _ in live:
-            offsets.append(offsets[-1] + t.numel())
-        live = [(peer, host[o:o + t.numel()].view(t.shape), tag)
+        offsets, n = _staged_layout([t for _, t, _ in live])
+        dev = live[0][1].device
+        buf = torch.zeros(n, dtype=torch.uint8, device=dev)
+        for (_, t, _), o in zip(live, offsets):
+            b = _as_bytes(t)
+            buf[o:o + b.numel()] = b
+        host = buf.cpu()
+        live = [(peer, host[o:o + t.numel() * t.element_size()], tag)
                 for (peer, t, tag), o in zip(live, offsets)]
     ops = [dist.P2POp(dist.isend, t, peer, mesh.group, tag) for peer, t, tag in live]
-    bytes_sent += sum(t.numel() * t.element_size() for _, t, _ in live)
-    remote = [(peer, like, tag) for peer, like, tag in recvs
-              if peer is not None and peer != mesh.rank]
+    remote = [like for peer, like, tag in recvs if peer is not None and peer != mesh.rank]
     flat = None
     if mesh.staged and remote:
-        n = sum(like.numel() for _, like, _ in remote)
-        flat = torch.empty(n, dtype=remote[0][1].dtype)
-    out, o = [], 0
+        offsets, n = _staged_layout(remote)
+        flat = torch.empty(n, dtype=torch.uint8)
+        offsets = iter(offsets)
+    out = []
     for peer, like, tag in recvs:
         if peer is None or peer == mesh.rank:
             out.append(None if peer is None else local[tag])
             continue
         if flat is not None:
-            buf = flat[o:o + like.numel()].view(like.shape)
-            out.append((o, like.shape))
-            o += like.numel()
+            o = next(offsets)
+            buf = flat[o:o + like.numel() * like.element_size()]
+            out.append((o, like.shape, like.dtype))
         else:
             buf = torch.empty(like.shape, dtype=like.dtype, device=like.device)
             out.append(buf)
@@ -208,6 +235,17 @@ def _swap_many(mesh: GridMesh, items) -> Pending:
 
 def _pairs(flat):
     return [(flat[2 * k], flat[2 * k + 1]) for k in range(len(flat) // 2)]
+
+
+def swap_many(items, mesh: Optional[GridMesh] = None):
+    """For every ``(mesh_axis, to_prev, to_next)`` of ``items``, in one
+    batch: ``to_prev`` goes to the lower neighbour along ``mesh_axis`` and
+    ``to_next`` to the higher one. Returns, item after item, (what the lower
+    neighbour sent up, what the higher one sent down), ``None`` past a
+    physical edge."""
+    m = current_mesh(mesh)
+    with _span(items[0][1].device):
+        return _pairs(_swap_many(m, items).wait())
 
 
 def _shift(mesh: GridMesh, mesh_axis: str, x: torch.Tensor, step: int) -> torch.Tensor:
@@ -263,11 +301,25 @@ def extend(A: torch.Tensor, axis: int, halo: int = 1, mesh_axis: Optional[str] =
     return extend_many([(A, axis, halo, mesh_axis)], mesh)[0]
 
 
+def extend_axes_many(items, mesh: Optional[GridMesh] = None) -> List[torch.Tensor]:
+    """Every ``(A, axes, halo)`` of ``items`` extended along each axis of
+    ``axes`` in turn (``extend(extend(A, axes[0], h), axes[1], h)``…), one
+    batch per pass for all: pass k extends every item that has a k-th axis,
+    so a corner ghost comes from the diagonal neighbour through the earlier
+    pass."""
+    out = [A for A, _, _ in items]
+    for k in range(max((len(axes) for _, axes, _ in items), default=0)):
+        live = [i for i, (_, axes, _) in enumerate(items) if k < len(axes)]
+        got = extend_many([(out[i], items[i][1][k], items[i][2]) for i in live], mesh)
+        for i, E in zip(live, got):
+            out[i] = E
+    return out
+
+
 def extend2_many(items, mesh: Optional[GridMesh] = None) -> List[torch.Tensor]:
     """Every ``(A, halo)`` of ``items`` extended along x, then the results
     along y (``extend(extend(A, 0, h), 1, h)``): two batches for all."""
-    xs = extend_many([(A, 0, h) for A, h in items], mesh)
-    return extend_many([(E, 1, h) for E, (_, h) in zip(xs, items)], mesh)
+    return extend_axes_many([(A, (0, 1), h) for A, h in items], mesh)
 
 
 def _ghost_sources(A, axis, n_owned):

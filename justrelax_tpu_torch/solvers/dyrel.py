@@ -68,14 +68,20 @@ def _clamped_av(A):
 
 
 # --- penalty / preconditioner ----------------------------------------------
-def compute_bulk_viscosity_and_penalty(material, pr_center, eta, gfact, dt):
+def compute_bulk_viscosity_and_penalty(material, pr_center, eta, gfact, dt, sums=None):
     """(Kb·dt, γ_eff) per cell: γ_num = gfact·η (∞ cells take the mean of
     the finite ones), γ_phy = Kb·dt (γ_num where that is ∞), γ_eff their
-    harmonic composition."""
+    harmonic composition. ``sums`` (the distributed layer's reduction, see
+    :func:`solve_dyrel`) takes the mean over every rank's cells."""
     Kbdt = get_bulk_modulus(material, pr_center, like=eta) * dt
     inf = torch.isinf(eta)
-    eta_mean = torch.mean(torch.where(inf, 0.0, eta)) / torch.mean(
-        torch.where(inf, 0.0, 1.0).to(eta.dtype))
+    if sums is None:
+        eta_mean = torch.mean(torch.where(inf, 0.0, eta)) / torch.mean(
+            torch.where(inf, 0.0, 1.0).to(eta.dtype))
+    else:
+        total, finite = sums([torch.where(inf, 0.0, eta),
+                              torch.where(inf, 0.0, 1.0).to(eta.dtype)])
+        eta_mean = total / finite
     eta_local = torch.where(inf, eta_mean, eta)
     gamma_num = gfact * eta_local
     gamma_phy = torch.where(torch.isinf(Kbdt), gamma_num, Kbdt)
@@ -367,13 +373,15 @@ class _DyrelSolve(GraphedChunk):
     inner solve (updated in place by :meth:`iteration`; a chunk of them
     replayed as CUDA graphs on the card, ``solvers/graphed_chunk.py``), the
     tuning fields, and the constants of the call and of the current inner
-    solve."""
+    solve. With a ``halo`` hook (see :func:`solve_dyrel`) the chunk runs
+    eagerly on every device, and capturing it raises."""
 
     def __init__(self, stokes, geometry, flow_bc, material, pr_center, pr_vertex, dt,
                  rho_g, gfact, lambda_relax, linear_viscosity, viscosity_relaxation,
-                 viscosity_cutoff, T, alpha_dT):
+                 viscosity_cutoff, T, alpha_dT, halo=None):
         nx, ny = stokes.P.shape
         dtype = stokes.P.dtype
+        self.halo = halo
         self.flow_bc, self.dt = flow_bc, dt
         self.material, self.pr_center, self.pr_vertex = material, pr_center, pr_vertex
         self.lambda_relax, self.linear = lambda_relax, linear_viscosity
@@ -385,8 +393,9 @@ class _DyrelSolve(GraphedChunk):
         inv_spacings = (geometry.inv_div_di + geometry.inv_flux_di
                         if isinstance(geometry, NonuniformGeometry) else None)
         self.gersh = _gershgorin_factors(geometry.di, inv_spacings, stokes.P)
-        self.v_dofs = ((nx - 2) * (ny - 1), (nx - 1) * (ny - 2))
-        self.p_dof = nx * ny
+        gx, gy = (nx, ny) if halo is None else halo.ni  # the norms' node counts
+        self.v_dofs = ((gx - 2) * (gy - 1), (gx - 1) * (gy - 2))
+        self.p_dof = gx * gy
 
         eta, eta_v = stokes.viscosity.eta, stokes.viscosity.eta_v
         self.P0, self.Q = stokes.P, stokes.Q
@@ -399,7 +408,7 @@ class _DyrelSolve(GraphedChunk):
         self.rho_x = 0.5 * (rho_gx[1:, :] + rho_gx[:-1, :])
         self.rho_y = 0.5 * (rho_gy[:, 1:] + rho_gy[:, :-1])
         self.etab, self.gamma_eff = compute_bulk_viscosity_and_penalty(
-            material, pr_center, eta, gfact, dt)
+            material, pr_center, eta, gfact, dt, sums=None if halo is None else halo.sums)
         Dx, Dy, lmx, lmy = _gershgorin(eta, eta_v, self.gamma_eff, pr_center, pr_vertex,
                                        material, dt, self.gersh)
         self.rp_src = self.Q / dt if alpha_dT is None else (self.Q + alpha_dT) / dt
@@ -550,6 +559,54 @@ class _DyrelSolve(GraphedChunk):
                 relaxation=self.viscosity_relaxation, cutoff=self.viscosity_cutoff)
             self.eta.copy_(eta_n)
             self.eta_v.copy_(eta_vn)
+        if self.halo is not None:
+            # the velocity halo: the overlap layers from the ranks that own
+            # them (the other carried fields are wrong only where nothing
+            # owned reads them before the next exchange)
+            self.halo.exchange([self.Vx, self.Vy])
+
+    def norms(self, R):
+        """‖R‖₂/√dofs of each of the momentum and pressure residuals ``R``
+        (Rx, Ry[, RP]); with a halo hook, over every rank's owned nodes (one
+        reduction)."""
+        dofs = self.v_dofs + (self.p_dof,)
+        if self.halo is None:
+            return [_norm(x) / math.sqrt(n) for x, n in zip(R, dofs)]
+        ss = self.halo.sums([x.square() for x in R])
+        return [ss[i].sqrt() / math.sqrt(n) for i, n in zip(range(len(R)), dofs)]
+
+    def chunk_sums(self):
+        """After a chunk: the preconditioned momentum norms and the Rayleigh
+        quotient's numerator and denominator of the chunk's last increments,
+        with the tuning that chunk ran with; with a halo hook, one
+        reduction."""
+        dtx, _, bx, dty, _, by = self.tun
+        dVx_full = self.dVx * bx * dtx
+        dVy_full = self.dVy * by * dty
+        if self.halo is None:
+            errVx = _norm(self.Dx_f * self.Rx) / math.sqrt(self.v_dofs[0])
+            errVy = _norm(self.Dy_f * self.Ry) / math.sqrt(self.v_dofs[1])
+            num = torch.sum(dVx_full * (self.Rx - self.Rx0)) + torch.sum(
+                dVy_full * (self.Ry - self.Ry0))
+            den = torch.sum(dVx_full**2) + torch.sum(dVy_full**2)
+            return errVx, errVy, num, den
+        ss = self.halo.sums([(self.Dx_f * self.Rx).square(), (self.Dy_f * self.Ry).square(),
+                             dVx_full * (self.Rx - self.Rx0), dVy_full * (self.Ry - self.Ry0),
+                             dVx_full**2, dVy_full**2])
+        return (ss[0].sqrt() / math.sqrt(self.v_dofs[0]),
+                ss[1].sqrt() / math.sqrt(self.v_dofs[1]), ss[2] + ss[3], ss[4] + ss[5])
+
+    def run_chunk(self, n):
+        if self.halo is None:
+            super().run_chunk(n)
+        else:  # a staged exchange holds a host copy: no graph can hold it
+            self.chunk(n)
+
+    def capture(self, n):
+        if self.halo is not None:
+            raise RuntimeError("the sharded DYREL route runs eagerly: its halo exchanges "
+                               "cannot be captured in a CUDA graph")
+        super().capture(n)
 
     def carried(self):
         return [self.Vx, self.Vy, self.lam, self.lam_v, self.dVx, self.dVy, self.Rx,
@@ -593,6 +650,7 @@ def solve_dyrel(
     viscosity_cutoff: Tuple[float, float] = (-_INF, _INF),
     T: Optional[torch.Tensor] = None,
     alpha_dT: Optional[torch.Tensor] = None,
+    halo=None,
 ):
     """DYREL solve; returns (stokes, :class:`StokesSolveInfo`) as the JAX
     package does (``iters`` the DR iterations of this call, ``err`` the last
@@ -606,12 +664,20 @@ def solve_dyrel(
     the card every chunk is a CUDA graph replay. On a ``NonuniformGeometry``
     the operators take its spacing families and the Gershgorin bound their
     per-face maximum. A bare ``Material`` is stacked once on the state's
-    device and in its dtype."""
+    device and in its dtype.
+
+    ``halo`` is the distributed layer's hook (``parallel/dyrel.py``): the
+    state is one rank's overlapping window of the global grid, ``halo.ni``
+    the global cell counts, ``halo.exchange(tensors)`` refreshes the overlap
+    of each tensor in place (after every DR iteration) and
+    ``halo.sums(tensors)`` gives each tensor's sum over the nodes the ranks
+    own (the norms, the Rayleigh quotient, the mean η). With it the chunk
+    runs eagerly on the card too. Without it the solve is the serial one."""
     material = _as_stack(material, stokes.P)
     dtype = stokes.P.dtype
     s = _DyrelSolve(stokes, geometry, flow_bc, material, pr_center, pr_vertex, dt, rho_g,
                     gfact, lambda_relax, linear_viscosity, viscosity_relaxation,
-                    viscosity_cutoff, T, alpha_dT)
+                    viscosity_cutoff, T, alpha_dT, halo)
     dev = stokes.P.device
 
     def scalar(v):
@@ -632,9 +698,7 @@ def solve_dyrel(
         exx, eyy, exy, RP = s.strain_RP(s.Vx, s.Vy, P)
         out_c, out_v = s.stress_pass(exx, eyy, exy, P, s.lam, s.lam_v, s.eta, s.eta_v)
         Rx, Ry = s.residual(P, out_c, out_v, out_c[DPPSI])
-        errVx = _norm(Rx) / math.sqrt(s.v_dofs[0])
-        errVy = _norm(Ry) / math.sqrt(s.v_dofs[1])
-        errPt = _norm(RP) / math.sqrt(s.p_dof)
+        errVx, errVy, errPt = s.norms((Rx, Ry, RP))
         if itPH == 0:
             errV0x, errV0y = errVx + tiny, errVy + tiny
         if itPH <= 1:
@@ -665,18 +729,12 @@ def solve_dyrel(
                     s.Dx_f.copy_(Dx2)
                     s.Dy_f.copy_(Dy2)
                     s.lmx, s.lmy = lmx2, lmy2
-                errVx_i = _norm(s.Dx_f * s.Rx) / math.sqrt(s.v_dofs[0])
-                errVy_i = _norm(s.Dy_f * s.Ry) / math.sqrt(s.v_dofs[1])
+                # the preconditioned norms, and the Rayleigh quotient of the
+                # chunk's last increments
+                errVx_i, errVy_i, num, den = s.chunk_sums()
                 if itg == 0:  # captured once per call
                     errV00x, errV00y = errVx_i, errVy_i
                 c_err = torch.maximum(errVx_i / errV00x, errVy_i / errV00y)
-                # Rayleigh quotient of the chunk's last increments, with the
-                # tuning that chunk ran with
-                dtx, _, bx, dty, _, by = s.tun
-                dVx_full = s.dVx * bx * dtx
-                dVy_full = s.dVy * by * dty
-                num = torch.sum(dVx_full * (s.Rx - s.Rx0)) + torch.sum(dVy_full * (s.Ry - s.Ry0))
-                den = torch.sum(dVx_full**2) + torch.sum(dVy_full**2)
                 lmin = torch.abs(num) / torch.where(den == 0, 1.0, den)
                 cV = 2.0 * torch.sqrt(lmin) * c_fact
                 s.set_tuning(cV, CFL)

@@ -93,6 +93,13 @@ def jax_sharded(case: dc.Case) -> dict:
                 Tg = unblock_staggered_nd(np.asarray(Tb), nl, case.mesh, (2, 2, 2))
         return dict(T=Tg, err=float(err), iters=int(iters))
 
+    if case.kind in ("ve3d", "vep3d"):
+        return _jax_sharded_3d(case, d, mesh)
+    if case.kind == "dyrel":
+        return _jax_dyrel(case, d, mesh)
+    if case.kind in ("particles", "particles3d"):
+        return _jax_particles(case, d, mesh)
+
     dec = Decomp2D.make((n, n), case.mesh)
     g = Geometry((n, n), (1.0, 1.0))
     if case.kind == "ve":
@@ -175,6 +182,166 @@ def jax_sharded(case: dc.Case) -> dict:
     return out
 
 
+def _jax_dyrel(case, d, mesh) -> dict:
+    """The DYREL case through ``justrelax_tpu/parallel/dyrel.py`` (GSPMD)."""
+    from justrelax_tpu.core.state import StokesState
+    from justrelax_tpu.parallel.dyrel import solve_dyrel_sharded
+    from justrelax_tpu.rheology.materials import Material, MaterialStack
+
+    n = case.n
+    g = Geometry((n, n), (1.0, 1.0))
+    tau_y, phi = 1.6, 30.0
+    common = dict(rho0=0.0, Kb=5.0, eta0=1.0, is_plastic=1.0,
+                  C=tau_y / math.cos(math.radians(phi)), friction_angle=phi, dilation_angle=0.0,
+                  eta_reg=1.0e-2)
+    mat = MaterialStack.make([Material(G=1.0, **common), Material(G=0.5, **common)])
+    st = StokesState.make((n, n))
+    st = st.replace(V=st.V.replace(Vx=_j(d["Vx"]), Vy=_j(d["Vy"])))
+    s, info = solve_dyrel_sharded(mesh, st, g, FS, mat, _j(d["pr_c"]), _j(d["pr_v"]), d["dt"],
+                                  **dc.DYREL_KW)
+    out = dict(P=s.P, Vx=s.V.Vx, Vy=s.V.Vy, txx=s.tau.xx, txy_v=s.tau.xy, tII=s.tau.II,
+               eta_vep=s.viscosity.eta_vep, EII_pl=s.EII_pl)
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out.update(err=float(info.err), iters=int(info.iters))
+    return out
+
+
+def _jax_particles(case, d, mesh) -> dict:
+    """The particle case through ``justrelax_tpu/parallel/particles.py`` or
+    ``particles3d.py`` under ``shard_map``, the steps in one ``fori_loop``
+    (tests/test_distributed_particles*.py)."""
+    from jax import lax
+    from jax.sharding import PartitionSpec as P
+
+    n, ndim = case.n, d["ndim"]
+    ni = (n,) * ndim
+    g = Geometry(ni, (1.0,) * ndim)
+    names = ("px", "py", "pz")[:ndim]
+    if ndim == 2:
+        from justrelax_tpu.parallel.particles import (
+            advect_move_local as step,
+            block_particles as block,
+            unblock_particles as unblock,
+        )
+        from justrelax_tpu.particles.particles import Particles as cls
+        dec = Decomp2D.make(ni, case.mesh)
+    else:
+        from justrelax_tpu.parallel.particles3d import (
+            advect_move_local_3d as step,
+            block_particles_3d as block,
+            unblock_particles_3d as unblock,
+        )
+        from justrelax_tpu.particles.particles3d import Particles3D as cls
+        dec = Decomp3D.make(ni, case.mesh)
+    nl = dec.ni_local
+    particles = cls(active=jnp.asarray(d["active"]), min_xcell=d["min_xcell"],
+                    nxcell=d["nxcell"], **{k: _j(d[k]) for k in names})
+    pb = block(particles, g, dec)
+    V = [_j(block_staggered_nd(np.asarray(v), nl, case.mesh,
+                               tuple(1 if b == a else 2 for b in range(ndim))))
+         for a, v in enumerate(d["V"])]
+
+    def local_steps(*args):
+        pos, active, ph, vel = args[:ndim], args[ndim], args[ndim + 1], args[ndim + 2:]
+
+        def body(_, c):
+            p_, ph_ = c
+            p2, f2 = step(p_, {"phase": ph_}, *vel, dec, g.di, d["dt"])
+            return (p2, f2["phase"])
+
+        p0 = cls(active=active, **dict(zip(names, pos)))
+        p, ph_out = lax.fori_loop(0, case.nt, body, (p0, ph))
+        return tuple(getattr(p, k) for k in names) + (p.active, ph_out)
+
+    spec = P(*("x", "y", "z")[:ndim])
+    fn = jax.shard_map(local_steps, mesh=mesh, in_specs=(spec,) * (2 * ndim + 2),
+                       out_specs=(spec,) * (ndim + 2), check_vma=False)
+    with mesh:
+        *pos, active, ph = fn(*(getattr(pb, k) for k in names), pb.active,
+                              _j(d["phase"]), *V)
+    p = unblock(particles.replace(active=active, **dict(zip(names, pos))), g, dec)
+    out = dc.particle_rows([np.asarray(getattr(p, k)) for k in names], np.asarray(active),
+                           np.asarray(ph))
+    return dict(out, err=0.0, iters=case.nt)
+
+
+def _jax_sharded_3d(case, d, mesh) -> dict:
+    """The 3D VE and VEP cases through ``justrelax_tpu/parallel/stokes3d.py``
+    and ``stokes3d_vep.py`` (tests/test_distributed3d.py's and
+    tests/test_distributed_vep3d.py's threading of the loading steps)."""
+    n = case.n
+    ni = (n, n, n)
+    g = Geometry(ni, (1.0, 1.0, 1.0))
+    dec = Decomp3D.make(ni, case.mesh)
+    zc = np.zeros(ni)
+    inv = dict(inv_dx=1.0 / g.di[0], inv_dy=1.0 / g.di[1], inv_dz=1.0 / g.di[2])
+    faces = Faces(**dc.ALL_FACES)
+
+    def B(name, A, extra=None):
+        return _j(dc._blocked_3d(case, name, A, extra))
+
+    def unB(name, A):
+        return dc.unblock(case, name, np.asarray(A))
+
+    if case.kind == "ve3d":
+        from justrelax_tpu.parallel.stokes3d import solve_ve_sharded_3d
+
+        bc = VelocityBoundaryConditions(**{case.setup: faces})
+        pt = PTStokesCoeffs.make(g.li, g.di, CFL=1.0 / math.sqrt(3.0), eps_rel=1.0e-30,
+                                 eps_abs=1.0e-30)
+        shapes = dict(Vx=(n + 1, n + 2, n + 2), Vy=(n + 2, n + 1, n + 2),
+                      Vz=(n + 2, n + 2, n + 1), tyz=(n, n + 1, n + 1), txz=(n + 1, n, n + 1),
+                      txy=(n + 1, n + 1, n))
+        glob = {k: np.zeros(shapes.get(k.replace("_o", ""), ni)) for k in (
+            "Vx", "Vy", "Vz", "P", "P0", "Q", "txx", "tyy", "tzz", "tyz", "txz", "txy",
+            "txx_o", "tyy_o", "tzz_o", "tyz_o", "txz_o", "txy_o")}
+        glob.update(eta=d["eta"], G=d["G"], K=d["K"], fx=zc, fy=zc, fz=d["rho"])
+        blocks = {k: B(k, v) for k, v in glob.items()}
+        blocks.update(inv)
+        with mesh:
+            res = solve_ve_sharded_3d(mesh, dec, blocks, pt, bc, d["dt"], iter_max=case.iters,
+                                      nout=case.nout)
+        out = {k: unB(k, getattr(res, k)) for k in dc.VE3D_FIELDS}
+        out.update(err=float(res.err), iters=int(res.iters))
+        return out
+
+    from justrelax_tpu.parallel.stokes3d_vep import solve_vep_sharded_3d
+    from justrelax_tpu.rheology.materials import Material, MaterialStack
+
+    tau_y, phi = 0.8, 30.0
+    common = dict(Kb=4.0, eta0=1.0, is_plastic=1.0, C=tau_y / math.cos(math.radians(phi)),
+                  friction_angle=phi, eta_reg=8.0e-3)
+    mat = MaterialStack.make([Material(G=1.0, **common), Material(G=0.5, **common)])
+    pt = PTStokesCoeffs.make(g.li, g.di, eps_rel=1.0e-30, eps_abs=1.0e-30,
+                             CFL=0.9 / math.sqrt(3.1))
+    bc = VelocityBoundaryConditions(free_slip=faces)
+    glob = dict(Vx=d["Vx"], Vy=d["Vy"], Vz=d["Vz"], P=zc, Q=zc, EII_pl=zc, eta=np.ones(ni))
+    edge = dict(tyz=(n, n + 1, n + 1), txz=(n + 1, n, n + 1), txy=(n + 1, n + 1, n))
+    for k in ("txx", "tyy", "tzz", "tyz_c", "txz_c", "txy_c", "tyz", "txz", "txy"):
+        glob[k] = glob[k + "_o"] = np.zeros(edge.get(k, ni))
+    blocks = {k: B(k, v) for k, v in glob.items()}
+    for k, ex in (("pr_c", (0, 0, 0)), ("pr_yz", (0, 1, 1)), ("pr_xz", (1, 0, 1)),
+                  ("pr_xy", (1, 1, 0))):
+        blocks[k] = _j(dc._blocked_phase_3d(case, d[k], ex))
+    # one compile for every step
+    solve = jax.jit(lambda arrays: solve_vep_sharded_3d(
+        mesh, dec, dict(arrays, **inv), pt, bc, mat, d["dt"], iter_max=case.iters,
+        iter_min=100, nout=case.nout))
+    steps = []
+    with mesh:
+        for _ in range(case.nt):
+            res = solve(blocks)
+            for k in ("Vx", "Vy", "Vz", "P", "eta", "txx", "tyy", "tzz", "tyz_c", "txz_c",
+                      "txy_c", "tyz", "txz", "txy"):
+                blocks[k] = getattr(res, k)
+            for k in ("txx", "tyy", "tzz", "tyz_c", "txz_c", "txy_c", "tyz", "txz", "txy"):
+                blocks[k + "_o"] = getattr(res, k)
+            out = {k: unB(k, getattr(res, k)) for k in dc.VEP3D_FIELDS}
+            out.update(err=float(res.err), iters=int(res.iters))
+            steps.append(out)
+    return dict(steps=steps)
+
+
 def global_diffs(a: dict, b: dict) -> dict:
     """Each field's max |a − b| over max |b| (both global)."""
     out = {}
@@ -195,7 +362,13 @@ def as_global(case, result: dict) -> dict:
 
 def assert_matches(case, port: dict, ref: dict, what: str):
     """Fields within FIELD_TOL of their max, equal iterations, err within
-    ERR_RTOL, step by step."""
+    ERR_RTOL, step by step; the kinds of ``dc.case_gate`` with their own
+    gates."""
+    if case.kind in ("ve3d", "vep3d", "dyrel", "particles", "particles3d"):
+        worst, tol, iters_ok, err_ok = dc.case_gate(case, port, ref)
+        assert iters_ok and err_ok and worst <= tol, (what, case.label, worst, tol, iters_ok,
+                                                      err_ok)
+        return
     for step, (a, b) in enumerate(zip(dc.steps_of(port), dc.steps_of(ref))):
         assert a["iters"] == b["iters"], (what, step)
         diffs = global_diffs(as_global(case, a), b)

@@ -1102,7 +1102,6 @@ def test_distributed_world_of_one_nccl(cuda, label):
     card, its serial plain solve on the card, equal iterations, fields
     within 1e-12 of their max (chip_smoke.py phase 42 a)."""
     import dist_cases as dc
-    from chip_smoke import DIST_TOL, dist_compare
     from justrelax_tpu_torch.parallel import launch, multihost
     from justrelax_tpu_torch.parallel.mesh import make_grid_mesh
 
@@ -1115,8 +1114,8 @@ def test_distributed_world_of_one_nccl(cuda, label):
         got = dc.sharded_solve(one, make_grid_mesh(one.mesh, device=cuda))
     finally:
         multihost.shutdown()
-    worst, iters_ok, err_ok = dist_compare(one, got, dc.serial_solve(case, cuda))
-    assert iters_ok and err_ok and worst <= DIST_TOL, (label, worst)
+    worst, tol, iters_ok, err_ok = dc.case_gate(one, got, dc.serial_solve(case, cuda))
+    assert iters_ok and err_ok and worst <= tol, (label, worst)
 
 
 def test_distributed_gloo_four_on_the_card(cuda):
@@ -1124,18 +1123,118 @@ def test_distributed_gloo_four_on_the_card(cuda):
     host memory: the VE cases against the serial solve on the card, and
     ``overlap=True`` bit-equal to ``overlap=False`` (phase 42 b)."""
     import dist_cases as dc
-    from chip_smoke import DIST_TOL, dist_compare
 
     got = dc.world("ve", device="cuda", backend="gloo", timeout=300).result()
     assert not any(got["launches"].values()), got["launches"]
     for label, case in dc.suite_cases("test").items():
         if case.kind != "ve":
             continue
-        worst, iters_ok, err_ok = dist_compare(case, got[label], dc.serial_solve(case, cuda))
-        assert iters_ok and err_ok and worst <= DIST_TOL, (label, worst)
+        worst, tol, iters_ok, err_ok = dc.case_gate(case, got[label],
+                                                    dc.serial_solve(case, cuda))
+        assert iters_ok and err_ok and worst <= tol, (label, worst)
     for setup in ("ve_solcx", "ve_full_terms"):
         for k in dc.VE_FIELDS:
             assert np.array_equal(got[setup][k], got[setup + "_no_overlap"][k])
+
+
+NEW_KINDS = ("ve3d", "vep3d", "dyrel", "particles", "particles3d")
+
+
+@pytest.mark.parametrize("label", ["ve3d_free_slip_xy", "ve3d_no_slip_xy", "vep3d_xy",
+                                   "dyrel_2x2", "particles_2x2", "particles3d_xy"])
+def test_distributed_world_of_one_nccl_new_kinds(cuda, label):
+    """The 3D VE and VEP, DYREL and particle cases on a world of one on
+    NCCL in this process, against their serial plain solves on the card,
+    each with its gate (``dist_cases.case_gate``; phase 42 a)."""
+    import dist_cases as dc
+    from justrelax_tpu_torch.parallel import launch, multihost
+    from justrelax_tpu_torch.parallel.mesh import make_grid_mesh
+
+    case = dc.suite_cases("test")[label]
+    one = dataclasses.replace(case, mesh=(1,) * len(case.mesh))
+    multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0, backend="nccl", device=cuda,
+                         timeout=120)
+    try:
+        got = dc.sharded_solve(one, make_grid_mesh(one.mesh, device=cuda))
+    finally:
+        multihost.shutdown()
+    worst, tol, iters_ok, err_ok = dc.case_gate(one, got, dc.serial_solve(case, cuda))
+    assert iters_ok and err_ok and worst <= tol, (label, worst, tol)
+
+
+@pytest.mark.parametrize("suite", NEW_KINDS)
+def test_distributed_gloo_four_on_the_card_new_kinds(cuda, suite):
+    """Four ranks on the one card over gloo, each batch staged through host
+    memory: every case of the kind against its serial solve on the card
+    (phase 42 b); no kernel launched."""
+    import dist_cases as dc
+
+    got = dc.world(suite, device="cuda", backend="gloo", timeout=600).result()
+    assert not any(got["launches"].values()), got["launches"]
+    refs = {}
+    for label, case in dc.suite_cases("test").items():
+        if case.kind != suite:
+            continue
+        key = dc.setup_key(case)
+        refs.setdefault(key, dc.serial_solve(case, cuda))
+        worst, tol, iters_ok, err_ok = dc.case_gate(case, got[label], refs[key])
+        assert iters_ok and err_ok and worst <= tol, (label, worst, tol)
+
+
+def test_dyrel_without_a_hook_replays_its_graphs(cuda):
+    """With no halo hook ``solve_dyrel`` on the card captures its chunk once
+    and replays it, as before the hook existed, and its 16² solve matches
+    the CPU's within phase 31's limits with equal iterations."""
+    import dist_cases as dc
+    from chip_smoke import DYREL_CARD_VS_CPU_LIMITS, dyrel_chunks, dyrel_field_diffs
+    from justrelax_tpu_torch.core.grid import Geometry
+    from justrelax_tpu_torch.ops.bc import VelocityBoundaryConditions
+    from justrelax_tpu_torch.solvers.dyrel import solve_dyrel
+
+    d = dc.dyrel_inputs(16)
+
+    def run(dev):
+        f = dict(dtype=torch.float64, device=dev)
+        return solve_dyrel(dc.dyrel_state(d, dev, torch.float64), Geometry((16, 16), (1.0, 1.0)),
+                           VelocityBoundaryConditions(**dc.FREE_SLIP),
+                           dc.dyrel_material(dev, torch.float64),
+                           torch.as_tensor(d["pr_c"], **f), torch.as_tensor(d["pr_v"], **f),
+                           d["dt"], **dc.DYREL_KW)
+
+    with dyrel_chunks() as rec:
+        sc, ic = run(cuda)
+    assert len(rec["solves"]) == 1 and len(rec["replays"]) == ic.iters // dc.DYREL_KW["nout"]
+    sh, ih = run(torch.device("cpu"))
+    assert ic.iters == ih.iters
+    worst = dyrel_field_diffs(sc, sh)
+    over = {k: v for k, v in worst.items() if v > DYREL_CARD_VS_CPU_LIMITS.get(k, 1e-10)}
+    assert not over, over
+
+
+def test_dyrel_hooked_chunk_runs_eagerly_on_the_card(cuda):
+    """A hooked solve's chunk runs eagerly on the card: no graph is
+    captured, and asking for one raises."""
+    import dist_cases as dc
+    from justrelax_tpu_torch.core.grid import Geometry
+    from justrelax_tpu_torch.ops.bc import VelocityBoundaryConditions
+    from justrelax_tpu_torch.parallel.dyrel import DyrelWindow
+    from justrelax_tpu_torch.parallel.mesh import make_grid_mesh
+    from justrelax_tpu_torch.solvers import dyrel
+
+    d = dc.dyrel_inputs(8)
+    f = dict(dtype=torch.float64, device=cuda)
+    win = DyrelWindow(make_grid_mesh((1, 1), device=cuda), (8, 8))
+    s = dyrel._DyrelSolve(dc.dyrel_state(d, cuda, torch.float64), Geometry((8, 8), (1.0, 1.0)),
+                          VelocityBoundaryConditions(**dc.FREE_SLIP),
+                          dc.dyrel_material(cuda, torch.float64), torch.as_tensor(d["pr_c"], **f),
+                          torch.as_tensor(d["pr_v"], **f), d["dt"], None, 20.0, 1.0, True, 1e-2,
+                          (-math.inf, math.inf), None, None, halo=win)
+    s.set_P(s.P0)
+    s.set_tuning(torch.tensor(0.0, **f), 0.99)
+    s.run_chunk(3)
+    assert s.graphs is None and bool(torch.isfinite(s.Vx).all())
+    with pytest.raises(RuntimeError, match="eagerly"):
+        s.capture(3)
 
 
 def test_nccl_refuses_two_ranks_on_one_card(cuda):
