@@ -362,6 +362,28 @@ Run from the root of a checkout. Phases, each printing JSON lines:
               particle kept, and the cells whose occupancy differs
               counted). Every kernel's count stays 0, in this
               process and in each rank.
+43. bench_families: the kernel-family bench harness
+              (justrelax_tpu_torch/utils/bench_kernels.py), after phase 25
+              and before phase 28 starts its processes (the eager families'
+              times are the host's):
+              each of its 21 families at its JAX default size in f32 on the
+              card (run_bench_families): build seconds; the launches of one
+              step (counts set to 0 just before it: each kernel family
+              launches its kernel, B1/B4, B2/B3, B5, B7, B8, B6 or B9, and no
+              other; a plain family none); ms per iteration by CUDA events as
+              the slope between two iteration counts (bench_slope: the
+              second raised until the slope spans BENCH_SPAN_MS); GUPS,
+              T_eff = bytes_per_iter / t and its share of the HBM peak; a plain
+              family's actual stream (2x carry + consts + closure) and its
+              share; each kernel family's output after BENCH_F32_NOUT
+              iterations against its kernel's plain version on the same
+              inputs (bench_f32_gap: 1e-4, or twice the plain version's own
+              f32 error). Its cuda tests, at small sizes in f64 and f32:
+              python -m pytest tests/test_torch_cuda.py -m cuda -q
+              --noconftest -k bench_family.
+              Phases 12-13 (thermal_1024_setup), 17 (ve3d_bench_inputs), 21
+              and 24 (vep3d_bench_inputs) build their inputs with the same
+              factories.
 
 Bounds are the bytes an iteration must move over the HBM peak, counted from
 the run's own inputs (hopper_stokes_vep.vep_chunk_words and
@@ -372,7 +394,8 @@ fused 3D VEP chunk; R: its 2 MiB read and 2 MiB written).
 
 Then the script's seconds (the line "elapsed"), the kernels line (each
 entry with its launches on the main path it
-was first ported for, and launches_models: its launches in phases 28-42),
+was first ported for, launches_models: its launches in phases 28-42, and
+launches_bench: its launches per bench family in phase 43),
 and last {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; with no CUDA device it exits non-zero before
 printing any result. With --parent DIR (a parent commit's
@@ -490,6 +513,7 @@ from justrelax_tpu_torch.solvers.stokes3d_vep import canvas_chunk_inputs, solve_
 from justrelax_tpu_torch.rheology.materials import Material, MaterialStack  # noqa: E402
 from justrelax_tpu_torch.rheology.viscosity import phase_viscosity  # noqa: E402
 from justrelax_tpu_torch.scripts import repro_2d_dma  # noqa: E402
+from justrelax_tpu_torch.utils import bench_kernels as bk  # noqa: E402
 import dist_cases as dc  # noqa: E402
 
 FIELDS = ("Vx", "Vy", "theta", "P", "txx", "tyy", "txy_c", "txy_v", "eta",
@@ -582,14 +606,15 @@ def rel_diffs(a, b):
 
 
 def to_f64(x):
-    """A chunk argument in float64 (tensors, tuples of them and the material
-    stack)."""
+    """A chunk argument or result in float64 (tensors, tuples and named
+    tuples of them, and the material stack)."""
     if isinstance(x, torch.Tensor):
         return x.double()
     if isinstance(x, MaterialStack):
         return x.to(dtype=torch.float64)
     if isinstance(x, tuple):
-        return tuple(map(to_f64, x))
+        items = [to_f64(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
     return x
 
 
@@ -955,20 +980,15 @@ def thermal_case(name, n, dtype, dev):
 
 
 def thermal_1024_setup(n, dtype):
-    """bench_kernels.py::pallas_thermal2d at n²: L = 100 km, K = 3,
+    """The pallas_thermal2d family (utils/bench_kernels.py) at n² on the
+    default device, as heatdiffusion_PT's inputs: L = 100 km, K = 3,
     ρCp = 3.3e6, dt = 1.5e11, T = 1500 + 10·N(0, 1), no_flux left/right,
-    constant_value top 1500 / bottom 1600, H = 0; the state on the default
-    device. Returns (thermal, pt, bc, geometry, K, ρCp, dt)."""
-    geometry = Geometry((n, n), (100.0e3, 100.0e3))
-    thermal = ThermalState.make((n, n), dtype=dtype)
-    kw = dict(dtype=dtype, device=thermal.T.device)
-    K, rc, dt = torch.full((n, n), 3.0, **kw), torch.full((n, n), 3.3e6, **kw), 1.5e11
-    bc = TemperatureBoundaryConditions(no_flux=Faces(left=True, right=True),
-                                       constant_value=Faces(top=1500.0, bot=1600.0))
-    T = thermal_bcs(torch.as_tensor(
-        1500.0 + 10.0 * np.random.default_rng(0).normal(size=(n + 2, n + 2)), **kw), bc)
-    pt = PTThermalCoeffs.make(K, rc, dt, geometry.di, geometry.li)
-    return thermal.replace(T=T, Told=T), pt, bc, geometry, K, rc, dt
+    constant_value top 1500 / bottom 1600, H = 0. Returns (thermal, pt, bc,
+    geometry, K, ρCp, dt)."""
+    step, (T, _, _), (_, K, rc, _), _, _ = bk.make_family("pallas_thermal2d", n=n, dtype=dtype)
+    s = step.setup
+    thermal = ThermalState.make((n, n), dtype=dtype).replace(T=T, Told=T)
+    return thermal, s["coeffs"], s["bcs"], s["geometry"], K, rc, s["dt"]
 
 
 # a parent commit's tree (its justrelax_tpu_torch/ops and csrc), from
@@ -1319,6 +1339,8 @@ def main():
     b6_line, b9_line, bench, tau_edges = run_vep3d(dev, smi, kind)
     b8_line = run_vep3d_chunk(dev, smi, kind, bench, tau_edges)
     r_line = run_window_copy(dev, smi, kind)
+    # before phase 28 starts its processes: the eager families time the host
+    bench_launches = run_bench_families(dev, smi, kind)
     # the longest goldens of phases 33, 36 and 39 run in processes of their
     # own beside phase 28's, whose processes wait on the host's dispatch;
     # phase 39 runs in this process while they do; all are collected before
@@ -1356,6 +1378,9 @@ def main():
     for line in lines:
         line["launches_per_iteration"] = per_iter[line["name"]]
         line["launches_models"] = model_launches.get(line["name"], {})
+        line["launches_bench"] = bench_launches.get(line["name"], {})
+    check(all(line["launches_bench"] for line in lines if line["name"] != "window_copy"),
+          "bench: a kernel launched by no family")
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1654,27 +1679,15 @@ def solvi3d_inputs(n, dtype, dev):
 
 
 def ve3d_bench_inputs(n, dtype, dev):
-    """bench_kernels.py::pallas_ve3d_blocked at n³: η = exp(0.3·N(0, 1)),
-    fz ~ N(0, 1) (seed 0), the viscous coefficient form (G = K = dt = ∞),
-    zero fields, all free slip. Returns (carry, packed coefficients,
-    inv_di, words per cell)."""
-    kw = dict(dtype=dtype, device=dev)
-    ni = (n, n, n)
-    geometry = Geometry(ni, (1.0, 1.0, 1.0))
-    pt = PTStokesCoeffs.make(geometry.li, geometry.di)
-    rng = np.random.default_rng(0)
-    eta = torch.as_tensor(np.exp(0.3 * rng.normal(size=ni)), **kw)
-    fz = torch.as_tensor(rng.normal(size=ni), **kw)
-    z = torch.zeros(ni, **kw)
-    eta_tau = maxloc(eta, 1)
-    co = ve3d_canvas_coefficients(eta, eta_tau, pt.r, pt.theta_dtau, pt.etadtau,
-                                  fx=z, fy=z, fz=fz)
-    X = n + 2
-    carry = tuple(torch.zeros((X, X, X), **kw) for _ in range(10))
-    packed = h3.pack_coeffs(co, derive_from=(eta, eta_tau, (pt.r / pt.theta_dtau,
-                                                            pt.theta_dtau, pt.etadtau)))
-    return (carry, packed, tuple(1.0 / d for d in geometry.di),
-            ve3d_words(eta, eta_tau, (z, z, fz)))
+    """The pallas_ve3d_blocked family (utils/bench_kernels.py) at n³:
+    η = exp(0.3·N(0, 1)), fz ~ N(0, 1) (seed 0), the viscous coefficient
+    form (G = K = dt = ∞), zero fields, all free slip. Returns (carry,
+    packed coefficients, inv_di, words per cell)."""
+    step, carry, co, _, _ = bk.make_family("pallas_ve3d_blocked", n=n, dtype=dtype, device=dev)
+    eta, eta_tau = step.closure["eta"], step.closure["eta_tau"]
+    packed = h3.pack_coeffs(co, derive_from=(eta, eta_tau, step.setup["pt_scalars"]))
+    # a face average of the body force varies where its cell field does
+    return carry, packed, step.setup["inv_di"], ve3d_words(eta, eta_tau, co.f)
 
 
 def time_ve3d(carry, co, inv_di, nk, npl):
@@ -2181,42 +2194,18 @@ def vep3d_hybrid_setup(dtype, dev):
 
 
 def vep3d_bench_inputs(n, dtype, dev):
-    """bench_kernels.py::vep3d_canvas (:1026-1165) at n³, the configuration
-    of its pallas_vep3d_edges family: ShearBand3D-like material with Kb = 4,
-    a weak inclusion of radius 0.1, τxx_o = −τyy_o = 1, zero stresses, dt =
+    """The vep3d_canvas, pallas_vep3d_edges and pallas_vep3d_split families
+    (utils/bench_kernels.py) at n³: ShearBand3D-like material with Kb = 4, a
+    weak inclusion of radius 0.1, τxx_o = −τyy_o = 1, zero stresses, dt =
     0.125. Returns (carry, consts for B6, consts for B9, the plain canvas
     chunk's consts, material, inv_di, chunk keywords)."""
-    kw = dict(dtype=dtype, device=dev)
-    ni = (n, n, n)
-    geometry = Geometry(ni, (1.0, 1.0, 1.0))
-    common = dict(rho0=0.0, Kb=4.0, is_plastic=1.0, C=1.6 / math.cos(math.radians(30.0)),
-                  friction_angle=30.0, dilation_angle=0.0, eta_reg=1.25e-2)
-    material = MaterialStack.make([Material(G=1.0, eta0=1.0, **common),
-                                   Material(G=0.5, eta0=0.1, **common)], **kw)
-    X, Y, Z = geometry.cell_centers_mesh()
-    inside = (X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.5) ** 2 <= 0.01
-    pr = phase_ratios_from_field(torch.as_tensor(inside.astype(np.int64), device=dev), 2,
-                                 dtype=dtype)
-    pt = PTStokesCoeffs.make(geometry.li, geometry.di, CFL=0.75 / math.sqrt(3.1))
-    bc = VelocityBoundaryConditions(free_slip=Faces(left=True, right=True, top=True, bot=True,
-                                                    front=True, back=True))
-    xv = torch.as_tensor(geometry.xvi[0], **kw)
-    zv = torch.as_tensor(geometry.xvi[2], **kw)
-    V = flow_bcs((xv[:, None, None].expand(n + 1, n + 2, n + 2),
-                  torch.zeros((n + 2, n + 1, n + 2), **kw),
-                  (-zv)[None, None, :].expand(n + 2, n + 2, n + 1)), bc)
-    z = torch.zeros(ni, **kw)
-    edges = (torch.zeros((n, n + 1, n + 1), **kw), torch.zeros((n + 1, n, n + 1), **kw),
-             torch.zeros((n + 1, n + 1, n), **kw))
-    eta = torch.where(torch.as_tensor(inside, device=dev), 0.1, 1.0).to(dtype)
-    one = torch.ones(ni, **kw)
-    carry, co6, co9, material, inv_di, ckw = _vep3d_inputs(
-        geometry, material, pr.center, (pr.edge_yz, pr.edge_xz, pr.edge_xy), V, z, z,
-        (z,) * 6, edges, eta, z, edges,
-        (one, -one, z, z, z, z), edges, z, z, z, 0.125, pt)
-    co_plain = vep3d_canvas_consts(material, (one, -one, z, z, z, z), edges, z, z, z,
-                                   pr.center, (pr.edge_yz, pr.edge_xz, pr.edge_xy))
-    return carry, co6, co9, co_plain, material, inv_di, ckw
+    def family(name):
+        return bk.make_family(name, n=n, dtype=dtype, device=dev)
+
+    step, carry, co_plain, _, _ = family("vep3d_canvas")
+    co6, co9 = family("pallas_vep3d_edges")[2], family("pallas_vep3d_split")[2]
+    s = step.setup
+    return carry, co6, co9, co_plain, s["material"], s["inv_di"], s["kw"]
 
 
 def time_pair(kernel, plain, nk=1, npl=1):
@@ -2895,6 +2884,137 @@ def run_window_copy(dev, smi, kind):
         "per": "copy (device time)",
         "per_mode": per_mode,
     }
+
+
+# ---- the kernel-family bench harness (phase 43) ------------------------------
+# How each kernel family's output is held to its kernel's plain version:
+# (relative differences, f64 tolerance after one iteration, f64 tolerance
+# after BENCH_F64_NOUT iterations), the tolerances of the kernel's own
+# parity phases
+BENCH_CHECKS = {
+    "stokes_chunk": (rel_diffs_ve, TOL_VE_NOUT1, TOL_VE_NOUT500),
+    "stokes_vep_chunk": (rel_diffs, TOL_NOUT1, TOL_NOUT50),
+    "thermal_chunk": (rel_diffs_th, TOL_TH_NOUT1, TOL_TH_NOUT500),
+    "stokes3d_chunk": (rel_diffs_ve3d, TOL_VE3D_NOUT1, TOL_VE3D_NOUT200),
+    "stokes3d_vep_chunk": (rel_diffs_vep3d, TOL_VEP3D_CALL, TOL_VEP3D_NOUT50),
+    "vep3d_edges": (rel_diffs_vep3d, TOL_VEP3D_CALL, TOL_VEP3D_NOUT50),
+    "vep3d_edges_split": (rel_diffs_vep3d, TOL_VEP3D_CALL, TOL_VEP3D_NOUT50),
+}
+BENCH_F64_NOUT = 20   # f64 iterations of a kernel family held to its plain version
+BENCH_F32_NOUT = 10   # f32 iterations, phase 43 and the cuda tests
+# the card's time a family's slope spans: a wrapper's per-call set-up (up to
+# ~8 ms, varying by ~2 ms between calls) then moves it by a few per cent
+BENCH_SPAN_MS = 100.0
+BENCH_MAX_ITERS = 20_000
+
+
+def bench_points(name, step):
+    """(n₁, n₂): the iterations of the two points of a family's first
+    slope, so that an eager 3D family costs a few seconds at most."""
+    if step.kernel in ("vep3d_edges", "vep3d_edges_split"):
+        return 2, 12
+    if step.kernel is not None:
+        return 10, 110
+    if name.endswith("_254"):
+        return 1, 4
+    return (1, 5) if "3d" in name else (2, 12)
+
+
+def bench_vs_plain(step, carry, consts, nit):
+    """``nit`` iterations of a kernel family's step against its kernel's
+    plain version on the same inputs: (largest relative difference, per
+    field, the plain result)."""
+    rel = BENCH_CHECKS[step.kernel][0]
+    out = step(nit, carry, consts)
+    ref = step.reference(nit, carry, consts)
+    per = rel(out, ref)
+    return max(per.values()), per, ref
+
+
+def bench_f32_gap(name, step, carry, consts, nit, factory_kwargs):
+    """A kernel family's f32 step against its plain version, held as the
+    kernel phases hold f32: within 1e-4, or twice the plain version's own
+    f32 error against its f64 result (the family rebuilt in float64 on the
+    same device, only where the gap passes 1e-4). Returns (gap, tol, plain
+    f32 against f64 or None)."""
+    gap, _, ref = bench_vs_plain(step, carry, consts, nit)
+    p32 = None
+    if gap > TOL_F32_1024:
+        kw = dict(factory_kwargs, dtype=torch.float64, device=bk._leaves(carry)[0].device)
+        s64, c64, k64, _, _ = bk.make_family(name, **kw)
+        rel = BENCH_CHECKS[step.kernel][0]
+        p32 = max(rel(to_f64(ref), s64.reference(nit, c64, k64)).values())
+    return gap, max(TOL_F32_1024, 0.0 if p32 is None else 2.0 * p32), p32
+
+
+def bench_slope(step, carry, consts, n1, n2):
+    """ms per iteration of a family as the slope between ``n1`` and ``n2``
+    iterations (CUDA events, medians of 3 runs after a warm-up), ``n2``
+    raised until the slope spans BENCH_SPAN_MS of the card's time (at most
+    BENCH_MAX_ITERS iterations). Returns ([n1, n2], [t1, t2], ms)."""
+    def run_ms(n):
+        return cuda_time_ms(lambda: step(n, carry, consts), repeats=3)
+
+    t1, t2 = run_ms(n1), run_ms(n2)
+    k = math.ceil(BENCH_SPAN_MS / max((t2 - t1) / (n2 - n1), 1e-6))
+    if k > n2 - n1:
+        n2 = n1 + min(k, BENCH_MAX_ITERS)
+        t2 = run_ms(n2)
+    return [n1, n2], [t1, t2], (t2 - t1) / (n2 - n1)
+
+
+def run_bench_families(dev, smi, kind):
+    """Phase 43: every family of utils/bench_kernels.py at its JAX default
+    size in f32 on the card: its build seconds; the launches of one step of
+    n₂ iterations (counts set to 0 just before it; a kernel family launches
+    its kernel and no other, a plain family none); ms per iteration
+    (bench_slope); GUPS, T_eff = bytes_per_iter / t and its share of the
+    HBM peak; a plain family's actual stream (bk._stream_bytes) and its
+    share; a kernel family's BENCH_F32_NOUT iterations against its kernel's
+    plain version (bench_f32_gap). Returns {kernel: {family: launches}};
+    the counters are restored."""
+    saved = counts()
+    launches = {}
+    for name in bk.FAMILIES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, carry, consts, bpi, n_cells = bk.make_family(name, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n1, n2 = bench_points(name, step)
+        reset_counts()
+        out = step(n2, carry, consts)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        finite = all(bool(torch.isfinite(t).all()) for t in bk._leaves(out))
+        del out
+        check(finite, f"bench {name}: non-finite output")
+        if step.kernel is None:
+            check(not got, f"bench {name}: a plain family launched {got}")
+        else:
+            check(set(got) == {step.kernel}, f"bench {name}: launched {got}, not {step.kernel}")
+            launches.setdefault(step.kernel, {})[name] = got[step.kernel]
+        points, times, ms = bench_slope(step, carry, consts, n1, n2)
+        check(ms > 0.0, f"bench {name}: slope {ms} ms")
+        t_eff = bpi / (ms * 1e-3)
+        line = dict(family=name, kernel=step.kernel, dtype="float32", n_cells=n_cells,
+                    bytes_per_iter=bpi, build_s=build_s, n=points, ms_points=times,
+                    ms_per_iter=ms, GUPS=n_cells / (ms * 1e-3) / 1e9, T_eff_GBs=t_eff / 1e9,
+                    hbm_share=t_eff / HBM_PEAK[kind], launches=got)
+        if step.kernel is None:
+            stream = bk._stream_bytes(step, carry, consts)
+            line.update(stream_bytes=stream, stream_GBs=stream / (ms * 1e-3) / 1e9,
+                        stream_hbm_share=stream / (ms * 1e-3) / HBM_PEAK[kind])
+        else:
+            gap, tol, p32 = bench_f32_gap(name, step, carry, consts, BENCH_F32_NOUT, {})
+            line.update(nout=BENCH_F32_NOUT, max_rel_diff=gap, tol=tol,
+                        plain_f32_vs_plain_f64=p32)
+            check(gap <= tol, f"bench {name}: f32 {gap} > {tol}")
+        emit("bench_families", **line, nvidia_smi=smi)
+        del step, carry, consts
+        torch.cuda.empty_cache()
+    restore_counts(saved)
+    return launches
 
 
 # ---- the models of the module queue (phases 27-29) ---------------------------

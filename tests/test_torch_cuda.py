@@ -1246,3 +1246,71 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda):
         pytest.skip("two cards: NCCL may serve two ranks")
     msg = nccl_two_ranks_one_card()
     assert msg is not None and "NCCL" in msg.upper(), msg
+
+
+# ---- the kernel-family bench harness (utils/bench_kernels.py) ----------------
+# each kernel family at a small size (pallas_ve3d_blocked_254 is
+# pallas_ve3d_blocked at 254^3: chip_smoke.py phase 43 runs it)
+BENCH_SMALL = {
+    "pallas_ve2d": dict(n=62),
+    "pallas_ve2d_blocked": dict(n=70),
+    "pallas_vep2d": dict(n=62),
+    "pallas_vep2d_blocked": dict(n=70),
+    "pallas_thermal2d": dict(n=62),
+    "pallas_ve3d_blocked": dict(n=20),
+    "pallas_vep3d_blocked": dict(n=12),
+    "pallas_vep3d_edges": dict(n=12),
+    "pallas_vep3d_split": dict(n=12),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BENCH_SMALL))
+def test_bench_family_matches_plain_f64(cuda, name):
+    """f64: one iteration and BENCH_F64_NOUT iterations of the family's
+    step through its kernel against the kernel's plain version, under the
+    kernel's own parity tolerances; the step launches its kernel and leaves
+    its carry, consts and closure bit-unchanged."""
+    from chip_smoke import BENCH_CHECKS, BENCH_F64_NOUT, bench_vs_plain, counts
+    from justrelax_tpu_torch.utils import bench_kernels as bk
+
+    step, carry, consts, _, _ = bk.make_family(name, dtype=torch.float64, device=cuda,
+                                               **BENCH_SMALL[name])
+    inputs = bk._leaves((carry, consts, step.closure))
+    saved = [t.clone() for t in inputs]
+    _, tol1, tol_n = BENCH_CHECKS[step.kernel]
+    for nit, tol in ((1, tol1), (BENCH_F64_NOUT, tol_n)):
+        before = counts()[step.kernel]
+        gap, per, _ = bench_vs_plain(step, carry, consts, nit)
+        assert counts()[step.kernel] > before
+        assert gap <= tol, (name, nit, per)
+    assert all(torch.equal(a, b) for a, b in zip(inputs, saved))
+
+
+@pytest.mark.parametrize("name", sorted(BENCH_SMALL))
+def test_bench_family_matches_plain_f32(cuda, name):
+    """f32: BENCH_F32_NOUT iterations within 1e-4 of the plain version, or
+    twice the plain version's own f32 error against f64."""
+    from chip_smoke import BENCH_F32_NOUT, bench_f32_gap
+    from justrelax_tpu_torch.utils import bench_kernels as bk
+
+    kw = BENCH_SMALL[name]
+    step, carry, consts, _, _ = bk.make_family(name, device=cuda, **kw)
+    gap, tol, p32 = bench_f32_gap(name, step, carry, consts, BENCH_F32_NOUT, kw)
+    assert gap <= tol, (name, gap, tol, p32)
+
+
+def test_bench_family_built_on_cpu_runs_on_the_card(cuda):
+    """build_family_on_cpu: the family's tensors on the card, its step
+    through the kernel within rounding of the plain version on the CPU."""
+    from chip_smoke import rel_diffs
+    from justrelax_tpu_torch.utils import bench_kernels as bk
+
+    kw = dict(n=62, dtype=torch.float64)
+    step, carry, consts, _, _ = bk.build_family_on_cpu("pallas_vep2d", kw)
+    assert all(t.device.type == "cuda" for t in bk._leaves((carry, consts, step.closure)))
+    before = hv.stokes_vep_chunk.launches
+    out = step(1, carry, consts)
+    assert hv.stokes_vep_chunk.launches == before + 1
+    s0, c0, k0, _, _ = bk.make_family("pallas_vep2d", device="cpu", **kw)
+    ref = s0(1, c0, k0)
+    assert max(rel_diffs([t.cpu() for t in out], ref).values()) <= TOL_NOUT1
